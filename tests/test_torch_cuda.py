@@ -1,0 +1,67 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: each test skips without an NVIDIA card. This file imports no
+JAX, so it runs where the card is, without tests/conftest.py:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from ray_tpu_torch.ops import flash_attention as fa
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# (b, s_q, s_k, h, h_kv, d, causal)
+SHAPES = [
+    (1, 64, 64, 2, 2, 32, True),
+    (2, 130, 130, 4, 2, 64, True),
+    (1, 513, 513, 8, 2, 128, False),
+    (1, 17, 300, 4, 4, 128, True),     # s_q < s_k
+    (1, 200, 50, 4, 1, 64, True),      # s_q > s_k: 150 rows see no key
+    (3, 1, 129, 8, 8, 32, True),       # one query row, decode-shaped
+]
+
+# |kernel - plain| <= atol + rtol * |plain|: fp32 differs in summation order
+# only; bf16 rounds P before P.V and O at the end (one bf16 ulp).
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_flash_fwd_matches_plain(cuda, shape, dtype):
+    b, s_q, s_k, h, h_kv, d, causal = shape
+    g = torch.Generator(device=cuda).manual_seed(s_q * 131 + s_k)
+    q = torch.randn((b, s_q, h, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, s_k, h_kv, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, s_k, h_kv, d), generator=g, device=cuda).to(dtype)
+    before = fa.flash_fwd_cuda.launches
+    o, lse = fa._flash_fwd(q, k, v, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_cuda.launches == before + 1
+    o_ref, lse_ref = fa._reference_attention_torch(q, k, v, causal, d ** -0.5)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+    seen = lse_ref > -1e29
+    torch.testing.assert_close(lse[seen], lse_ref[seen], atol=1e-3, rtol=1e-5)
+    assert (lse[~seen] < -1e29).all()
+    assert (o.transpose(1, 2)[~seen] == 0).all()
+
+
+def test_flash_fwd_refuses_what_it_was_not_built_for(cuda):
+    q = torch.zeros((1, 8, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head size"):
+        fa.flash_fwd_cuda(q, q, q, True, 1.0)
+    q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float16"):
+        fa.flash_fwd_cuda(q, q, q, True, 1.0)
