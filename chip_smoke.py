@@ -5,30 +5,47 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-  (a) build every CUDA kernel of the serving path from `ray_tpu_torch/ops/
-      csrc` with nvcc (one process per source, started together);
-  (b) hold each kernel against its plain PyTorch version on the card, at the
-      shapes the main path gives it and at edge cases (GQA, head sizes 32
-      to 128, ragged lengths, cross-length causal, rows that see no key);
-  (c) time each kernel at the Llama-3-8B attention shape beside its plain
-      version, the one PyTorch call that computes the same function (timed
-      only as a yardstick; the port never calls it) and the card's bound;
-  (d) the main path: Llama-3-8B at full width and depth in bf16, random
+  (a) build every CUDA kernel of the port from `ray_tpu_torch/ops/csrc`
+      with nvcc (one process per source, started together);
+  (b) hold the flash forward kernel against its plain PyTorch version on
+      the card, at the shapes the serving path gives it and at edge cases
+      (GQA, head sizes 32 to 128, ragged lengths, cross-length causal, rows
+      that see no key);
+  (c) time it at the Llama-3-8B attention shape beside its plain version,
+      the one PyTorch call that computes the same function (timed only as
+      a yardstick; the port never calls it) and the card's bound;
+  (f) hold the two backward kernels (dQ, dK/dV) against their plain
+      version in fp32 and bf16, at the shapes of tests/test_torch_cuda.py
+      and at the training path's, and one autograd round trip of
+      `flash_attention` against the plain backward;
+  (g) time them at the training shape (B=4, S=2048, H=32/8, D=128, bf16,
+      causal) beside the plain backward, the backward of
+      `scaled_dot_product_attention` (yardstick only) and the bound;
+  (d) the serving path: Llama-3-8B at full width and depth in bf16, random
       weights from a seed, `forward` on prompts of 300 to 2048 tokens
       through the flash kernel (n_layers launches a call), its last-position
       logits held against `forward_with_cache` prefill;
   (e) `InferenceEngine(max_batch=4, max_len=2048)` answers 8 greedy
-      requests (more than slots); a second run gives the same tokens.
+      requests (more than slots); a second run gives the same tokens;
+  (h) the training path, on the JAX package's train-bench configuration
+      (bench.py: Llama-3-8B layer widths, 5 layers, vocab 32000, chunked CE
+      of 1024, remat "dots", bf16, B=4, S=2048): `make_train_step` with
+      AdamW takes a warm-up step and 10 timed steps on one batch; each step
+      launches flash_fwd 2L times (remat reruns it), dQ and dK/dV L times.
+      Then 3 steps of the tiny fp32 config on cuda and on cpu from the same
+      weights agree.
 
-The launch counts are set to 0 just before (d) and read just after (e). The
-last three lines of stdout are the card's `nvidia-smi` name and power limit,
-one JSON object on the kernels, and `{"ok": true, "device": ...}`.
-Without CUDA, or without the repository beside it, it exits non-zero and
-prints no result.
+The launch counts are set to 0 just before each main path (serving: (d)
+and (e); training: (h)) and read just after it. The last three lines of
+stdout are the card's `nvidia-smi` name and power limit, one JSON object on
+the kernels, and `{"ok": true, "device": ...}`. Without CUDA, or without
+the repository beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import functools
+import gc
 import json
 import os
 import subprocess
@@ -41,9 +58,9 @@ import torch
 # Where the phases run. The card; a rehearsal may point it elsewhere.
 DEVICE = "cuda"
 
-# H100 SXM, dense (NVIDIA data sheet): what the card could do at best.
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
-PEAK_BYTES_PER_S = 3.35e12
+# What the card could do at best, (dense bf16 FLOP/s, bytes/s): set in
+# main() from the card's name (ray_tpu_torch/_private/accelerators/nvidia.py).
+PEAKS = None
 
 # Tolerances of kernel against plain version, |a - b| <= atol + rtol * |b|.
 # fp32: FMA in another order and __expf, errors ~1e-6 on values ~1.
@@ -51,6 +68,39 @@ PEAK_BYTES_PER_S = 3.35e12
 # one bf16 ulp of O (2^-8 relative) plus P's rounding.
 TOL = {"fp32": {"o": (1e-4, 1e-4), "lse": (1e-4, 1e-5)},
        "bf16": {"o": (1e-2, 1e-2), "lse": (1e-3, 1e-5)}}
+
+# Backward kernels against the plain backward, for each of dq, dk, dv:
+# |err| <= atol * max|plain| + rtol * |plain|. fp32: summation order and
+# __expf only. bf16: P and dS round to bf16 before their products (2^-9
+# relative each, summed over up to S terms of either sign) and the result
+# once (one bf16 ulp), so the absolute part scales with the gradient's size.
+BWD_TOL = {"fp32": (1e-4, 1e-4), "bf16": (1e-2, 1e-2)}
+
+# The shapes of tests/test_torch_cuda.py: (b, s_q, s_k, h, h_kv, d, causal).
+BWD_SHAPES = [
+    (1, 64, 64, 2, 2, 32, True),
+    (2, 130, 130, 4, 2, 64, True),
+    (1, 513, 513, 8, 2, 128, False),
+    (1, 17, 300, 4, 4, 128, True),     # s_q < s_k
+    (1, 200, 50, 4, 1, 64, True),      # s_q > s_k: 150 rows see no key
+    (3, 1, 129, 8, 8, 32, True),       # one query row
+]
+# The training path's attention: Llama-3-8B heads at B=4, S=2048.
+TRAIN_ATTN = (4, 2048, 2048, 32, 8, 128, True)
+
+# Tiny fp32 train steps, cuda (kernels) against cpu (plain versions) from
+# the same weights: fp32 on both, summation order, __expf and the kernels'
+# tiles. Loss and grad norm: relative 1e-4 (the port agrees with the JAX
+# step to ~1e-6 on the CPU). Parameters: an element whose gradient is at
+# rounding level takes an AdamW step of up to one learning rate in a
+# direction set by that rounding, so they agree to the learning rate.
+TINY_LR = 1e-3
+TINY_REL_TOL = 1e-4
+
+# The first training step's loss (chunked CE) against the loss from the full
+# `forward` logits on the same parameters: bf16 logits from products tiled
+# differently, averaged over B*S tokens. Relative.
+CHUNKED_LOSS_REL_TOL = 1e-3
 
 # forward (flash kernel) against forward_with_cache prefill (plain cache
 # attention) at 8B in bf16: both round activations to bf16 at every layer,
@@ -90,23 +140,47 @@ def attention_inputs(b, s_q, s_k, h, h_kv, d, dtype, seed, device):
     return q, k, v
 
 
-def flash_bound(b, s_q, s_k, h, h_kv, d, causal, dtype_name):
-    """Least time for the forward's work on this card, and what bounds it.
+def bound(nbytes, flops):
+    """Least time on this card for `nbytes` moved and `flops` of bf16 work:
+    (ms, "bytes" or "operations")."""
+    t_ops, t_bytes = flops / PEAKS[0], nbytes / PEAKS[1]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def visible_pairs(s_q, s_k, causal):
+    """(query, key) pairs that attention computes on."""
+    if not causal:
+        return s_q * s_k
+    off = s_k - s_q
+    return sum(max(0, min(s_k, i + off + 1)) for i in range(s_q))
+
+
+def flash_bound(b, s_q, s_k, h, h_kv, d, causal):
+    """Least time for the forward's work in bf16, and what bounds it.
     Bytes: q, k, v read once, o and lse written once. Operations: 4*d per
     (query, key) pair that this causal structure lets a query see."""
-    elem = 2 if dtype_name == "bf16" else 4
-    nbytes = elem * (2 * b * s_q * h * d + 2 * b * s_k * h_kv * d) \
+    nbytes = 2 * (2 * b * s_q * h * d + 2 * b * s_k * h_kv * d) \
         + 4 * b * h * s_q
-    if causal:
-        off = s_k - s_q
-        pairs = sum(max(0, min(s_k, i + off + 1)) for i in range(s_q))
-    else:
-        pairs = s_q * s_k
-    flops = 4.0 * d * pairs * b * h
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
-                                       else "operations"), flops
+    flops = 4.0 * d * visible_pairs(s_q, s_k, causal) * b * h
+    return (*bound(nbytes, flops), flops)
+
+
+def bwd_bounds(b, s_q, s_k, h, h_kv, d, causal):
+    """{kernel: (ms, bound_by, flops)} for the backward kernels in bf16.
+    dq reads q, k, v, dO, lse, delta and writes dq: 3 products (S, dP,
+    dS.K) of 2*d flops per visible pair. dkv reads the same and writes dk,
+    dv: 4 products (S, dP, P^T.dO, dS^T.Q)."""
+    pairs = visible_pairs(s_q, s_k, causal) * b * h
+    q_like, kv_like, rows = 2 * b * s_q * h * d, 2 * b * s_k * h_kv * d, \
+        8 * b * h * s_q
+    out = {}
+    for name, n_prod, nbytes in (
+            ("flash_bwd_dq", 3, 3 * q_like + 2 * kv_like + rows),
+            ("flash_bwd_dkv", 4, 2 * q_like + 4 * kv_like + rows)):
+        flops = n_prod * 2.0 * d * pairs
+        out[name] = (*bound(nbytes, flops), flops)
+    return out
 
 
 # -- (a) ---------------------------------------------------------------------
@@ -115,7 +189,7 @@ def phase_build():
     from ray_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    built = _build.build("flash_fwd")
+    built = _build.build("flash_fwd", "flash_bwd")
     log(f"[a] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     for b in built.values():
         log(f"[a] {b.name}: {b.path.name}, nvcc {b.seconds:.2f} s")
@@ -201,13 +275,138 @@ def phase_flash_time():
     vt = v.repeat_interleave(h // h_kv, dim=2).transpose(1, 2).contiguous()
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, scale=scale))
-    bound_ms, bound_by, flops = flash_bound(b, s, s, h, h_kv, d, True, "bf16")
+    bound_ms, bound_by, flops = flash_bound(b, s, s, h, h_kv, d, True)
     log(f"[c] flash_fwd at B={b} S={s} H={h}/{h_kv} D={d} bf16 causal: "
         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f}"
         f" ms, scaled_dot_product_attention {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by})")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# -- (f) ---------------------------------------------------------------------
+
+def bwd_inputs(shape, dtype, seed, device):
+    b, s_q, s_k, h, h_kv, d, _ = shape
+    q, k, v = attention_inputs(b, s_q, s_k, h, h_kv, d, dtype, seed, device)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn((b, s_q, h, d), generator=g, device=device).to(dtype)
+    return q, k, v, do
+
+
+def grad_errors(got, want, name):
+    """Max |err| of (dq, dk, dv) and whether each is inside BWD_TOL."""
+    atol, rtol = BWD_TOL[name]
+    errs, ok = [], True
+    for a, b in zip(got, want):
+        err = (a.float() - b.float()).abs()
+        ref = b.float().abs()
+        ok &= bool((err <= atol * float(ref.max()) + rtol * ref).all())
+        errs.append(float(err.max()))
+    return errs, ok
+
+
+def phase_bwd_check():
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    main_err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for i, shape in enumerate(BWD_SHAPES + [TRAIN_ATTN]):
+        b, s_q, s_k, h, h_kv, d, causal = shape
+        scale = d ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "bf16" if dtype == torch.bfloat16 else "fp32"
+            q, k, v, do = bwd_inputs(shape, dtype, 100 + i, DEVICE)
+            o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
+            got = fa._flash_bwd(q, k, v, o, lse, do, causal, scale)
+            torch.cuda.synchronize()
+            want = fa._flash_bwd_reference_torch(q, k, v, o, lse, do, causal,
+                                                 scale)
+            errs, ok = grad_errors(got, want, name)
+            unseen = lse < -1e29
+            zero_ok = bool((got[0].transpose(1, 2)[unseen] == 0).all())
+            tag = (f"b={b} s_q={s_q} s_k={s_k} h={h}/{h_kv} d={d} {name} "
+                   f"causal={causal}")
+            log(f"[f] {tag}: dq/dk/dv max_abs_err {errs[0]:.3e} / "
+                f"{errs[1]:.3e} / {errs[2]:.3e} (largest |dq|/|dk|/|dv| "
+                f"{float(want[0].float().abs().max()):.3g} / "
+                f"{float(want[1].float().abs().max()):.3g} / "
+                f"{float(want[2].float().abs().max()):.3g}), rows seeing no "
+                f"key {int(unseen.sum())}")
+            check(ok and zero_ok, f"flash backward disagrees at {tag}")
+            if shape == TRAIN_ATTN and dtype == torch.bfloat16:
+                main_err = {"flash_bwd_dq": errs[0],
+                            "flash_bwd_dkv": max(errs[1], errs[2])}
+            del q, k, v, do, o, lse, got, want
+    # One autograd round trip: flash_attention(...).backward(dO) on the card
+    # against the plain backward on the same tensors.
+    shape = (2, 300, 300, 32, 8, 128, True)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q, k, v, do = bwd_inputs(shape, dtype, 7, DEVICE)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fa.flash_attention(*leaves, causal=True)
+        o.backward(do)
+        _, lse = fa._flash_fwd(q, k, v, True, 128 ** -0.5)
+        want = fa._flash_bwd_reference_torch(q, k, v, o.detach(), lse, do,
+                                             True, 128 ** -0.5)
+        errs, ok = grad_errors([t.grad for t in leaves], want, name)
+        log(f"[f] autograd round trip {name} b=2 s=300 h=32/8 d=128: dq/dk/dv"
+            f" max_abs_err {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}")
+        check(ok, f"flash_attention autograd disagrees in {name}")
+    return main_err
+
+
+# -- (g) ---------------------------------------------------------------------
+
+def phase_bwd_time():
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    b, s, _, h, h_kv, d, causal = TRAIN_ATTN
+    scale = d ** -0.5
+    q, k, v, do = bwd_inputs(TRAIN_ATTN, torch.bfloat16, 99, DEVICE)
+    o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    ms = {
+        "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq_cuda(
+            q, k, v, do, lse, delta, causal, scale)),
+        "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, causal, scale)),
+    }
+    # The plain version computes both kernels' outputs in one function.
+    plain_ms = cuda_ms(lambda: fa._flash_bwd_reference_torch(
+        q, k, v, o, lse, do, causal, scale), iters=3, warmup=1)
+    # The library yardstick: the backward alone of one
+    # scaled_dot_product_attention call, KV heads expanded outside the timed
+    # region; it computes dq, dk and dv together. The port never calls it.
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt = k.repeat_interleave(h // h_kv, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(h // h_kv, dim=2).transpose(1, 2).contiguous()
+    kt.requires_grad_(True)
+    vt.requires_grad_(True)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         scale=scale)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    fwd_ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, causal, scale))
+    fwd_bound = flash_bound(b, s, s, h, h_kv, d, causal)
+    log(f"[g] flash_fwd at the training shape: {fwd_ms:.4f} ms "
+        f"({fwd_bound[2] / fwd_ms / 1e9:.1f} TFLOP/s), bound "
+        f"{fwd_bound[0]:.4f} ms")
+    bounds = bwd_bounds(*TRAIN_ATTN)
+    timing = {}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        bound_ms, bound_by, flops = bounds[name]
+        log(f"[g] {name} at B={b} S={s} H={h}/{h_kv} D={d} bf16 causal: "
+            f"{ms[name]:.4f} ms ({flops / ms[name] / 1e9:.1f} TFLOP/s), "
+            f"plain backward {plain_ms:.4f} ms, scaled_dot_product_attention"
+            f" backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {flops / 1e9:.1f} GFLOP)")
+        timing[name] = {"ms": ms[name], "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by}
+    return timing
 
 
 # -- (d) ---------------------------------------------------------------------
@@ -289,6 +488,193 @@ def phase_engine(cfg, params, seed):
         f" run, {n_decode / (t1 - t_prefill):.1f} tok/s")
 
 
+# -- (h) ---------------------------------------------------------------------
+
+def bench_config():
+    """The JAX package's train-bench configuration (bench.py:191-199):
+    Llama-3-8B layer widths at 5 layers, vocab 32000, chunked CE of 1024;
+    remat "dots" and bf16 are the config's defaults."""
+    from ray_tpu_torch.models import llama
+
+    return llama.LlamaConfig(
+        vocab_size=32_000, d_model=4096, n_layers=5, n_heads=32,
+        n_kv_heads=8, d_head=128, d_ff=14_336, max_seq_len=2048,
+        loss_chunk_size=1024)
+
+
+def kernel_counts():
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd": fa.flash_fwd_cuda.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq_cuda.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv_cuda.launches}
+
+
+def reset_kernel_counts():
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    for fn in (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
+        fn.launches = 0
+
+
+def kernel_group(name):
+    """A kernel's name -> the group the step's time is split into."""
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if f"{kernel}_kernel" in name:
+            return kernel
+    if any(t in name.lower() for t in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matrix products (cuBLAS)"
+    return "other (elementwise, reductions, AdamW, copies)"
+
+
+def profile_steps(step, state, data, n):
+    """Run n steps under torch.profiler; -> (state, [(kernel name, ms a
+    step, launches a step)]) from the device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            state, _ = step(state, data)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return state, sorted(kernels, key=lambda k: -k[1])
+
+
+def phase_train(cfg, batch, seq, steps, seed):
+    """The training main path; returns its kernel launch counts."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+
+    opt = adamw(3e-4, weight_decay=0.0)  # as bench.py:210
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    t0 = time.perf_counter()
+    state = init_train_state(functools.partial(llama.init, cfg, gen), opt,
+                             device=DEVICE)
+    step = make_train_step(functools.partial(llama.loss_fn, config=cfg), opt)
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, seq + 1)), device=DEVICE)
+    data = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    with torch.no_grad():  # the unchunked loss of the same parameters
+        logits = llama.forward(state.params, data["inputs"], cfg)
+        full_loss = float(torch.nn.functional.cross_entropy(
+            logits.flatten(0, 1), data["targets"].flatten()))
+        del logits
+    torch.cuda.synchronize()
+    log(f"[h] {cfg.n_layers} layers at Llama-3-8B widths, vocab "
+        f"{cfg.vocab_size}, bf16, remat {cfg.remat_policy}, loss chunk "
+        f"{cfg.loss_chunk_size}: {cfg.num_params() / 1e9:.3f} B params; "
+        f"init and the unchunked loss {time.perf_counter() - t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_kernel_counts()
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    per_step = []
+    t0 = time.perf_counter()
+    state, m = step(state, data)  # warm-up
+    first_loss = float(m["loss"])
+    warm_s = time.perf_counter() - t0
+    per_step.append(kernel_counts())
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        before = kernel_counts()
+        state, m = step(state, data)
+        after = kernel_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    counts = kernel_counts()
+    losses = torch.stack([m["loss"] for m in metrics]).float().cpu()
+    norms = torch.stack([m["grad_norm"] for m in metrics]).float().cpu()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    from ray_tpu_torch._private.accelerators.nvidia import (
+        bf16_peak_flops_per_device)
+    peak = bf16_peak_flops_per_device(torch.cuda.get_device_name(0))
+    tok_s = batch * seq / step_s
+    mfu = llama.flops_per_token(cfg, seq) * tok_s / peak
+    log(f"[h] B={batch} S={seq}: warm-up step {warm_s:.3f} s (loss "
+        f"{first_loss:.4f}; from full forward logits {full_loss:.4f}); "
+        f"{steps} steps on one batch: {step_s * 1e3:.2f} ms a step, "
+        f"{tok_s:.1f} tok/s, MFU {mfu:.4f} (of {peak / 1e12:.0f} TFLOP/s "
+        f"bf16 dense), peak memory {peak_gib:.2f} GiB")
+    log(f"[h] losses {[round(x, 4) for x in losses.tolist()]}; grad norms "
+        f"{[round(x, 4) for x in norms.tolist()]}")
+    log(f"[h] launches a step {per_step[1]}; in all {counts}")
+    check(bool(torch.isfinite(losses).all() and torch.isfinite(norms).all()),
+          "non-finite loss or grad norm")
+    check(float(losses[-1]) < first_loss, "the loss did not fall")
+    rel = abs(first_loss - full_loss) / abs(full_loss)
+    check(rel <= CHUNKED_LOSS_REL_TOL,
+          f"chunked loss {first_loss} and full loss {full_loss} differ "
+          f"(rel {rel:.3e})")
+    check(all(p == want for p in per_step),
+          f"launches per step {per_step}, not {want}")
+
+    # Where a step's device time goes: two more steps under torch.profiler.
+    state, kernels = profile_steps(step, state, data, 2)
+    busy = sum(ms for _, ms, _ in kernels)
+    groups = {}
+    for name, ms, _ in kernels:
+        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
+    log(f"[h] torch.profiler, 2 steps: kernels {busy:.2f} ms a step of the "
+        f"{step_s * 1e3:.2f} ms step (device idle share "
+        f"{1 - busy / (step_s * 1e3):.3f}); by group (ms a step): "
+        + ", ".join(f"{g} {ms:.2f}" for g, ms in
+                    sorted(groups.items(), key=lambda x: -x[1])))
+    for name, ms, n in kernels[:10]:
+        log(f"[h]   {ms:8.3f} ms {n:6.1f}x  {name[:110]}")
+    return kernel_counts()
+
+
+def phase_train_tiny(steps=3, seed=5):
+    """3 fp32 steps of LlamaConfig.tiny() on cuda (kernels) and cpu (plain
+    versions) from the same weights and batches."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+    from ray_tpu_torch.train.optim import tree_map
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+    weights = llama.init(cfg, torch.Generator().manual_seed(seed),
+                         device="cpu")
+    rng = np.random.default_rng(seed)
+    batches = [rng.integers(0, cfg.vocab_size, (2, 65)) for _ in range(steps)]
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        opt = adamw(TINY_LR, weight_decay=1e-4)
+        state = init_train_state(
+            lambda d: tree_map(lambda w: w.to(d, copy=True), weights), opt,
+            device=dev)
+        step = make_train_step(functools.partial(llama.loss_fn, config=cfg),
+                               opt)
+        out = []
+        for b in batches:
+            state, m = step(state, {"tokens": torch.as_tensor(b, device=dev)})
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev] = (out, state.params)
+    (got, p_got), (want, p_want) = runs[DEVICE], runs["cpu"]
+    rel = max(max(abs(a - b) / abs(b) for a, b in zip(x, y))
+              for x, y in zip(got, want))
+    from ray_tpu_torch.train.optim import tree_leaves
+    p_err = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(tree_leaves(p_got), tree_leaves(p_want)))
+    log(f"[h] tiny fp32, {steps} steps, cuda vs cpu: (loss, grad norm) "
+        f"{got} vs {want}; largest relative difference {rel:.3e}, "
+        f"parameters {p_err:.3e}")
+    check(rel <= TINY_REL_TOL and p_err <= TINY_LR,
+          "tiny train steps on cuda and cpu disagree")
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -304,25 +690,33 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ray_tpu_torch import device_info
+    from ray_tpu_torch._private.accelerators.nvidia import peaks
     from ray_tpu_torch.models import llama
-    from ray_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     info = device_info()
     card = nvidia_smi_line()
-    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    global PEAKS
+    PEAKS = peaks(info["kind"])
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}"
+        f"; peaks {PEAKS[0] / 1e12:.0f} TFLOP/s bf16, {PEAKS[1] / 1e12:.2f}"
+        " TB/s")
     t_start = time.perf_counter()
 
     phase_build()
     main_lengths = (300, 1000, 2048)
-    max_err = phase_flash_check(main_lengths)
-    timing = phase_flash_time()
+    max_err = {"flash_fwd": phase_flash_check(main_lengths)}
+    timing = {"flash_fwd": phase_flash_time()}
+    max_err.update(phase_bwd_check())
+    timing.update(phase_bwd_time())
+    gc.collect()
+    torch.cuda.empty_cache()
 
     cfg = llama.LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
-    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(0),
-                        device="cuda")
+    params = llama.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
     torch.cuda.synchronize()
     n_bytes = sum(w.numel() * w.element_size() for w in (
         [params[k] for k in ("embed", "final_norm", "lm_head")]
@@ -330,22 +724,39 @@ def main() -> int:
     log(f"[d] llama3_8b bf16: {cfg.num_params() / 1e9:.3f} B params, "
         f"{n_bytes / 2**30:.2f} GiB, init {time.perf_counter() - t0:.2f} s")
 
-    fa.flash_fwd_cuda.launches = 0
+    reset_kernel_counts()
     phase_forward(cfg, params, main_lengths, seed=1)
     phase_engine(cfg, params, seed=2)
-    launches = fa.flash_fwd_cuda.launches
-    check(launches > 0, "the main path never launched flash_fwd")
-    log(f"[d+e] flash_fwd launches on the main path: {launches}; peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+    serve = kernel_counts()
+    check(serve["flash_fwd"] > 0, "the serving path never launched flash_fwd")
+    log(f"[d+e] launches on the serving path: {serve}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    train = phase_train(bench_config(), batch=TRAIN_ATTN[0],
+                        seq=TRAIN_ATTN[1], steps=10, seed=3)
+    phase_train_tiny()
+    log(f"[h] launches on the training path: {train}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
 
+    sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu", 45),
+               "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu", 151),
+               "flash_bwd_dkv": ("ray_tpu_torch/ops/csrc/flash_bwd.cu", 201)}
+    kernels = []
+    for name, (source, line) in sources.items():
+        launches = serve[name] + train[name]
+        check(launches > 0, f"no main path launched {name}")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
+            "launches": launches,
+            "launches_by_path": {"serve": serve[name], "train": train[name]},
+            "max_abs_err": max_err[name], **timing[name]})
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/flash_attention.py:45",
-        "launches": launches, "max_abs_err": max_err, "max_err": max_err,
-        **timing}]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": info["platform"], "kind": info["kind"],
         "count": info["count"]}}))

@@ -1,23 +1,28 @@
-"""Llama-family decoder-only transformer in PyTorch: the inference path.
+"""Llama-family decoder-only transformer in PyTorch: training and inference.
 
 Counterpart of `ray_tpu/models/llama.py`: GQA attention (the hand-written
-flash-attention kernel on CUDA), RMSNorm, SwiGLU and RoPE over parameters
-kept as a plain dictionary of tensors, layers stacked on a leading L axis as
-the JAX pytree stacks them. The casts sit where the JAX package puts them, so
-bf16 rounds at the same points. The scan over layers becomes a Python loop.
+flash-attention kernels on CUDA, forward and backward), RMSNorm, SwiGLU and
+RoPE over parameters kept as a plain dictionary of tensors, layers stacked
+on a leading L axis as the JAX pytree stacks them. The casts sit where the
+JAX package puts them, so bf16 rounds at the same points. The scan over
+layers becomes a Python loop; its per-layer remat (`jax.checkpoint` with a
+policy) becomes `torch.utils.checkpoint` with selective checkpointing.
 
 The KV-cache paths update the cache in place where the JAX package donates
-it and returns a new one. Training (`loss_fn`, `chunked_ce`, remat), the
-paged cache and the mesh (sharding rules, ring attention) are later slices.
+it and returns a new one. The paged cache and the mesh (sharding rules, ring
+attention) are later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.ops.flash_attention import NEG_INF, flash_attention
@@ -36,6 +41,13 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 8192
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    # "full" recomputes everything; "dots" saves the outputs of the
+    # un-batched matrix products and recomputes the rest (attention too).
+    remat_policy: str = "dots"
+    # >0: compute the training CE over sequence chunks of this size so the
+    # full [B,S,V] fp32 logits tensor never materializes (chunked_ce).
+    loss_chunk_size: int = 0
 
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
@@ -209,16 +221,56 @@ def _mlp_sublayer(x, params, config: LlamaConfig):
     return x + (F.silu(gate) * up) @ params["w_down"]
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """`dots_with_no_batch_dims_saveable`: keep what an un-batched matrix
+    product (aten.mm, which every projection here lowers to) returns;
+    recompute the rest, batched products (aten.bmm) and the flash-attention
+    kernel included, as the JAX policy recomputes its pallas_call."""
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(config: LlamaConfig):
+    """config.remat_policy -> the `context_fn` of torch.utils.checkpoint:
+    "full" saves nothing; "dots" saves the matrix products' outputs.
+    "dots_attn" (which also saves the flash output by name) is not ported."""
+    name = config.remat_policy
+    if name == "full":
+        return None
+    if name == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots)
+    raise ValueError(f"remat_policy {name!r} not in ('full', 'dots')")
+
+
+def _layer(x, params, positions, config: LlamaConfig):
+    x = _attn_sublayer(x, params, positions, config)
+    return _mlp_sublayer(x, params, config)
+
+
 def forward_hidden(params, tokens, config: LlamaConfig):
-    """tokens [B,S] -> final-norm hidden states [B,S,D] (pre-lm_head)."""
+    """tokens [B,S] -> final-norm hidden states [B,S,D] (pre-lm_head).
+
+    With config.remat and gradients enabled each layer is checkpointed under
+    config.remat_policy; without gradients (serving) nothing is."""
     c = config
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = params["embed"][tokens].to(c.dtype)
+    remat = c.remat and torch.is_grad_enabled()
+    if remat:
+        context = _remat_context(c)
+        kw = {} if context is None else {"context_fn": context}
+    # unbind, not indexing: its backward stacks the L per-layer gradients in
+    # one tensor instead of adding L full-size ones.
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
     for i in range(c.n_layers):
-        lp = _layer_params(params, i)
-        x = _attn_sublayer(x, lp, positions, c)
-        x = _mlp_sublayer(x, lp, c)
+        lp = {name: ws[i] for name, ws in layers.items()}
+        if remat:
+            x = checkpoint(_layer, x, lp, positions, c, use_reentrant=False,
+                           **kw)
+        else:
+            x = _layer(x, lp, positions, c)
     return _rms_norm(x, params["final_norm"], c.norm_eps)
 
 
@@ -226,6 +278,55 @@ def forward(params, tokens, config: LlamaConfig):
     """tokens: [B, S] integer -> logits [B, S, vocab] (cast to fp32)."""
     x = forward_hidden(params, tokens, config)
     return (x @ params["lm_head"]).float()
+
+
+def _chunk_nll(hidden, lm_head, targets, mask):
+    """Summed masked next-token NLL of one chunk, its logits in fp32."""
+    logits = (hidden @ lm_head).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+    return torch.sum(nll * mask)
+
+
+def chunked_ce(hidden, lm_head, targets, mask=None, chunk: int = 256):
+    """Cross-entropy without materializing full [B,S,V] fp32 logits: the
+    sequence goes in chunks and each full chunk's logits are recomputed in
+    the backward (checkpointed); a last partial chunk is taken as it is.
+    Returns sum(nll * mask) / max(sum(mask), 1)."""
+    b, s, _ = hidden.shape
+    mask = (torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+            if mask is None else mask.to(torch.float32))
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, s, chunk):
+        sl = slice(start, start + chunk)
+        args = (hidden[:, sl], lm_head, targets[:, sl], mask[:, sl])
+        if start + chunk <= s and torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_nll, *args, use_reentrant=False)
+        else:
+            total = total + _chunk_nll(*args)
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params, batch, config: LlamaConfig):
+    """Next-token cross-entropy. batch: {"tokens": [B, S]} (targets are the
+    shifted tokens) or explicit {"inputs", "targets", "mask"}.
+    With config.loss_chunk_size > 0 the CE is computed chunk by chunk over
+    the sequence (see chunked_ce) so full-vocab logits never materialize."""
+    if "inputs" in batch:
+        inputs, targets = batch["inputs"], batch["targets"]
+        mask = batch.get("mask")
+    else:
+        tokens = batch["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        mask = None
+    hidden = forward_hidden(params, inputs, config)
+    if config.loss_chunk_size:
+        return chunked_ce(hidden, params["lm_head"], targets, mask,
+                          chunk=config.loss_chunk_size)
+    mask = (torch.ones(targets.shape, device=hidden.device)
+            if mask is None else mask.to(torch.float32))
+    return (_chunk_nll(hidden, params["lm_head"], targets, mask)
+            / torch.clamp(mask.sum(), min=1.0))
 
 
 def init_kv_cache(config: LlamaConfig, batch: int, max_len: int,

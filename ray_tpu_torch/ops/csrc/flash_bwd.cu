@@ -1,0 +1,437 @@
+// Flash-attention backward for Hopper (sm_90a), hand-written CUDA C++: two
+// kernels, one for dQ and one for dK/dV.
+//
+// Replaces ray_tpu/ops/flash_attention.py:_bwd_dq_kernel and _bwd_dkv_kernel,
+// the Pallas TPU kernels that _flash_bwd_pallas launches. They compute the
+// same function from the forward's saved lse and the wrapper's
+// delta = rowsum(dO * O) (fp32): P = exp(S * scale - lse) with the forward's
+// masks (keys past s_k; under causal, query i sees key j iff
+// i + (s_k - s_q) >= j), dP = dO . V^T, dS = P * (dP - delta) * scale, then
+// dQ = dS . K, dK = dS^T . Q and dV = P^T . dO. A query row that sees no key
+// (lse ~ -1e30) gets P = 0 by the mask, never exp of a huge number, so its
+// dQ is 0 and it adds nothing to dK or dV.
+//
+// Layout: q/dO/dQ [B, S_q, H, D], k/v/dK/dV [B, S_k, H_kv, D], read and
+// written through their strides (D contiguous); lse and delta [B, H, S_q].
+//
+// What bounds them on this card: at the Llama-3-8B training shape (B = 4,
+// S = 2048, D = 128, causal) the dQ kernel does three products of 2*D flops
+// for each visible (query, key) pair (~206 GFLOP) and the dK/dV kernel four
+// (~275 GFLOP), against ~0.2 GB of tensors: well above the H100's ~295 flops
+// a byte in bf16, so the tensor cores bound both (~0.21 and ~0.28 ms at
+// 989 TFLOP/s), not device memory.
+//
+// What the design does about it. The TPU kernels run their grids in order
+// and let the repeat of the KV heads (jnp.repeat in the wrapper) sum dK and
+// dV over a GQA group in its transpose. Here blocks run in no order, so each
+// output has exactly one owner and nothing is accumulated across blocks:
+//   * dQ: one block of 4 warps per (b, h, tile of 64 query rows) streams the
+//     K/V tiles up to the causal diagonal, heaviest tiles launched first.
+//   * dK/dV: one block per (b, KV head, tile of 64 keys) loops over the
+//     H / H_kv query heads of its group and, for each, over the Q tiles from
+//     the first that sees the tile causally (max(k0 - (s_k - s_q), 0) / 64).
+//     It needs no atomics and no fp32 scratch of the repeated heads.
+// The products run on the tensor cores (WMMA bf16 16x16x16, fp32
+// accumulation) with the dQ, dK and dV accumulators in registers for the
+// block's life; S and dP are staged in shared memory in fp32 for the
+// element-wise pass, and P and dS are rounded to bf16 as operands of the
+// next products. Rows past s_q and keys past s_k are zero-filled on load and
+// masked by position: no padding copy. One block an SM at D = 128 for dK/dV
+// (~121 KB of shared memory), two for dQ (~112 KB). wgmma, TMA, a pipelined
+// tile ring and register-resident S are later work. fp32 inputs take plain
+// FMA loops (no TF32), so they agree with the plain version to fp32
+// rounding.
+
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace flash;
+
+template <typename T, int D>
+struct Ld {
+  static constexpr int I = D + Elem<T>::PAD;     // input tiles
+  static constexpr int S = TILE + 4;             // fp32 64x64 products
+  static constexpr int P = TILE + Elem<T>::PAD;  // P, dS as operands
+};
+
+// Shared memory: four input tiles (dq: Q, dO, K, V; dkv: K, V, Q, dO), S and
+// dP in fp32, dS (and in dkv P) in T, then lse and delta of 64 query rows.
+template <typename T, int D, bool WITH_P>
+struct Smem {
+  using L = Ld<T, D>;
+  static constexpr size_t tile = align128(TILE * L::I * sizeof(T));
+  static constexpr size_t t0 = 0, t1 = tile, t2 = 2 * tile, t3 = 3 * tile;
+  static constexpr size_t s_off = 4 * tile;
+  static constexpr size_t dp_off = s_off + align128(TILE * L::S * sizeof(float));
+  static constexpr size_t ds_off = dp_off + align128(TILE * L::S * sizeof(float));
+  static constexpr size_t p_off = ds_off + align128(TILE * L::P * sizeof(T));
+  static constexpr size_t row_off =
+      p_off + (WITH_P ? align128(TILE * L::P * sizeof(T)) : 0);
+  static constexpr size_t bytes = row_off + 2 * align128(TILE * sizeof(float));
+};
+
+// An fp32 accumulator of 64 x D held in registers for a block's life; warp
+// w holds rows 16w .. 16w+15.
+template <typename T, int D> struct Accum;
+
+template <int D> struct Accum<bf16, D> {
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[D / 16];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(f[n], 0.0f);
+  }
+
+  // += A . B for A [64][64] (row-major, lda) and B [64][D] (row-major, ldb).
+  __device__ __forceinline__ void add(const bf16* A, int lda, const bf16* B,
+                                      int ldb) {
+    const int w = threadIdx.x >> 5;
+    // One A fragment live at a time: the dK/dV kernel holds two of these
+    // accumulators (128 registers at D = 128).
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, A + w * 16 * lda + kk * 16, lda);
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(b, B + kk * 16 * ldb + n * 16, ldb);
+        wmma::mma_sync(f[n], a, b, f[n]);
+      }
+    }
+  }
+
+  // Rows row0 + r (r < 64, row0 + r < nrows) to dst[row][0 .. D) in bf16,
+  // through the warp's own rows 16w .. of `stage` (fp32, leading dim lds).
+  __device__ __forceinline__ void store(bf16* dst, int64_t row_stride,
+                                        int row0, int nrows, float* stage,
+                                        int lds) {
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    float* st = stage + w * 16 * lds;
+    const int r = lane >> 1, c = (lane & 1) * 8, row = row0 + w * 16 + r;
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      wmma::store_matrix_sync(st, f[n], lds, wmma::mem_row_major);
+      __syncwarp();
+      if (row < nrows) {
+        alignas(16) bf16 out[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) out[e] = __float2bfloat16(st[r * lds + c + e]);
+        *reinterpret_cast<uint4*>(dst + row * row_stride + n * 16 + c) =
+            *reinterpret_cast<const uint4*>(out);
+      }
+      __syncwarp();
+    }
+  }
+};
+
+template <int D> struct Accum<float, D> {
+  // Thread (ty, tx) = (tid / 8, tid % 8) holds rows 4ty .. 4ty+3 and
+  // columns tx, tx + 8, ...
+  static constexpr int NJ = D / 8;
+  float a[4][NJ];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) a[i][j] = 0.0f;
+  }
+
+  __device__ __forceinline__ void add(const float* A, int lda, const float* B,
+                                      int ldb) {
+    const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+    for (int kk = 0; kk < TILE; ++kk) {
+      float x[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = A[(ty * 4 + i) * lda + kk];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float y = B[kk * ldb + tx + 8 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i][j] = fmaf(x[i], y, a[i][j]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* dst, int64_t row_stride,
+                                        int row0, int nrows, float*, int) {
+    const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + ty * 4 + i;
+      if (row >= nrows) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) dst[row * row_stride + tx + 8 * j] = a[i][j];
+    }
+  }
+};
+
+struct Strides {
+  // (batch, seq, head) element strides of q, k, v, dO and the output(s).
+  int64_t q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, do_b, do_s, do_h, o_b,
+      o_s, o_h;
+};
+
+// lse and delta of query rows q0 .. q0+63 of one (b, h); 0 past s_q.
+__device__ __forceinline__ void load_rows(float* sLse, float* sDelta,
+                                          const float* lse,
+                                          const float* delta, int64_t base,
+                                          int q0, int S_q) {
+  const int i = threadIdx.x;
+  if (i < TILE) {
+    const bool in = q0 + i < S_q;
+    sLse[i] = in ? lse[base + q0 + i] : 0.0f;
+    sDelta[i] = in ? delta[base + q0 + i] : 0.0f;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int H, int rep, int S_q, int S_k, Strides st, float scale,
+                    int causal) {
+  using L = Ld<T, D>;
+  using M = Smem<T, D, false>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem + M::t0);
+  T* sDO = reinterpret_cast<T*>(smem + M::t1);
+  T* sK = reinterpret_cast<T*>(smem + M::t2);
+  T* sV = reinterpret_cast<T*>(smem + M::t3);
+  float* sS = reinterpret_cast<float*>(smem + M::s_off);
+  float* sDP = reinterpret_cast<float*>(smem + M::dp_off);
+  T* sDS = reinterpret_cast<T*>(smem + M::ds_off);
+  float* sLse = reinterpret_cast<float*>(smem + M::row_off);
+  float* sDelta = sLse + align128(TILE * sizeof(float)) / sizeof(float);
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / rep;
+  const int q0 = qt * TILE, tid = threadIdx.x;
+  const T* kb = k + b * st.k_b + hk * st.k_h;
+  const T* vb = v + b * st.v_b + hk * st.v_h;
+
+  load_tile<T, D>(sQ, L::I, q + b * st.q_b + h * st.q_h, st.q_s, q0, S_q);
+  load_tile<T, D>(sDO, L::I, dout + b * st.do_b + h * st.do_h, st.do_s, q0,
+                  S_q);
+  load_rows(sLse, sDelta, lse, delta, (static_cast<int64_t>(b) * H + h) * S_q,
+            q0, S_q);
+
+  const int offset = S_k - S_q;
+  int n_kv = (S_k + TILE - 1) / TILE;
+  if (causal) {
+    const int lim = q0 + TILE + offset;  // one past the last key this tile sees
+    n_kv = min(n_kv, lim <= 0 ? 0 : (lim + TILE - 1) / TILE);
+  }
+
+  Accum<T, D> acc;
+  acc.zero();
+  // Element-wise pass: two threads per query row (warp w: rows 16w ..).
+  const int row = tid >> 1, half = tid & 1;
+  const int qpos = q0 + row + offset;
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * TILE;
+    __syncthreads();  // the previous tile's dS . K is done with sK
+    load_tile<T, D>(sK, L::I, kb, st.k_s, k0, S_k);
+    load_tile<T, D>(sV, L::I, vb, st.v_s, k0, S_k);
+    __syncthreads();
+    tile_abt<T, D>(sQ, sK, L::I, sS, L::S);
+    tile_abt<T, D>(sDO, sV, L::I, sDP, L::S);
+    __syncwarp();
+    const float lse_r = sLse[row], delta_r = sDelta[row];
+    const float* srow = sS + row * L::S;
+    const float* dprow = sDP + row * L::S;
+    T* dsrow = sDS + row * L::P;
+#pragma unroll 8
+    for (int c = half; c < TILE; c += 2) {
+      const int kpos = k0 + c;
+      const bool valid = kpos < S_k && (!causal || qpos >= kpos);
+      const float p = valid ? __expf(srow[c] * scale - lse_r) : 0.0f;
+      dsrow[c] = from_f<T>(p * (dprow[c] - delta_r) * scale);
+    }
+    __syncwarp();
+    acc.add(sDS, L::P, sK, L::I);
+  }
+  acc.store(dq + b * st.o_b + h * st.o_h, st.o_s, q0, S_q, sS, L::S);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int H, int rep, int S_q, int S_k,
+                     Strides st, float scale, int causal) {
+  using L = Ld<T, D>;
+  using M = Smem<T, D, true>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem + M::t0);
+  T* sV = reinterpret_cast<T*>(smem + M::t1);
+  T* sQ = reinterpret_cast<T*>(smem + M::t2);
+  T* sDO = reinterpret_cast<T*>(smem + M::t3);
+  float* sS = reinterpret_cast<float*>(smem + M::s_off);    // S^T [key][q]
+  float* sDP = reinterpret_cast<float*>(smem + M::dp_off);  // dP^T
+  T* sDS = reinterpret_cast<T*>(smem + M::ds_off);          // dS^T
+  T* sP = reinterpret_cast<T*>(smem + M::p_off);            // P^T
+  float* sLse = reinterpret_cast<float*>(smem + M::row_off);
+  float* sDelta = sLse + align128(TILE * sizeof(float)) / sizeof(float);
+
+  const int kt = blockIdx.x;  // under causal the first key tiles are heaviest
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * TILE, tid = threadIdx.x;
+  load_tile<T, D>(sK, L::I, k + b * st.k_b + hk * st.k_h, st.k_s, k0, S_k);
+  load_tile<T, D>(sV, L::I, v + b * st.v_b + hk * st.v_h, st.v_s, k0, S_k);
+
+  const int offset = S_k - S_q;
+  const int n_q = (S_q + TILE - 1) / TILE;
+  // The first Q tile holding a query that sees key k0.
+  const int start = causal ? max(k0 - offset, 0) / TILE : 0;
+
+  Accum<T, D> dk_acc, dv_acc;
+  dk_acc.zero();
+  dv_acc.zero();
+  // Element-wise pass: two threads per key row (warp w: keys 16w ..).
+  const int krow = tid >> 1, half = tid & 1;
+  const int kpos = k0 + krow;
+
+  for (int r = 0; r < rep; ++r) {
+    const int h = hk * rep + r;
+    const T* qb = q + b * st.q_b + h * st.q_h;
+    const T* dob = dout + b * st.do_b + h * st.do_h;
+    const int64_t base = (static_cast<int64_t>(b) * H + h) * S_q;
+    for (int qi = start; qi < n_q; ++qi) {
+      const int q0 = qi * TILE;
+      __syncthreads();  // the previous products are done with sQ and sDO
+      load_tile<T, D>(sQ, L::I, qb, st.q_s, q0, S_q);
+      load_tile<T, D>(sDO, L::I, dob, st.do_s, q0, S_q);
+      load_rows(sLse, sDelta, lse, delta, base, q0, S_q);
+      __syncthreads();
+      tile_abt<T, D>(sK, sQ, L::I, sS, L::S);
+      tile_abt<T, D>(sV, sDO, L::I, sDP, L::S);
+      __syncwarp();
+      const float* srow = sS + krow * L::S;
+      const float* dprow = sDP + krow * L::S;
+      T* prow = sP + krow * L::P;
+      T* dsrow = sDS + krow * L::P;
+#pragma unroll 8
+      for (int c = half; c < TILE; c += 2) {
+        const int qrow = q0 + c;
+        const bool valid = qrow < S_q && kpos < S_k &&
+                           (!causal || qrow + offset >= kpos);
+        const float p = valid ? __expf(srow[c] * scale - sLse[c]) : 0.0f;
+        prow[c] = from_f<T>(p);
+        dsrow[c] = from_f<T>(p * (dprow[c] - sDelta[c]) * scale);
+      }
+      __syncwarp();
+      dv_acc.add(sP, L::P, sDO, L::I);
+      dk_acc.add(sDS, L::P, sQ, L::I);
+    }
+  }
+  const int64_t out = b * st.o_b + hk * st.o_h;
+  dk_acc.store(dk + out, st.o_s, k0, S_k, sS, L::S);
+  dv_acc.store(dv + out, st.o_s, k0, S_k, sS, L::S);
+}
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *o0, *o1;  // dq; or dk, dv
+  int B, H, H_kv, S_q, S_k;
+  Strides st;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+cudaError_t launch_dq(const Args& a) {
+  auto kern = flash_bwd_dq_kernel<T, D>;
+  const int bytes = static_cast<int>(Smem<T, D, false>::bytes);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S_q + TILE - 1) / TILE, a.H, a.B);
+  kern<<<grid, NT, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.o0), a.H, a.H / a.H_kv, a.S_q, a.S_k, a.st, a.scale,
+      a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const Args& a) {
+  auto kern = flash_bwd_dkv_kernel<T, D>;
+  const int bytes = static_cast<int>(Smem<T, D, true>::bytes);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S_k + TILE - 1) / TILE, a.H_kv, a.B);
+  kern<<<grid, NT, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.o0), static_cast<T*>(a.o1), a.H, a.H / a.H_kv, a.S_q,
+      a.S_k, a.st, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <bool DQ, typename T>
+cudaError_t dispatch_d(int D, const Args& a) {
+  switch (D) {
+    case 32: return DQ ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
+    case 64: return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
+    case 128: return DQ ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+Args make_args(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* o0, void* o1, int B,
+               int H, int H_kv, int S_q, int S_k, const int64_t* s,
+               float scale, int causal, void* stream) {
+  return Args{q, k, v, dout, lse, delta, o0, o1, B, H, H_kv, S_q, S_k,
+              Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
+                      s[9], s[10], s[11], s[12], s[13], s[14]},
+              scale, causal, static_cast<cudaStream_t>(stream)};
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. `strides` holds 15 element strides: (batch,
+// seq, head) for q, k, v, dO and the output (dq; or dk, which dv shares), in
+// that order; the head dimension must be contiguous and every stride a
+// multiple of 16 bytes. lse and delta are contiguous fp32 [B, H, S_q].
+// Each launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after the launch.
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int is_bf16, int B,
+                            int H, int H_kv, int S_q, int S_k, int D,
+                            const int64_t* strides, float scale, int causal,
+                            void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, B, H, H_kv,
+                           S_q, S_k, strides, scale, causal, stream);
+  return is_bf16 ? dispatch_d<true, bf16>(D, a) : dispatch_d<true, float>(D, a);
+}
+
+extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv,
+                             int is_bf16, int B, int H, int H_kv, int S_q,
+                             int S_k, int D, const int64_t* strides,
+                             float scale, int causal, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, dk, dv, B, H, H_kv, S_q,
+                           S_k, strides, scale, causal, stream);
+  return is_bf16 ? dispatch_d<false, bf16>(D, a)
+                 : dispatch_d<false, float>(D, a);
+}
+
+extern "C" const char* flash_bwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

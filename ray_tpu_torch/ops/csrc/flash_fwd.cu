@@ -32,33 +32,14 @@
 // fp32 inputs take plain FMA loops (no TF32), so they agree with the fp32
 // plain version to fp32 rounding. The heaviest causal tiles launch first.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "flash_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
+using namespace flash;
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // key rows per streamed tile
-constexpr int NT = 128;  // threads per block: 4 warps of 16 query rows each
-constexpr float NEG_INF = -1e30f;
-
-// PAD keeps each shared row a multiple of 16 bytes (vector stores, and the
-// 32-byte alignment WMMA needs at every 16-row step) and staggers the banks.
-// VEC is the number of elements in one 16-byte global load or store.
-template <typename T> struct Elem;
-template <> struct Elem<float> { static constexpr int PAD = 4, VEC = 4; };
-template <> struct Elem<bf16> { static constexpr int PAD = 8, VEC = 8; };
-
-__host__ __device__ constexpr size_t align128(size_t x) {
-  return (x + 127) / 128 * 128;
-}
+constexpr int BQ = TILE;  // query rows per block
+constexpr int BK = TILE;  // key rows per streamed tile
 
 template <typename T, int D>
 struct Smem {
@@ -75,76 +56,6 @@ struct Smem {
   static constexpr size_t l_off = o_off + align128(BQ * LDO * sizeof(float));
   static constexpr size_t bytes = l_off + align128(BQ * sizeof(float));
 };
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Rows row0 .. row0+63 of one head into a [64][LDI] tile; rows past `seq`
-// are zero, so a ragged last tile adds nothing to either product.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          int64_t row_stride, int row0,
-                                          int seq) {
-  constexpr int VEC = Elem<T>::VEC, CPR = D / VEC, LDI = Smem<T, D>::LDI;
-  for (int i = threadIdx.x; i < BQ * CPR; i += NT) {
-    const int r = i / CPR, c = (i % CPR) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDI + c) = val;
-  }
-}
-
-// sS[64][64] = sQ . sK^T (unscaled).
-template <typename T, int D>
-__device__ __forceinline__ void qk_scores(const T* sQ, const T* sK, float* sS) {
-  using L = Smem<T, D>;
-  if constexpr (std::is_same<T, bf16>::value) {
-    const int w = threadIdx.x >> 5;  // warp w owns score rows 16w .. 16w+15
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, sQ + w * 16 * L::LDI + kk, L::LDI);
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        // K^T as a column-major B operand: element (kk, n) sits at sK[n][kk].
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(bt, sK + n * 16 * L::LDI + kk, L::LDI);
-        wmma::mma_sync(acc[n], a, bt, acc[n]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n)
-      wmma::store_matrix_sync(sS + w * 16 * L::LDS + n * 16, acc[n], L::LDS,
-                              wmma::mem_row_major);
-  } else {
-    // 16 x 8 threads, each 4 rows x 8 columns (columns strided by 8).
-    const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
-    float acc[4][8] = {};
-    for (int kk = 0; kk < D; ++kk) {
-      float a[4], b[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty * 4 + i) * L::LDI + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = sK[(tx + 8 * j) * L::LDI + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        sS[(ty * 4 + i) * L::LDS + tx + 8 * j] = acc[i][j];
-  }
-}
 
 // sO[64][D] += sP . sV.
 template <typename T, int D>
@@ -220,7 +131,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * st.k_b + hk * st.k_h;
   const T* vb = v + b * st.v_b + hk * st.v_h;
 
-  load_tile<T, D>(sQ, qb, st.q_s, q0, S_q);
+  load_tile<T, D>(sQ, L::LDI, qb, st.q_s, q0, S_q);
   for (int i = tid; i < BQ * L::LDO; i += NT) sO[i] = 0.0f;
 
   const int offset = S_k - S_q;
@@ -238,10 +149,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * BK;
     __syncthreads();  // the previous tile's P.V is done with sK, sV and sP
-    load_tile<T, D>(sK, kb, st.k_s, k0, S_k);
-    load_tile<T, D>(sV, vb, st.v_s, k0, S_k);
+    load_tile<T, D>(sK, L::LDI, kb, st.k_s, k0, S_k);
+    load_tile<T, D>(sV, L::LDI, vb, st.v_s, k0, S_k);
     __syncthreads();
-    qk_scores<T, D>(sQ, sK, sS);
+    tile_abt<T, D>(sQ, sK, L::LDI, sS, L::LDS);
     __syncthreads();
 
     float* srow = sS + row * L::LDS;

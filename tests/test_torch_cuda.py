@@ -36,6 +36,32 @@ SHAPES = [
 # only; bf16 rounds P before P.V and O at the end (one bf16 ulp).
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 
+# Backward, |kernel - plain| <= atol * max|plain| + rtol * |plain| for each
+# of dq, dk, dv: fp32 differs in summation order and __expf only; bf16
+# rounds P and dS to bf16 before their products (2^-9 relative each, summed
+# over up to S terms of either sign) and the result once (one bf16 ulp), so
+# the absolute part scales with the gradient's size.
+BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+
+
+def _inputs(cuda, shape, dtype, seed):
+    b, s_q, s_k, h, h_kv, d, _ = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, s_q, h, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, s_k, h_kv, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, s_k, h_kv, d), generator=g, device=cuda).to(dtype)
+    do = torch.randn((b, s_q, h, d), generator=g, device=cuda).to(dtype)
+    return q, k, v, do
+
+
+def _assert_grads_close(got, want, dtype):
+    atol, rtol = BWD_TOL[dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), atol=atol * scale,
+                                   rtol=rtol, msg=lambda m: f"{name}: {m}")
+
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", SHAPES)
@@ -65,3 +91,52 @@ def test_flash_fwd_refuses_what_it_was_not_built_for(cuda):
     q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="float16"):
         fa.flash_fwd_cuda(q, q, q, True, 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_flash_bwd_matches_plain(cuda, shape, dtype):
+    """dq and dk/dv kernels against the plain backward, on the kernel
+    forward's own o and lse; rows that see no key get dq = 0."""
+    causal, d = shape[6], shape[5]
+    q, k, v, do = _inputs(cuda, shape, dtype, shape[1] * 7 + shape[2])
+    o, lse = fa.flash_fwd_cuda(q, k, v, causal, d ** -0.5)
+    before = (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches)
+    got = fa._flash_bwd(q, k, v, o, lse, do, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq_cuda.launches,
+            fa.flash_bwd_dkv_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want = fa._flash_bwd_reference_torch(q, k, v, o, lse, do, causal,
+                                         d ** -0.5)
+    _assert_grads_close(got, want, dtype)
+    unseen = lse < -1e29  # [B, H, S_q]
+    assert (got[0].transpose(1, 2)[unseen] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_round_trip(cuda, dtype):
+    """flash_attention(...).backward(dO) on CUDA equals the plain backward
+    on the same tensors; an expanded dO (from .sum()) is taken too."""
+    shape = (2, 130, 130, 8, 2, 128, True)
+    q, k, v, do = _inputs(cuda, shape, dtype, 3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = fa.flash_attention(*leaves, causal=True)
+    o.backward(do)
+    scale = 128 ** -0.5
+    _, lse = fa._flash_fwd(q, k, v, True, scale)
+    want = fa._flash_bwd_reference_torch(q, k, v, o.detach(), lse, do, True,
+                                         scale)
+    _assert_grads_close([t.grad for t in leaves], want, dtype)
+    for t in leaves:
+        t.grad = None
+    fa.flash_attention(*leaves, causal=True).sum().backward()
+    assert all(bool(torch.isfinite(t.grad).all()) for t in leaves)
+
+
+def test_flash_bwd_refuses_what_it_was_not_built_for(cuda):
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    with pytest.raises(ValueError, match="not shaped like q"):
+        fa.flash_bwd_dq_cuda(q, q, q, q[:, :4], lse, lse, True, 1.0)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_bwd_dkv_cuda(q, q, q, q, lse.double(), lse, True, 1.0)

@@ -10,6 +10,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -17,9 +18,13 @@ import pytest
 import torch
 
 from ray_tpu_torch import device_info, resolve_device
+from ray_tpu_torch._private.accelerators.nvidia import (
+    bf16_peak_flops_per_device)
 from ray_tpu_torch.inference import InferenceEngine
 from ray_tpu_torch.models import llama
-from ray_tpu_torch.models.convert import params_from_jax_numpy
+from ray_tpu_torch.models.convert import (adamw_state_from_jax_numpy,
+                                          params_from_jax_numpy)
+from ray_tpu_torch.train import adamw, init_train_state
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
@@ -54,7 +59,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys; before = set(sys.modules); "
             "import ray_tpu_torch, ray_tpu_torch.inference, "
             "ray_tpu_torch.models.llama, ray_tpu_torch.models.convert, "
-            "ray_tpu_torch.ops.flash_attention, ray_tpu_torch.ops._build; "
+            "ray_tpu_torch.ops.flash_attention, ray_tpu_torch.ops._build, "
+            "ray_tpu_torch.train, ray_tpu_torch._private.accelerators.nvidia; "
             "print(sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -71,7 +77,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
                  device_info,
                  lambda: llama.init(cfg, torch.Generator()),
                  lambda: llama.init_kv_cache(cfg, 1, 8),
-                 lambda: params_from_jax_numpy({}, cfg)):
+                 lambda: params_from_jax_numpy({}, cfg),
+                 lambda: adamw_state_from_jax_numpy(types.SimpleNamespace(
+                     count=0, mu={}, nu={}), cfg),
+                 lambda: init_train_state(lambda dev: {}, adamw(1e-3))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
@@ -83,6 +92,21 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     assert eng.cache["k"].device.type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+@pytest.mark.parametrize("name,peak", [
+    ("NVIDIA H100 80GB HBM3", 989e12), ("NVIDIA H100 PCIe", 756e12),
+    ("NVIDIA H100 NVL", 835e12)])
+def test_peak_table_knows_the_h100_parts(name, peak):
+    assert bf16_peak_flops_per_device(name) == peak
+
+
+def test_peak_table_refuses_a_card_it_does_not_know():
+    """A wrong peak would give a wrong MFU without a word, so an unknown
+    card raises where the TPU table falls back to a default."""
+    for name in ("NVIDIA A100-SXM4-80GB", "NVIDIA H200", "cpu"):
+        with pytest.raises(ValueError, match="no peak rates"):
+            bf16_peak_flops_per_device(name)
 
 
 def test_params_from_numpy_go_where_asked():
