@@ -6,11 +6,16 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
   (a) build every CUDA kernel of the port from `ray_tpu_torch/ops/csrc`
-      with nvcc (one process per source, started together);
+      with nvcc (one process per source, started together); print each
+      kernel's ptxas registers and spills (and the sm90 kernels' dynamic
+      shared memory; they must not spill), and check that the libraries
+      launch the design `kernel_variant` names for every dtype and head
+      size;
   (b) hold the flash forward kernel against its plain PyTorch version on
       the card, at the shapes the serving path gives it and at edge cases
       (GQA, head sizes 32 to 128, ragged lengths, cross-length causal, rows
-      that see no key);
+      that see no key), and at what the sm90 tiling makes risky (lengths
+      off 128, 1.5 tiles, H_kv = 1, the training shape) in bf16 and fp32;
   (c) time it at the Llama-3-8B attention shape beside its plain version,
       the one PyTorch call that computes the same function (timed only as
       a yardstick; the port never calls it) and the card's bound;
@@ -20,7 +25,8 @@ Phases, in order; any failure raises and the script exits non-zero:
       `flash_attention` against the plain backward;
   (g) time them at the training shape (B=4, S=2048, H=32/8, D=128, bf16,
       causal) beside the plain backward, the backward of
-      `scaled_dot_product_attention` (yardstick only) and the bound;
+      `scaled_dot_product_attention` (yardstick only) and the bound; and
+      the forward at that shape beside the library's forward;
   (d) the serving path: Llama-3-8B at full width and depth in bf16, random
       weights from a seed, `forward` on prompts of 300 to 2048 tokens
       through the flash kernel (n_layers launches a call), its last-position
@@ -48,6 +54,7 @@ import functools
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -84,9 +91,22 @@ BWD_SHAPES = [
     (1, 17, 300, 4, 4, 128, True),     # s_q < s_k
     (1, 200, 50, 4, 1, 64, True),      # s_q > s_k: 150 rows see no key
     (3, 1, 129, 8, 8, 32, True),       # one query row
+    # What the sm90 tiling (128 keys over two warpgroups, 64-row Q tiles,
+    # 64-column TMA boxes) makes risky:
+    (1, 1000, 1000, 8, 2, 128, True),  # S not a multiple of 128
+    (1, 2047, 2047, 4, 1, 128, True),  # H_kv = 1, S = 2047
+    (2, 192, 192, 4, 2, 64, True),     # 1.5 tiles of 128
+    (1, 100, 700, 8, 2, 128, True),    # s_q < s_k under causal
+    (1, 700, 130, 8, 2, 128, True),    # s_q > s_k: 570 rows see no key
 ]
 # The training path's attention: Llama-3-8B heads at B=4, S=2048.
 TRAIN_ATTN = (4, 2048, 2048, 32, 8, 128, True)
+# The serving path's: Llama-3-8B heads on one prompt of 2048 tokens, and
+# the prompt lengths that `forward` is driven at.
+SERVE_ATTN = (1, 2048, 2048, 32, 8, 128, True)
+MAIN_LENGTHS = (300, 1000, 2048)
+# One autograd round trip of `flash_attention` at the 8B heads.
+ROUND_TRIP = (2, 300, 300, 32, 8, 128, True)
 
 # Tiny fp32 train steps, cuda (kernels) against cpu (plain versions) from
 # the same weights: fp32 on both, summation order, __expf and the kernels'
@@ -185,17 +205,59 @@ def bwd_bounds(b, s_q, s_k, h, h_kv, d, causal):
 
 # -- (a) ---------------------------------------------------------------------
 
+# A kernel's mangled name: its length, then e.g. flash_fwd_kernelIfLi128E.
+PTXAS_KERNEL = re.compile(r"(?<=\d)(flash_[a-z0-9_]+?kernel)I(\w+?)E")
+
+
+def ptxas_report(log):
+    """nvcc's -Xptxas -v log -> [(kernel, dtype, head size, registers,
+    spill store bytes, spill load bytes)] for each compiled kernel."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = PTXAS_KERNEL.search(line)
+            if m:
+                args = m.group(2)
+                dtype = "fp32" if args.startswith("f") else "bf16"
+                d = int(re.search(r"Li(\d+)", args + "E").group(1))
+                cur = [m.group(1), dtype, d, None, None, None]
+                out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+            cur[4], cur[5] = nums[0], nums[1]
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur[3] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return [tuple(r) for r in out]
+
+
 def phase_build():
     from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    built = _build.build("flash_fwd", "flash_bwd")
+    built = _build.build(*sorted(set(fa.KERNELS.values())))
     log(f"[a] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     for b in built.values():
         log(f"[a] {b.name}: {b.path.name}, nvcc {b.seconds:.2f} s")
-        for line in b.log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"[a]   {line.strip()}")
+        for kern, dtype, d, regs, st, ld in ptxas_report(b.log):
+            sm90 = kern.endswith("_sm90_kernel")
+            smem = (fa.sm90_smem_bytes(kern.replace("_sm90_kernel", ""),
+                                       torch.bfloat16, d) if sm90 else None)
+            log(f"[a]   {kern} {dtype} D={d}: {regs} registers, spill "
+                f"stores {st} B, loads {ld} B"
+                + (f", dynamic shared memory {smem} B" if sm90 else ""))
+            if sm90:
+                check(st == 0 and ld == 0, f"{kern} D={d} spills")
+    for kernel in fa.KERNELS:
+        for dtype in fa.KERNEL_DTYPES:
+            for d in fa.KERNEL_HEAD_DIMS:
+                want = fa.kernel_variant(kernel, dtype, d)
+                got = fa.built_variant(kernel, dtype, d)
+                check(got == want, f"{kernel} {dtype} D={d} launches {got}, "
+                      f"not {want}")
+    log("[a] designs (bf16 D=128): " + ", ".join(
+        f"{k} {fa.built_variant(k, torch.bfloat16, 128)}"
+        for k in fa.KERNELS))
 
 
 # -- (b) ---------------------------------------------------------------------
@@ -216,6 +278,19 @@ def flash_cases(main_lengths):
         (1, 300, 100, 4, 2, 64, fp32, True, False),   # 200 rows see no key
         (1, 300, 100, 4, 2, 128, bf16, True, False),
     ]
+    # What the sm90 tiling (128 query rows over two warpgroups, 128-key
+    # tiles, 64-column TMA boxes) makes risky, in both dtypes.
+    for dtype in (bf16, fp32):
+        cases += [
+            (1, 1000, 1000, 8, 2, 128, dtype, True, False),
+            (1, 2047, 2047, 32, 8, 128, dtype, True, False),
+            (2, 192, 192, 4, 2, 64, dtype, True, False),
+            (1, 100, 700, 8, 2, 128, dtype, True, False),
+            (1, 700, 130, 8, 2, 128, dtype, True, False),
+            (1, 2047, 2047, 4, 1, 128, dtype, True, False),
+            (2, 320, 320, 4, 2, 128, dtype, False, True),
+            (4, 2048, 2048, 32, 8, 128, dtype, True, False),
+        ]
     return cases
 
 
@@ -261,7 +336,7 @@ def phase_flash_time():
     import torch.nn.functional as F
     from ray_tpu_torch.ops import flash_attention as fa
 
-    b, s, h, h_kv, d = 1, 2048, 32, 8, 128
+    b, s, _, h, h_kv, d, _ = SERVE_ATTN
     q, k, v = attention_inputs(b, s, s, h, h_kv, d, torch.bfloat16, 99,
                                DEVICE)
     scale = d ** -0.5
@@ -339,19 +414,20 @@ def phase_bwd_check():
             del q, k, v, do, o, lse, got, want
     # One autograd round trip: flash_attention(...).backward(dO) on the card
     # against the plain backward on the same tensors.
-    shape = (2, 300, 300, 32, 8, 128, True)
+    b, s, _, h, h_kv, d, causal = ROUND_TRIP
     for dtype in (torch.float32, torch.bfloat16):
         name = "bf16" if dtype == torch.bfloat16 else "fp32"
-        q, k, v, do = bwd_inputs(shape, dtype, 7, DEVICE)
+        q, k, v, do = bwd_inputs(ROUND_TRIP, dtype, 7, DEVICE)
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        o = fa.flash_attention(*leaves, causal=True)
+        o = fa.flash_attention(*leaves, causal=causal)
         o.backward(do)
-        _, lse = fa._flash_fwd(q, k, v, True, 128 ** -0.5)
+        _, lse = fa._flash_fwd(q, k, v, causal, d ** -0.5)
         want = fa._flash_bwd_reference_torch(q, k, v, o.detach(), lse, do,
-                                             True, 128 ** -0.5)
+                                             causal, d ** -0.5)
         errs, ok = grad_errors([t.grad for t in leaves], want, name)
-        log(f"[f] autograd round trip {name} b=2 s=300 h=32/8 d=128: dq/dk/dv"
-            f" max_abs_err {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}")
+        log(f"[f] autograd round trip {name} b={b} s={s} h={h}/{h_kv} d={d}: "
+            f"dq/dk/dv max_abs_err {errs[0]:.3e} / {errs[1]:.3e} / "
+            f"{errs[2]:.3e}")
         check(ok, f"flash_attention autograd disagrees in {name}")
     return main_err
 
@@ -390,9 +466,13 @@ def phase_bwd_time():
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True))
     fwd_ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, causal, scale))
+    with torch.no_grad():
+        fwd_library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale))
     fwd_bound = flash_bound(b, s, s, h, h_kv, d, causal)
     log(f"[g] flash_fwd at the training shape: {fwd_ms:.4f} ms "
-        f"({fwd_bound[2] / fwd_ms / 1e9:.1f} TFLOP/s), bound "
+        f"({fwd_bound[2] / fwd_ms / 1e9:.1f} TFLOP/s), "
+        f"scaled_dot_product_attention {fwd_library_ms:.4f} ms, bound "
         f"{fwd_bound[0]:.4f} ms")
     bounds = bwd_bounds(*TRAIN_ATTN)
     timing = {}
@@ -406,6 +486,9 @@ def phase_bwd_time():
         timing[name] = {"ms": ms[name], "plain_ms": plain_ms,
                         "library_ms": library_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by}
+    timing["flash_fwd_train_shape"] = {
+        "ms": fwd_ms, "library_ms": fwd_library_ms, "bound_ms": fwd_bound[0],
+        "bound_by": fwd_bound[1]}
     return timing
 
 
@@ -520,7 +603,7 @@ def reset_kernel_counts():
 def kernel_group(name):
     """A kernel's name -> the group the step's time is split into."""
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        if f"{kernel}_kernel" in name:
+        if f"{kernel}_kernel" in name or f"{kernel}_sm90_kernel" in name:
             return kernel
     if any(t in name.lower() for t in ("gemm", "nvjet", "xmma", "cutlass")):
         return "matrix products (cuBLAS)"
@@ -692,6 +775,7 @@ def main() -> int:
     from ray_tpu_torch import device_info
     from ray_tpu_torch._private.accelerators.nvidia import peaks
     from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -705,11 +789,12 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_build()
-    main_lengths = (300, 1000, 2048)
+    main_lengths = MAIN_LENGTHS
     max_err = {"flash_fwd": phase_flash_check(main_lengths)}
     timing = {"flash_fwd": phase_flash_time()}
     max_err.update(phase_bwd_check())
     timing.update(phase_bwd_time())
+    timing["flash_fwd"]["train_shape"] = timing.pop("flash_fwd_train_shape")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -753,6 +838,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
             "launches": launches,
+            "design": fa.built_variant(name, torch.bfloat16, 128),
             "launches_by_path": {"serve": serve[name], "train": train[name]},
             "max_abs_err": max_err[name], **timing[name]})
     print(card)

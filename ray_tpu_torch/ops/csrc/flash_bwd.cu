@@ -21,28 +21,50 @@
 // a byte in bf16, so the tensor cores bound both (~0.21 and ~0.28 ms at
 // 989 TFLOP/s), not device memory.
 //
-// What the design does about it. The TPU kernels run their grids in order
-// and let the repeat of the KV heads (jnp.repeat in the wrapper) sum dK and
-// dV over a GQA group in its transpose. Here blocks run in no order, so each
-// output has exactly one owner and nothing is accumulated across blocks:
-//   * dQ: one block of 4 warps per (b, h, tile of 64 query rows) streams the
-//     K/V tiles up to the causal diagonal, heaviest tiles launched first.
-//   * dK/dV: one block per (b, KV head, tile of 64 keys) loops over the
+// Ownership. The TPU kernels run their grids in order and let the repeat of
+// the KV heads (jnp.repeat in the wrapper) sum dK and dV over a GQA group in
+// its transpose. Here blocks run in no order, so each output has exactly one
+// owner and nothing is accumulated across blocks:
+//   * dQ: one block per (b, h, tile of query rows) streams the K/V tiles up
+//     to the causal diagonal, heaviest tiles launched first.
+//   * dK/dV: one block per (b, KV head, tile of keys) loops over the
 //     H / H_kv query heads of its group and, for each, over the Q tiles from
-//     the first that sees the tile causally (max(k0 - (s_k - s_q), 0) / 64).
-//     It needs no atomics and no fp32 scratch of the repeated heads.
-// The products run on the tensor cores (WMMA bf16 16x16x16, fp32
-// accumulation) with the dQ, dK and dV accumulators in registers for the
-// block's life; S and dP are staged in shared memory in fp32 for the
-// element-wise pass, and P and dS are rounded to bf16 as operands of the
-// next products. Rows past s_q and keys past s_k are zero-filled on load and
-// masked by position: no padding copy. One block an SM at D = 128 for dK/dV
-// (~121 KB of shared memory), two for dQ (~112 KB). wgmma, TMA, a pipelined
-// tile ring and register-resident S are later work. fp32 inputs take plain
-// FMA loops (no TF32), so they agree with the plain version to fp32
-// rounding.
+//     the first that sees the key tile causally. It needs no atomics and no
+//     fp32 scratch of the repeated heads.
+//
+// dK/dV in bf16 at D = 64 and 128 (the main path; flash_bwd_dkv_sm90_kernel)
+// is built for Hopper (flash_sm90.cuh):
+//   * A block of 3 warpgroups owns 128 keys: two consumer warpgroups of 64
+//     keys each, and a producer warp that loads the K and V tiles once by
+//     TMA, then streams (Q, dO) tiles of 64 rows, with their lse and delta,
+//     through a ring of 2 stages on mbarriers. setmaxnreg: producer 24
+//     registers a thread, consumers 240 (the block's 168 x 384 in all).
+//   * Everything is computed transposed, so nothing is staged: S^T = K.Q^T
+//     and dP^T = V.dO^T by wgmma (both operands K-major in shared memory);
+//     P^T = exp2(S^T * scale * log2(e) - lse * log2(e)) under the masks and
+//     dS^T = P^T * (dP^T - delta) * scale on the accumulators in registers;
+//     then dV += P^T . dO and dK += dS^T . Q by wgmma with P^T and dS^T
+//     rounded to bf16 as register A operands and dO and Q as MN-major B
+//     operands. dV's product is issued with dP's, so they overlap.
+//   * The dK and dV accumulators (2 x 64 fp32 a thread at D = 128) stay in
+//     registers for the block's life and are stored from there.
+//   * Masks are applied only on tiles that need them (ragged ends, the
+//     causal diagonal); rows and keys past the ends are zero-filled by TMA.
+//   Shared memory at D = 128: K and V 64 KB, 2 stages of Q and dO 64 KB,
+//   lse and delta 1 KB: one block (384 threads) an SM. ptxas (CUDA 12.9):
+//   168 registers at entry, no spill, at D = 64 and 128; a consumer thread
+//   holds at most dK, dV (128), S^T (32), its bf16 fragment (16) and dP^T
+//   (32) at once.
+//
+// dQ (every dtype and head size), and dK/dV in fp32 or at bf16 D = 32, keep
+// the first design: one block of 4 warps over tiles of 64 rows, input tiles
+// loaded through registers, S and dP staged in shared memory in fp32 for
+// the element-wise pass, the accumulators in registers; bf16 products by
+// WMMA 16x16x16 and fp32 ones by FMA (no TF32), so fp32 agrees with the
+// plain version to fp32 rounding.
 
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -381,12 +403,275 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-template <bool DQ, typename T>
-cudaError_t dispatch_d(int D, const Args& a) {
+// -- dK/dV in bf16, D = 64 and 128: wgmma, register accumulators, a ring --
+
+namespace dkv90 {
+
+constexpr int KEYS = 128;   // keys a block (two warpgroups of 64)
+constexpr int QROWS = 64;   // query rows a streamed tile
+constexpr int STAGES = 2;   // (Q, dO, lse, delta) ring
+constexpr int THREADS = 384;
+
+template <int D>
+struct SmemKV {
+  static constexpr int NB = D / sm90::BOX;
+  static constexpr size_t kv_bytes = KEYS * D * sizeof(bf16);
+  static constexpr size_t q_bytes = QROWS * D * sizeof(bf16);
+  static constexpr size_t v_off = kv_bytes;
+  static constexpr size_t q_off = 2 * kv_bytes;
+  static constexpr size_t do_off = q_off + STAGES * q_bytes;
+  static constexpr size_t row_off = do_off + STAGES * q_bytes;  // lse, delta
+  static constexpr size_t bar_off = row_off + STAGES * 2 * QROWS * 4;
+  static constexpr size_t bytes = bar_off + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+}  // namespace dkv90
+
+template <int D>
+__global__ void __launch_bounds__(dkv90::THREADS, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int H, int rep, int S_q,
+                          int S_k, int64_t o_b, int64_t o_s, int64_t o_h,
+                          float scale, int causal) {
+  using namespace dkv90;
+  using L = SmemKV<D>;
+  constexpr int NB = L::NB, KS = D / 16;
+  constexpr int RB = sm90::ROW_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* bar_kv = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  float* rows = reinterpret_cast<float*>(smem + L::row_off);  // [stage][2][64]
+
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * KEYS;  // under causal the first tiles are heaviest
+  const int offset = S_k - S_q;
+  const int n_q = (S_q + QROWS - 1) / QROWS;
+  // The first Q tile holding a query that sees key k0.
+  const int start = min(causal ? max(k0 - offset, 0) / QROWS : 0, n_q);
+  const int per_head = n_q - start, total = rep * per_head;
+
+  if (threadIdx.x == 0) {
+    sm90::bar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::bar_init(&full[s], 32);  // the producer warp's lanes
+      sm90::bar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    sm90::bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: warp 8. Lane 0 issues the copies; every lane brings two
+    // rows of lse (times log2(e)) and delta into the stage.
+    sm90::regs_dec<24>();
+    if (threadIdx.x < 288) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        sm90::bar_arrive_tx(bar_kv, 2 * L::kv_bytes);
+        sm90::tma_tile<NB>(smem, &tk, bar_kv, KEYS, hk, k0, b);
+        sm90::tma_tile<NB>(smem + L::v_off, &tv, bar_kv, KEYS, hk, k0, b);
+      }
+      for (int t = 0; t < total; ++t) {
+        const int s = t % STAGES, u = t / STAGES;
+        const int h = hk * rep + t / per_head;
+        const int q0 = (start + t % per_head) * QROWS;
+        if (u > 0) sm90::bar_wait(&empty[s], (u - 1) & 1);
+        const int64_t base = (static_cast<int64_t>(b) * H + h) * S_q;
+        float* sl = rows + s * 2 * QROWS;
+        for (int i = lane; i < QROWS; i += 32) {
+          const bool in = q0 + i < S_q;
+          sl[i] = in ? lse[base + q0 + i] * sm90::LOG2E : 0.0f;
+          sl[QROWS + i] = in ? delta[base + q0 + i] : 0.0f;
+        }
+        if (lane == 0) {
+          sm90::bar_arrive_tx(&full[s], 2 * L::q_bytes);
+          sm90::tma_tile<NB>(smem + L::q_off + s * L::q_bytes, &tq, &full[s],
+                             QROWS, h, q0, b);
+          sm90::tma_tile<NB>(smem + L::do_off + s * L::q_bytes, &tdo,
+                             &full[s], QROWS, h, q0, b);
+        } else {
+          sm90::bar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns keys k0 + 64 wg .. + 63.
+    sm90::regs_inc<240>();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int kw0 = k0 + wg * 64;
+    const int krow0 = kw0 + warp * 16 + (lane >> 2);  // and krow0 + 8
+    const float scale_log2 = scale * sm90::LOG2E;
+    float dK[NB][32], dV[NB][32];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dK[n][i] = dV[n][i] = 0.0f;
+    const unsigned char* ka = smem + wg * 64 * RB;
+    const unsigned char* va = smem + L::v_off + wg * 64 * RB;
+
+    sm90::bar_wait(bar_kv, 0);
+    for (int t = 0; t < total; ++t) {
+      const int s = t % STAGES, u = t / STAGES;
+      const int q0 = (start + t % per_head) * QROWS;
+      const unsigned char* sq = smem + L::q_off + s * L::q_bytes;
+      const unsigned char* sdo = smem + L::do_off + s * L::q_bytes;
+      const float* sl = rows + s * 2 * QROWS;
+      sm90::bar_wait(&full[s], u & 1);
+
+      // S^T = K . Q^T (64 keys x 64 queries).
+      float St[32];
+      sm90::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        sm90::mma_ss(St,
+                     sm90::desc(ka + (ks / 4) * KEYS * RB + (ks % 4) * 32, 0),
+                     sm90::desc(sq + (ks / 4) * QROWS * RB + (ks % 4) * 32, 0),
+                     ks > 0);
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::reg_fence(St);
+
+      // P^T under the masks, then its bf16 fragments.
+      const bool masked = kw0 + 64 > S_k || q0 + QROWS > S_q ||
+                          (causal && q0 + offset < kw0 + 63);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int qc = sm90::acc_col(i);
+        float p = sm90::fast_exp2(St[i] * scale_log2 - sl[qc]);
+        if (masked) {
+          const int key = krow0 + 8 * ((i >> 1) & 1), qpos = q0 + qc;
+          const bool valid = key < S_k && qpos < S_q &&
+                             (!causal || qpos + offset >= key);
+          p = valid ? p : 0.0f;
+        }
+        St[i] = p;
+      }
+      uint32_t Pa[16];
+      sm90::to_a_frags(St, Pa);
+
+      // dP^T = V . dO^T, and dV += P^T . dO, in one group.
+      float dPt[32];
+#pragma unroll
+      for (int n = 0; n < NB; ++n) sm90::reg_fence(dV[n]);
+      sm90::reg_fence(Pa);
+      sm90::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        sm90::mma_ss(dPt,
+                     sm90::desc(va + (ks / 4) * KEYS * RB + (ks % 4) * 32, 0),
+                     sm90::desc(sdo + (ks / 4) * QROWS * RB + (ks % 4) * 32, 0),
+                     ks > 0);
+#pragma unroll
+      for (int kb = 0; kb < QROWS / 16; ++kb)
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+          sm90::mma_rs(dV[n], &Pa[4 * kb],
+                       sm90::desc(sdo + n * QROWS * RB + kb * 16 * RB,
+                                  QROWS * RB));
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::reg_fence(dPt);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) sm90::reg_fence(dV[n]);
+
+      // dS^T = P^T * (dP^T - delta) * scale; dK += dS^T . Q.
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        dPt[i] = St[i] * (dPt[i] - sl[QROWS + sm90::acc_col(i)]) * scale;
+      uint32_t Da[16];
+      sm90::to_a_frags(dPt, Da);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) sm90::reg_fence(dK[n]);
+      sm90::reg_fence(Da);
+      sm90::wg_fence();
+#pragma unroll
+      for (int kb = 0; kb < QROWS / 16; ++kb)
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+          sm90::mma_rs(dK[n], &Da[4 * kb],
+                       sm90::desc(sq + n * QROWS * RB + kb * 16 * RB,
+                                  QROWS * RB));
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+#pragma unroll
+      for (int n = 0; n < NB; ++n) sm90::reg_fence(dK[n]);
+      if (lane == 0) sm90::bar_arrive(&empty[s]);
+    }
+
+    bf16* dkb = dk + b * o_b + hk * o_h;
+    bf16* dvb = dv + b * o_b + hk * o_h;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int key = krow0 + 8 * ((i >> 1) & 1);
+        if (key >= S_k) continue;
+        const int64_t at = key * o_s + n * sm90::BOX + sm90::acc_col(i);
+        *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
+            __floats2bfloat162_rn(dK[n][i], dK[n][i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
+            __floats2bfloat162_rn(dV[n][i], dV[n][i + 1]);
+      }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_sm90(const Args& a) {
+  using namespace dkv90;
+  const Strides& st = a.st;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = sm90::make_map(&tq, a.q, a.B, a.S_q, a.H, D, st.q_b, st.q_s,
+                            st.q_h, QROWS)) != cudaSuccess ||
+      (err = sm90::make_map(&tk, a.k, a.B, a.S_k, a.H_kv, D, st.k_b, st.k_s,
+                            st.k_h, KEYS)) != cudaSuccess ||
+      (err = sm90::make_map(&tv, a.v, a.B, a.S_k, a.H_kv, D, st.v_b, st.v_s,
+                            st.v_h, KEYS)) != cudaSuccess ||
+      (err = sm90::make_map(&tdo, a.dout, a.B, a.S_q, a.H, D, st.do_b,
+                            st.do_s, st.do_h, QROWS)) != cudaSuccess)
+    return err;
+  auto kern = flash_bwd_dkv_sm90_kernel<D>;
+  const int bytes = static_cast<int>(SmemKV<D>::bytes);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S_k + KEYS - 1) / KEYS, a.H_kv, a.B);
+  kern<<<grid, THREADS, bytes, a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.o0),
+      static_cast<bf16*>(a.o1), a.H, a.H / a.H_kv, a.S_q, a.S_k, a.st.o_b,
+      a.st.o_s, a.st.o_h, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_dq(int D, const Args& a) {
   switch (D) {
-    case 32: return DQ ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-    case 64: return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128: return DQ ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+    case 32: return launch_dq<T, 32>(a);
+    case 64: return launch_dq<T, 64>(a);
+    case 128: return launch_dq<T, 128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// dK/dV: bf16 at D = 64 and 128 takes the sm90 kernel; fp32, and bf16 at
+// D = 32, the first design.
+cudaError_t dispatch_dkv(int is_bf16, int D, const Args& a) {
+  switch (D) {
+    case 32: return is_bf16 ? launch_dkv<bf16, 32>(a) : launch_dkv<float, 32>(a);
+    case 64: return is_bf16 ? launch_dkv_sm90<64>(a) : launch_dkv<float, 64>(a);
+    case 128:
+      return is_bf16 ? launch_dkv_sm90<128>(a) : launch_dkv<float, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -417,7 +702,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, B, H, H_kv,
                            S_q, S_k, strides, scale, causal, stream);
-  return is_bf16 ? dispatch_d<true, bf16>(D, a) : dispatch_d<true, float>(D, a);
+  return is_bf16 ? dispatch_dq<bf16>(D, a) : dispatch_dq<float>(D, a);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -428,8 +713,27 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              float scale, int causal, void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, dk, dv, B, H, H_kv, S_q,
                            S_k, strides, scale, causal, stream);
-  return is_bf16 ? dispatch_d<false, bf16>(D, a)
-                 : dispatch_d<false, float>(D, a);
+  return dispatch_dkv(is_bf16, D, a);
+}
+
+// Which design each backward entry point launches for (dtype, D):
+// "wgmma" (the sm90 dK/dV kernel), "wmma" or "fma" (the first design).
+extern "C" const char* flash_bwd_dq_variant(int is_bf16, int) {
+  return is_bf16 ? "wmma" : "fma";
+}
+
+extern "C" const char* flash_bwd_dkv_variant(int is_bf16, int D) {
+  if (!is_bf16) return "fma";
+  return D == 64 || D == 128 ? "wgmma" : "wmma";
+}
+
+// Dynamic shared memory a block of the sm90 dK/dV kernel takes at head
+// size D (0 where flash_bwd_dkv launches another design).
+extern "C" int flash_bwd_dkv_smem_bytes(int is_bf16, int D) {
+  if (!is_bf16) return 0;
+  if (D == 64) return static_cast<int>(dkv90::SmemKV<64>::bytes);
+  if (D == 128) return static_cast<int>(dkv90::SmemKV<128>::bytes);
+  return 0;
 }
 
 extern "C" const char* flash_bwd_error_string(int code) {

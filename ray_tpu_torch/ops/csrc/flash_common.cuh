@@ -1,6 +1,8 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Pieces shared by the first design of the flash-attention kernels
+// (flash_fwd.cu, flash_bwd.cu: fp32, bf16 at D = 32, and dQ); the sm90
+// kernels take theirs from flash_sm90.cuh.
 //
-// Every kernel runs blocks of NT = 128 threads (4 warps) over tiles of 64
+// Every such kernel runs blocks of NT = 128 threads (4 warps) over tiles of 64
 // rows of one head. Tiles sit in shared memory with rows padded by PAD
 // elements, so that each row is a multiple of 16 bytes (vector loads and the
 // 32-byte alignment WMMA needs at every 16-row step) and banks are

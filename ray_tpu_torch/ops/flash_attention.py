@@ -4,6 +4,10 @@ Counterpart of `ray_tpu/ops/flash_attention.py`. Its three TPU kernels
 become CUDA C++ for Hopper: `_fwd_kernel` is `csrc/flash_fwd.cu`;
 `_bwd_dq_kernel` and `_bwd_dkv_kernel` are the two kernels of
 `csrc/flash_bwd.cu` (see the sources' headers for the design).
+`kernel_variant` names the design each (kernel, dtype, head size) takes:
+bf16 at D = 64 and 128, the main path, runs the forward and dK/dV on
+Hopper's wgmma with register accumulators and a TMA-fed tile ring
+(`csrc/flash_sm90.cuh`); the rest keeps the first WMMA / FMA design.
 `_reference_attention_torch` and `_flash_bwd_reference_torch` are the plain
 PyTorch versions of the same functions. `_FlashAttention` is the
 counterpart of the `_flash_bhsd` custom_vjp, so gradients flow through
@@ -30,6 +34,50 @@ NEG_INF = -1e30
 # What the CUDA kernel is instantiated for.
 KERNEL_HEAD_DIMS = (32, 64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+# The C entry points that launch the kernels, by the library they live in.
+KERNELS = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
+           "flash_bwd_dkv": "flash_bwd"}
+# (kernel, head size) pairs whose bf16 launches take the sm90 design.
+_WGMMA = {("flash_fwd", 64), ("flash_fwd", 128), ("flash_bwd_dkv", 64),
+          ("flash_bwd_dkv", 128)}
+
+
+def kernel_variant(kernel: str, dtype: torch.dtype, d: int) -> str:
+    """The design that `kernel` (a key of KERNELS) launches for dtype and
+    head size d: "wgmma" (Hopper: wgmma, register accumulators, TMA ring),
+    "wmma" (bf16 on WMMA tiles staged in shared memory) or "fma" (fp32, no
+    TF32). The C sources choose by the same table; `built_variant` asks the
+    built library."""
+    if kernel not in KERNELS:
+        raise ValueError(f"no kernel {kernel!r}; one of {sorted(KERNELS)}")
+    if dtype not in KERNEL_DTYPES or d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"no kernel for {dtype} at head size {d}")
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if (kernel, d) in _WGMMA else "wmma"
+
+
+def _query(kernel: str, what: str, restype, dtype: torch.dtype, d: int):
+    kernel_variant(kernel, dtype, d)  # validates the arguments
+    fn = getattr(_build.load(KERNELS[kernel]), f"{kernel}_{what}")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = restype
+    return fn(int(dtype == torch.bfloat16), d)
+
+
+def built_variant(kernel: str, dtype: torch.dtype, d: int) -> str:
+    """What the built library of `kernel` says it launches for (dtype, d);
+    builds it if needed (so it needs nvcc)."""
+    return _query(kernel, "variant", ctypes.c_char_p, dtype, d).decode()
+
+
+def sm90_smem_bytes(kernel: str, dtype: torch.dtype, d: int) -> int:
+    """Dynamic shared memory a block of the "wgmma" design of `kernel` takes
+    at (dtype, d), from the built library; 0 for the other designs."""
+    if kernel_variant(kernel, dtype, d) != "wgmma":
+        return 0
+    return _query(kernel, "smem_bytes", ctypes.c_int, dtype, d)
 
 
 def _kv_repeat(q, k, v) -> int:
