@@ -20,9 +20,10 @@ Phases, in order; any failure raises and the script exits non-zero:
       the one PyTorch call that computes the same function (timed only as
       a yardstick; the port never calls it) and the card's bound;
   (f) hold the two backward kernels (dQ, dK/dV) against their plain
-      version in fp32 and bf16, at the shapes of tests/test_torch_cuda.py
-      and at the training path's, and one autograd round trip of
-      `flash_attention` against the plain backward;
+      version in fp32 and bf16, at the shapes of tests/test_torch_cuda.py,
+      at the training path's and on q and dO read through transposed
+      views, with dq exactly 0 on rows that see no key; and one autograd
+      round trip of `flash_attention` against the plain backward;
   (g) time them at the training shape (B=4, S=2048, H=32/8, D=128, bf16,
       causal) beside the plain backward, the backward of
       `scaled_dot_product_attention` (yardstick only) and the bound; and
@@ -91,14 +92,21 @@ BWD_SHAPES = [
     (1, 17, 300, 4, 4, 128, True),     # s_q < s_k
     (1, 200, 50, 4, 1, 64, True),      # s_q > s_k: 150 rows see no key
     (3, 1, 129, 8, 8, 32, True),       # one query row
-    # What the sm90 tiling (128 keys over two warpgroups, 64-row Q tiles,
-    # 64-column TMA boxes) makes risky:
+    # What the sm90 tilings (dK/dV: 128 keys over two warpgroups, 64-row Q
+    # tiles; dQ: 128 query rows over two warpgroups, 64-key K/V tiles; both
+    # 64-column TMA boxes) make risky:
     (1, 1000, 1000, 8, 2, 128, True),  # S not a multiple of 128
     (1, 2047, 2047, 4, 1, 128, True),  # H_kv = 1, S = 2047
     (2, 192, 192, 4, 2, 64, True),     # 1.5 tiles of 128
     (1, 100, 700, 8, 2, 128, True),    # s_q < s_k under causal
-    (1, 700, 130, 8, 2, 128, True),    # s_q > s_k: 570 rows see no key
+    # s_q > s_k: 570 rows see no key, and the dQ blocks of rows 128 .. 511
+    # see none at all (they load nothing and store zeros)
+    (1, 700, 130, 8, 2, 128, True),
+    (2, 1, 129, 8, 8, 128, True),      # one query row in a dQ block of 128
 ]
+# Read through [B,S,H,D] strides of [B,H,S,D] storage (q and dO): the
+# backward kernels' tensor maps and loads take the caller's strides.
+BWD_VIEW = (2, 320, 320, 4, 2, 128, True)
 # The training path's attention: Llama-3-8B heads at B=4, S=2048.
 TRAIN_ATTN = (4, 2048, 2048, 32, 8, 128, True)
 # The serving path's: Llama-3-8B heads on one prompt of 2048 tokens, and
@@ -385,12 +393,16 @@ def phase_bwd_check():
     from ray_tpu_torch.ops import flash_attention as fa
 
     main_err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    for i, shape in enumerate(BWD_SHAPES + [TRAIN_ATTN]):
+    cases = [(shape, False) for shape in BWD_SHAPES + [TRAIN_ATTN]]
+    for i, (shape, view) in enumerate(cases + [(BWD_VIEW, True)]):
         b, s_q, s_k, h, h_kv, d, causal = shape
         scale = d ** -0.5
         for dtype in (torch.float32, torch.bfloat16):
             name = "bf16" if dtype == torch.bfloat16 else "fp32"
             q, k, v, do = bwd_inputs(shape, dtype, 100 + i, DEVICE)
+            if view:
+                q, do = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                         for t in (q, do))
             o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
             got = fa._flash_bwd(q, k, v, o, lse, do, causal, scale)
             torch.cuda.synchronize()
@@ -400,7 +412,7 @@ def phase_bwd_check():
             unseen = lse < -1e29
             zero_ok = bool((got[0].transpose(1, 2)[unseen] == 0).all())
             tag = (f"b={b} s_q={s_q} s_k={s_k} h={h}/{h_kv} d={d} {name} "
-                   f"causal={causal}")
+                   f"causal={causal}{' view' if view else ''}")
             log(f"[f] {tag}: dq/dk/dv max_abs_err {errs[0]:.3e} / "
                 f"{errs[1]:.3e} / {errs[2]:.3e} (largest |dq|/|dk|/|dv| "
                 f"{float(want[0].float().abs().max()):.3g} / "

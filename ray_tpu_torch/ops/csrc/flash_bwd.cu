@@ -32,32 +32,62 @@
 //     the first that sees the key tile causally. It needs no atomics and no
 //     fp32 scratch of the repeated heads.
 //
-// dK/dV in bf16 at D = 64 and 128 (the main path; flash_bwd_dkv_sm90_kernel)
-// is built for Hopper (flash_sm90.cuh):
-//   * A block of 3 warpgroups owns 128 keys: two consumer warpgroups of 64
-//     keys each, and a producer warp that loads the K and V tiles once by
-//     TMA, then streams (Q, dO) tiles of 64 rows, with their lse and delta,
-//     through a ring of 2 stages on mbarriers. setmaxnreg: producer 24
-//     registers a thread, consumers 240 (the block's 168 x 384 in all).
+// bf16 at D = 64 and 128 (the main path) runs two kernels built for Hopper
+// (flash_sm90.cuh). Both have 3 warpgroups, 384 threads, one block an SM:
+// two consumer warpgroups of 64 rows of the output each, and a producer
+// warp that loads by TMA. setmaxnreg: producer 24 registers a thread,
+// consumers 240 (the block's 168 x 384 in all). Both run their products by
+// wgmma m64n64k16 and keep P and dS in registers: the fp32 accumulator is
+// rounded to bf16 and packed into the next product's A operand.
+//
+// dQ (flash_bwd_dq_sm90_kernel) has the forward's shape:
+//   * A block owns 128 query rows. The producer loads their Q and dO tiles
+//     once, then streams (K, V) tiles of 64 keys of KV head h / rep into a
+//     ring of 3 stages, each completed on one mbarrier and released by the
+//     consumers' 8 warps on an "empty" mbarrier. Where no row of the block
+//     sees a key it issues nothing, and the consumers store zeros.
+//   * Per K/V tile, each consumer warpgroup issues S = Q.K^T and
+//     dP = dO.V^T (both operands K-major) in one group; computes
+//     P = exp2(S * scale * log2(e) - lse * log2(e)) under the masks and
+//     dS = P * (dP - delta) * scale on the accumulators, with each thread's
+//     two rows of lse and delta read once into registers; then
+//     dQ += dS . K with dS as the register A operand and K as the MN-major
+//     B operand.
+//   * Tiles of 64 keys, not the forward's 128, for the registers: a
+//     consumer thread holds dQ (64 fp32 at D = 128, for the block's life),
+//     S (32), dP (32) and dS's fragments (16); 128-key tiles would double
+//     the last three, to 224 in all before addressing. dQ is rounded to
+//     bf16 once and stored from registers.
+//   * Under causal, warpgroup 0 sees one key tile fewer than warpgroup 1:
+//     it skips that tile's products but still waits for it and releases
+//     it, so the ring's phases stay in step.
+//   Shared memory at D = 128: Q and dO 64 KB, 3 stages of K and V 96 KB
+//   (164,920 bytes with the barriers and the alignment). ptxas: 168
+//   registers at entry, no spill, at D = 64 and 128.
+//
+// dK/dV (flash_bwd_dkv_sm90_kernel):
+//   * A block owns 128 keys. The producer warp loads their K and V tiles
+//     once, then streams (Q, dO) tiles of 64 rows, with their lse and delta,
+//     through a ring of 2 stages on mbarriers.
 //   * Everything is computed transposed, so nothing is staged: S^T = K.Q^T
-//     and dP^T = V.dO^T by wgmma (both operands K-major in shared memory);
-//     P^T = exp2(S^T * scale * log2(e) - lse * log2(e)) under the masks and
-//     dS^T = P^T * (dP^T - delta) * scale on the accumulators in registers;
-//     then dV += P^T . dO and dK += dS^T . Q by wgmma with P^T and dS^T
-//     rounded to bf16 as register A operands and dO and Q as MN-major B
-//     operands. dV's product is issued with dP's, so they overlap.
+//     and dP^T = V.dO^T (both operands K-major); P^T and dS^T on the
+//     accumulators under the masks; then dV += P^T . dO and dK += dS^T . Q
+//     with dO and Q as MN-major B operands. dV's product is issued with
+//     dP's, so they overlap. lse and delta index the accumulator's columns
+//     here, so the producer's lanes bring them into the stage.
 //   * The dK and dV accumulators (2 x 64 fp32 a thread at D = 128) stay in
 //     registers for the block's life and are stored from there.
-//   * Masks are applied only on tiles that need them (ragged ends, the
-//     causal diagonal); rows and keys past the ends are zero-filled by TMA.
 //   Shared memory at D = 128: K and V 64 KB, 2 stages of Q and dO 64 KB,
-//   lse and delta 1 KB: one block (384 threads) an SM. ptxas (CUDA 12.9):
-//   168 registers at entry, no spill, at D = 64 and 128; a consumer thread
-//   holds at most dK, dV (128), S^T (32), its bf16 fragment (16) and dP^T
-//   (32) at once.
+//   lse and delta 1 KB. ptxas (CUDA 12.9): 168 registers at entry, no
+//   spill, at D = 64 and 128; a consumer thread holds at most dK, dV (128),
+//   S^T (32), its bf16 fragment (16) and dP^T (32) at once.
 //
-// dQ (every dtype and head size), and dK/dV in fp32 or at bf16 D = 32, keep
-// the first design: one block of 4 warps over tiles of 64 rows, input tiles
+// In both, masks are applied only on tiles that need them (ragged ends, the
+// causal diagonal) and by a select; rows and keys past the ends are
+// zero-filled by TMA.
+//
+// fp32 (every head size) and bf16 at D = 32 keep the first design for both
+// dQ and dK/dV: one block of 4 warps over tiles of 64 rows, input tiles
 // loaded through registers, S and dP staged in shared memory in fp32 for
 // the element-wise pass, the accumulators in registers; bf16 products by
 // WMMA 16x16x16 and fp32 ones by FMA (no TF32), so fp32 agrees with the
@@ -654,12 +684,241 @@ cudaError_t launch_dkv_sm90(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dq(int D, const Args& a) {
+// -- dQ in bf16, D = 64 and 128: wgmma, register accumulators, a K/V ring --
+
+namespace dq90 {
+
+constexpr int QROWS = 128;  // query rows a block (two warpgroups of 64)
+constexpr int KROWS = 64;   // keys a streamed tile
+constexpr int STAGES = 3;   // (K, V) ring
+constexpr int THREADS = 384;
+
+template <int D>
+struct SmemQ {
+  static constexpr int NB = D / sm90::BOX;
+  static constexpr size_t q_bytes = QROWS * D * sizeof(bf16);
+  static constexpr size_t kv_bytes = KROWS * D * sizeof(bf16);
+  static constexpr size_t do_off = q_bytes;
+  static constexpr size_t k_off = 2 * q_bytes;
+  static constexpr size_t v_off = k_off + STAGES * kv_bytes;
+  static constexpr size_t bar_off = v_off + STAGES * kv_bytes;
+  static constexpr size_t bytes = bar_off + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+}  // namespace dq90
+
+template <int D>
+__global__ void __launch_bounds__(dq90::THREADS, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int H, int rep, int S_q,
+                         int S_k, int64_t o_b, int64_t o_s, int64_t o_h,
+                         float scale, int causal) {
+  using namespace dq90;
+  using L = SmemQ<D>;
+  constexpr int NB = L::NB, KS = D / 16;
+  constexpr int RB = sm90::ROW_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* bar_q = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / rep;
+  const int q0 = qt * QROWS, offset = S_k - S_q;
+  int n_kv = (S_k + KROWS - 1) / KROWS;
+  if (causal) {
+    const int lim = q0 + QROWS + offset;  // one past the last key this tile sees
+    n_kv = min(n_kv, lim <= 0 ? 0 : (lim + KROWS - 1) / KROWS);
+  }
+
+  if (threadIdx.x == 0) {
+    sm90::bar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::bar_init(&full[s], 1);
+      sm90::bar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    sm90::bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: one thread issues every copy of the block, and none where
+    // no row of the block sees a key (the consumers then store zeros).
+    sm90::regs_dec<24>();
+    if (threadIdx.x == 256 && n_kv > 0) {
+      sm90::bar_arrive_tx(bar_q, 2 * L::q_bytes);
+      sm90::tma_tile<NB>(smem, &tq, bar_q, QROWS, h, q0, b);
+      sm90::tma_tile<NB>(smem + L::do_off, &tdo, bar_q, QROWS, h, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % STAGES, u = j / STAGES;
+        if (u > 0) sm90::bar_wait(&empty[s], (u - 1) & 1);
+        sm90::bar_arrive_tx(&full[s], 2 * L::kv_bytes);
+        sm90::tma_tile<NB>(smem + L::k_off + s * L::kv_bytes, &tk, &full[s],
+                           KROWS, hk, j * KROWS, b);
+        sm90::tma_tile<NB>(smem + L::v_off + s * L::kv_bytes, &tv, &full[s],
+                           KROWS, hk, j * KROWS, b);
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63.
+    sm90::regs_inc<240>();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int qw0 = q0 + wg * 64;
+    const int row0 = qw0 + warp * 16 + (lane >> 2);  // and row0 + 8
+    const float scale_log2 = scale * sm90::LOG2E;
+    // Under causal, warpgroup 0 sees one K/V tile fewer than the block
+    // loads (or none); it still waits for that tile and releases it, so
+    // the ring's phases stay in step.
+    int mine = n_kv;
+    if (causal) {
+      const int lim = qw0 + 64 + offset;
+      mine = min(n_kv, lim <= 0 ? 0 : (lim + KROWS - 1) / KROWS);
+    }
+    // lse (times log2(e)) and delta of the thread's two rows; 0 past S_q,
+    // where Q and dO are zero-filled, so dS is 0 there.
+    float lse2[2], dlt[2];
+    const int64_t base = (static_cast<int64_t>(b) * H + h) * S_q;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lse2[r] = row < S_q ? lse[base + row] * sm90::LOG2E : 0.0f;
+      dlt[r] = row < S_q ? delta[base + row] : 0.0f;
+    }
+    float dQ[NB][32];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dQ[n][i] = 0.0f;
+    const unsigned char* qa = smem + wg * 64 * RB;
+    const unsigned char* doa = smem + L::do_off + wg * 64 * RB;
+
+    if (n_kv > 0) sm90::bar_wait(bar_q, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % STAGES, u = j / STAGES, k0 = j * KROWS;
+      const unsigned char* sK = smem + L::k_off + s * L::kv_bytes;
+      const unsigned char* sV = smem + L::v_off + s * L::kv_bytes;
+      sm90::bar_wait(&full[s], u & 1);
+      if (j < mine) {
+        // S = Q . K^T and dP = dO . V^T (64 rows x 64 keys), one group.
+        float S[32], dP[32];
+        sm90::wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          sm90::mma_ss(S,
+                       sm90::desc(qa + (ks / 4) * QROWS * RB + (ks % 4) * 32, 0),
+                       sm90::desc(sK + (ks / 4) * KROWS * RB + (ks % 4) * 32, 0),
+                       ks > 0);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          sm90::mma_ss(dP,
+                       sm90::desc(doa + (ks / 4) * QROWS * RB + (ks % 4) * 32,
+                                  0),
+                       sm90::desc(sV + (ks / 4) * KROWS * RB + (ks % 4) * 32, 0),
+                       ks > 0);
+        sm90::wg_commit();
+        sm90::wg_wait<0>();
+        sm90::reg_fence(S);
+        sm90::reg_fence(dP);
+
+        // dS = P * (dP - delta) * scale, P under the masks (a select: a
+        // row that sees no key has exp2 of ~1e30 here).
+        const bool masked =
+            k0 + KROWS > S_k || (causal && qw0 + offset < k0 + KROWS - 1);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          float p = sm90::fast_exp2(S[i] * scale_log2 - lse2[r]);
+          if (masked) {
+            const int kpos = k0 + sm90::acc_col(i);
+            const bool valid =
+                kpos < S_k && (!causal || row0 + 8 * r + offset >= kpos);
+            p = valid ? p : 0.0f;
+          }
+          dP[i] = p * (dP[i] - dlt[r]) * scale;
+        }
+        uint32_t Da[16];
+        sm90::to_a_frags(dP, Da);
+
+        // dQ += dS . K, K as the MN-major B operand.
+#pragma unroll
+        for (int n = 0; n < NB; ++n) sm90::reg_fence(dQ[n]);
+        sm90::reg_fence(Da);
+        sm90::wg_fence();
+#pragma unroll
+        for (int kb = 0; kb < KROWS / 16; ++kb)
+#pragma unroll
+          for (int n = 0; n < NB; ++n)
+            sm90::mma_rs(dQ[n], &Da[4 * kb],
+                         sm90::desc(sK + n * KROWS * RB + kb * 16 * RB,
+                                    KROWS * RB));
+        sm90::wg_commit();
+        sm90::wg_wait<0>();
+#pragma unroll
+        for (int n = 0; n < NB; ++n) sm90::reg_fence(dQ[n]);
+      }
+      if (lane == 0) sm90::bar_arrive(&empty[s]);
+    }
+
+    bf16* dqb = dq + b * o_b + h * o_h;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int row = row0 + 8 * ((i >> 1) & 1);
+        if (row < S_q)
+          *reinterpret_cast<__nv_bfloat162*>(
+              dqb + row * o_s + n * sm90::BOX + sm90::acc_col(i)) =
+              __floats2bfloat162_rn(dQ[n][i], dQ[n][i + 1]);
+      }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_sm90(const Args& a) {
+  using namespace dq90;
+  const Strides& st = a.st;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = sm90::make_map(&tq, a.q, a.B, a.S_q, a.H, D, st.q_b, st.q_s,
+                            st.q_h, QROWS)) != cudaSuccess ||
+      (err = sm90::make_map(&tk, a.k, a.B, a.S_k, a.H_kv, D, st.k_b, st.k_s,
+                            st.k_h, KROWS)) != cudaSuccess ||
+      (err = sm90::make_map(&tv, a.v, a.B, a.S_k, a.H_kv, D, st.v_b, st.v_s,
+                            st.v_h, KROWS)) != cudaSuccess ||
+      (err = sm90::make_map(&tdo, a.dout, a.B, a.S_q, a.H, D, st.do_b,
+                            st.do_s, st.do_h, QROWS)) != cudaSuccess)
+    return err;
+  auto kern = flash_bwd_dq_sm90_kernel<D>;
+  const int bytes = static_cast<int>(SmemQ<D>::bytes);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S_q + QROWS - 1) / QROWS, a.H, a.B);
+  kern<<<grid, THREADS, bytes, a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.o0), a.H,
+      a.H / a.H_kv, a.S_q, a.S_k, a.st.o_b, a.st.o_s, a.st.o_h, a.scale,
+      a.causal);
+  return cudaGetLastError();
+}
+
+// dQ: bf16 at D = 64 and 128 takes the sm90 kernel; fp32, and bf16 at
+// D = 32, the first design.
+cudaError_t dispatch_dq(int is_bf16, int D, const Args& a) {
   switch (D) {
-    case 32: return launch_dq<T, 32>(a);
-    case 64: return launch_dq<T, 64>(a);
-    case 128: return launch_dq<T, 128>(a);
+    case 32: return is_bf16 ? launch_dq<bf16, 32>(a) : launch_dq<float, 32>(a);
+    case 64: return is_bf16 ? launch_dq_sm90<64>(a) : launch_dq<float, 64>(a);
+    case 128:
+      return is_bf16 ? launch_dq_sm90<128>(a) : launch_dq<float, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -702,7 +961,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, B, H, H_kv,
                            S_q, S_k, strides, scale, causal, stream);
-  return is_bf16 ? dispatch_dq<bf16>(D, a) : dispatch_dq<float>(D, a);
+  return dispatch_dq(is_bf16, D, a);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -717,9 +976,10 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 // Which design each backward entry point launches for (dtype, D):
-// "wgmma" (the sm90 dK/dV kernel), "wmma" or "fma" (the first design).
-extern "C" const char* flash_bwd_dq_variant(int is_bf16, int) {
-  return is_bf16 ? "wmma" : "fma";
+// "wgmma" (the sm90 kernels), "wmma" or "fma" (the first design).
+extern "C" const char* flash_bwd_dq_variant(int is_bf16, int D) {
+  if (!is_bf16) return "fma";
+  return D == 64 || D == 128 ? "wgmma" : "wmma";
 }
 
 extern "C" const char* flash_bwd_dkv_variant(int is_bf16, int D) {
@@ -727,8 +987,15 @@ extern "C" const char* flash_bwd_dkv_variant(int is_bf16, int D) {
   return D == 64 || D == 128 ? "wgmma" : "wmma";
 }
 
-// Dynamic shared memory a block of the sm90 dK/dV kernel takes at head
-// size D (0 where flash_bwd_dkv launches another design).
+// Dynamic shared memory a block of the sm90 dQ or dK/dV kernel takes at
+// head size D (0 where the entry point launches another design).
+extern "C" int flash_bwd_dq_smem_bytes(int is_bf16, int D) {
+  if (!is_bf16) return 0;
+  if (D == 64) return static_cast<int>(dq90::SmemQ<64>::bytes);
+  if (D == 128) return static_cast<int>(dq90::SmemQ<128>::bytes);
+  return 0;
+}
+
 extern "C" int flash_bwd_dkv_smem_bytes(int is_bf16, int D) {
   if (!is_bf16) return 0;
   if (D == 64) return static_cast<int>(dkv90::SmemKV<64>::bytes);

@@ -1,6 +1,6 @@
 // Pieces shared by the first design of the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu: fp32, bf16 at D = 32, and dQ); the sm90
-// kernels take theirs from flash_sm90.cuh.
+// (flash_fwd.cu, flash_bwd.cu: fp32, and bf16 at D = 32); the sm90 kernels
+// take theirs from flash_sm90.cuh.
 //
 // Every such kernel runs blocks of NT = 128 threads (4 warps) over tiles of 64
 // rows of one head. Tiles sit in shared memory with rows padded by PAD

@@ -1,5 +1,5 @@
 // Hopper building blocks of the bf16 flash-attention kernels (the forward in
-// flash_fwd.cu, dK/dV in flash_bwd.cu): TMA tile loads completed on
+// flash_fwd.cu, dQ and dK/dV in flash_bwd.cu): TMA tile loads completed on
 // mbarriers, wgmma on operands in 128-byte-swizzled shared memory or in
 // registers, and the register layout that ties them together.
 //
@@ -14,10 +14,11 @@
 // the hardware.
 //
 // Products. Only m64n64k16 (bf16 in, fp32 accumulate) is issued, as
-//   * SS: A and B both K-major in shared memory (Q.K^T, K.Q^T, V.dO^T); a
-//     k-step of 16 moves the start address 32 bytes along the swizzled row;
+//   * SS: A and B both K-major in shared memory (Q.K^T, dO.V^T, K.Q^T,
+//     V.dO^T); a k-step of 16 moves the start address 32 bytes along the
+//     swizzled row;
 //   * RS: A from registers (P or dS in bf16), B MN-major in shared memory
-//     (V, dO, Q, whose rows run along the product's k), transposed by the
+//     (V, K, dO, Q, whose rows run along the product's k), transposed by the
 //     instruction; a k-step of 16 moves the start 16 rows (2048 bytes).
 // A warpgroup (4 warps) owns 64 rows of the product. Its accumulator
 // layout: warp w, lane l, register i of 32 holds row 16w + l/4 + 8*((i/2)%2)

@@ -5,9 +5,9 @@ become CUDA C++ for Hopper: `_fwd_kernel` is `csrc/flash_fwd.cu`;
 `_bwd_dq_kernel` and `_bwd_dkv_kernel` are the two kernels of
 `csrc/flash_bwd.cu` (see the sources' headers for the design).
 `kernel_variant` names the design each (kernel, dtype, head size) takes:
-bf16 at D = 64 and 128, the main path, runs the forward and dK/dV on
-Hopper's wgmma with register accumulators and a TMA-fed tile ring
-(`csrc/flash_sm90.cuh`); the rest keeps the first WMMA / FMA design.
+bf16 at D = 64 and 128, the main path, runs all three on Hopper's wgmma
+with register accumulators and a TMA-fed tile ring (`csrc/flash_sm90.cuh`);
+fp32, and bf16 at D = 32, keep the first WMMA / FMA design.
 `_reference_attention_torch` and `_flash_bwd_reference_torch` are the plain
 PyTorch versions of the same functions. `_FlashAttention` is the
 counterpart of the `_flash_bhsd` custom_vjp, so gradients flow through
@@ -38,9 +38,8 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # The C entry points that launch the kernels, by the library they live in.
 KERNELS = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
            "flash_bwd_dkv": "flash_bwd"}
-# (kernel, head size) pairs whose bf16 launches take the sm90 design.
-_WGMMA = {("flash_fwd", 64), ("flash_fwd", 128), ("flash_bwd_dkv", 64),
-          ("flash_bwd_dkv", 128)}
+# Head sizes whose bf16 launches take the sm90 design, in every kernel.
+_WGMMA_HEAD_DIMS = (64, 128)
 
 
 def kernel_variant(kernel: str, dtype: torch.dtype, d: int) -> str:
@@ -55,7 +54,7 @@ def kernel_variant(kernel: str, dtype: torch.dtype, d: int) -> str:
         raise ValueError(f"no kernel for {dtype} at head size {d}")
     if dtype == torch.float32:
         return "fma"
-    return "wgmma" if (kernel, d) in _WGMMA else "wmma"
+    return "wgmma" if d in _WGMMA_HEAD_DIMS else "wmma"
 
 
 def _query(kernel: str, what: str, restype, dtype: torch.dtype, d: int):

@@ -30,14 +30,18 @@ SHAPES = [
     (1, 17, 300, 4, 4, 128, True),     # s_q < s_k
     (1, 200, 50, 4, 1, 64, True),      # s_q > s_k: 150 rows see no key
     (3, 1, 129, 8, 8, 32, True),       # one query row, decode-shaped
-    # What the sm90 tiling (128 query rows over two warpgroups, 128-key
-    # tiles, 64-column TMA boxes) makes risky:
+    # What the sm90 tilings (128 query rows over two warpgroups with 128-
+    # or, in dQ, 64-key tiles; dK/dV's 128 keys over 64-row Q tiles;
+    # 64-column TMA boxes) make risky:
     (1, 1000, 1000, 8, 2, 128, True),  # S not a multiple of 128
     (1, 2047, 2047, 4, 1, 128, True),  # H_kv = 1, S = 2047
     (2, 192, 192, 4, 2, 64, True),     # 1.5 Q tiles: a warpgroup past S
     (1, 100, 700, 8, 2, 128, True),    # s_q < s_k under causal
-    (1, 700, 130, 8, 2, 128, True),    # s_q > s_k: 570 rows see no key
+    # s_q > s_k: 570 rows see no key, and the dQ blocks of rows 128 .. 511
+    # see none at all (they load nothing and store zeros)
+    (1, 700, 130, 8, 2, 128, True),
     (4, 2048, 2048, 32, 8, 128, True),  # the training path's attention
+    (2, 1, 129, 8, 8, 128, True),      # one query row in a dQ block of 128
 ]
 
 # |kernel - plain| <= atol + rtol * |plain|: fp32 differs in summation order
@@ -95,24 +99,25 @@ def test_flash_fwd_matches_plain(cuda, shape, dtype):
 def test_bf16_main_path_takes_the_wgmma_kernels(cuda):
     """The built libraries launch the design `kernel_variant` names for every
     (kernel, dtype, head size), and bf16 at D = 128 (the main path) runs the
-    sm90 forward and dK/dV kernels, each launch counted."""
+    sm90 forward, dQ and dK/dV kernels, each launch counted."""
     for kernel in fa.KERNELS:
         for dtype in fa.KERNEL_DTYPES:
             for d in fa.KERNEL_HEAD_DIMS:
                 assert (fa.built_variant(kernel, dtype, d)
                         == fa.kernel_variant(kernel, dtype, d)), (kernel,
                                                                   dtype, d)
-    assert fa.kernel_variant("flash_fwd", torch.bfloat16, 128) == "wgmma"
-    assert fa.kernel_variant("flash_bwd_dkv", torch.bfloat16, 128) == "wgmma"
+    for kernel in fa.KERNELS:
+        assert fa.kernel_variant(kernel, torch.bfloat16, 128) == "wgmma"
     shape = (1, 256, 256, 4, 2, 128, True)
     q, k, v, do = _inputs(cuda, shape, torch.bfloat16, 11)
-    before = (fa.flash_fwd_cuda.launches, fa.flash_bwd_dkv_cuda.launches)
+    counters = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    before = [fn.launches for fn in counters]
     o, lse = fa.flash_fwd_cuda(q, k, v, True, 128 ** -0.5)
     delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, True, 128 ** -0.5)
     fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True, 128 ** -0.5)
     torch.cuda.synchronize()
-    assert (fa.flash_fwd_cuda.launches,
-            fa.flash_bwd_dkv_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert [fn.launches for fn in counters] == [n + 1 for n in before]
 
 
 def test_flash_fwd_refuses_what_it_was_not_built_for(cuda):
@@ -142,6 +147,20 @@ def test_flash_bwd_matches_plain(cuda, shape, dtype):
     _assert_grads_close(got, want, dtype)
     unseen = lse < -1e29  # [B, H, S_q]
     assert (got[0].transpose(1, 2)[unseen] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_reads_transposed_views(cuda, dtype):
+    """q and dO as [B,H,S,D] storage read through [B,S,H,D] strides: the
+    tensor maps and loads take the caller's strides."""
+    shape = (2, 320, 320, 4, 2, 128, True)
+    q, k, v, do = _inputs(cuda, shape, dtype, 5)
+    q, do = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, do))
+    o, lse = fa.flash_fwd_cuda(q, k, v, True, 128 ** -0.5)
+    got = fa._flash_bwd(q, k, v, o, lse, do, True, 128 ** -0.5)
+    want = fa._flash_bwd_reference_torch(q, k, v, o, lse, do, True,
+                                         128 ** -0.5)
+    _assert_grads_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

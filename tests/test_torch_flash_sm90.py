@@ -32,7 +32,9 @@ DESIGNS = {
     ("flash_fwd", torch.bfloat16, 64): "wgmma",
     ("flash_fwd", torch.bfloat16, 128): "wgmma",
     **{("flash_bwd_dq", torch.float32, d): "fma" for d in (32, 64, 128)},
-    **{("flash_bwd_dq", torch.bfloat16, d): "wmma" for d in (32, 64, 128)},
+    ("flash_bwd_dq", torch.bfloat16, 32): "wmma",
+    ("flash_bwd_dq", torch.bfloat16, 64): "wgmma",
+    ("flash_bwd_dq", torch.bfloat16, 128): "wgmma",
     **{("flash_bwd_dkv", torch.float32, d): "fma" for d in (32, 64, 128)},
     ("flash_bwd_dkv", torch.bfloat16, 32): "wmma",
     ("flash_bwd_dkv", torch.bfloat16, 64): "wgmma",
@@ -57,7 +59,7 @@ def test_kernel_variant_refuses_what_no_kernel_takes():
     # The library queries validate before they build anything.
     with pytest.raises(ValueError, match="no kernel"):
         fa.built_variant("nope", torch.bfloat16, 128)
-    assert fa.sm90_smem_bytes("flash_bwd_dq", torch.bfloat16, 128) == 0
+    assert fa.sm90_smem_bytes("flash_fwd", torch.bfloat16, 32) == 0
 
 
 def test_sources_name_every_design_they_dispatch_to():
@@ -71,25 +73,59 @@ def test_sources_name_every_design_they_dispatch_to():
         assert fa.KERNELS[kernel] == ("flash_fwd" if src is fwd
                                       else "flash_bwd")
     assert "flash_fwd_sm90_kernel" in fwd and '#include "flash_sm90.cuh"' in fwd
+    assert "flash_bwd_dq_sm90_kernel" in bwd
     assert "flash_bwd_dkv_sm90_kernel" in bwd
     assert '#include "flash_sm90.cuh"' in bwd
 
 
-@pytest.mark.parametrize("source", ["flash_fwd.cu", "flash_bwd.cu"])
-def test_sm90_register_budget_fits_the_block(source):
+def _sm90_kernel(kernel):
+    """The constants of `<kernel>_sm90_kernel`'s namespace (the one its
+    __launch_bounds__ names) and the kernel's body, read from its source."""
+    src = (CSRC / f"{fa.KERNELS[kernel]}.cu").read_text()
+    m = re.search(r"__launch_bounds__\((\w+)::THREADS, 1\)\s*\n"
+                  rf"{kernel}_sm90_kernel\(", src)
+    assert m, kernel
+    ns = m.group(1)
+    block = re.search(rf"namespace {ns} {{(.*?)}}  // namespace {ns}", src,
+                      re.S).group(1)
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", block)}
+    return consts, src[m.end():src.index("cudaError_t launch", m.end())]
+
+
+@pytest.mark.parametrize("kernel", list(fa.KERNELS))
+def test_sm90_register_budget_fits_the_block(kernel):
     """setmaxnreg can only move registers inside the block's own
     allocation: the producer warpgroup's and the consumers' new counts must
     add up to no more than what __launch_bounds__(THREADS, 1) gave the block
     at launch, or the consumers' increase waits forever."""
-    src = (CSRC / source).read_text()
-    threads = int(re.search(r"constexpr int THREADS = (\d+);", src).group(1))
-    dec = [int(x) for x in re.findall(r"regs_dec<(\d+)>", src)]
-    inc = [int(x) for x in re.findall(r"regs_inc<(\d+)>", src)]
+    consts, body = _sm90_kernel(kernel)
+    threads = consts["THREADS"]
+    dec = [int(x) for x in re.findall(r"regs_dec<(\d+)>", body)]
+    inc = [int(x) for x in re.findall(r"regs_inc<(\d+)>", body)]
     assert len(dec) == len(inc) == 1
     per_thread = (65536 // threads) // 8 * 8  # ptxas rounds to 8
     for n in dec + inc:
         assert 24 <= n <= 256 and n % 8 == 0
     assert dec[0] * 128 + inc[0] * (threads - 128) <= per_thread * threads
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_dq_tiles_fit_shared_memory_and_registers(d):
+    """The dQ kernel's tiles, read from its source: two consumer warpgroups
+    of 64 query rows; Q, dO and the (K, V) ring fit the 227 KB a block may
+    take; and what a consumer thread holds at once fits its setmaxnreg
+    budget with room for addressing. A 64 x N fp32 accumulator of a
+    warpgroup is N / 2 registers a thread, its bf16 A fragments N / 4."""
+    consts, body = _sm90_kernel("flash_bwd_dq")
+    qrows, krows, stages = consts["QROWS"], consts["KROWS"], consts["STAGES"]
+    assert qrows == 2 * 64 and consts["THREADS"] == 3 * 128
+    assert krows % 16 == 0 and stages >= 2
+    smem = (2 * qrows + 2 * stages * krows) * d * 2 + (1 + 2 * stages) * 8
+    assert smem + 1024 <= 232_448  # + 1024 to align the base
+    held = d // 2 + krows // 2 + krows // 2 + krows // 4  # dQ, S, dP, dS
+    inc = int(re.search(r"regs_inc<(\d+)>", body).group(1))
+    assert held + 64 <= inc
 
 
 def test_sm90_header_changes_the_build_key_of_both_libraries(
@@ -168,7 +204,8 @@ def _plain_from_delta(q, k, v, do, lse, delta, causal, scale):
     return fa._flash_bwd_reference_torch(q, k, v, o, lse, do, causal, scale)
 
 
-def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path):
+def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
+                                             request):
     """chip_smoke.main() end to end at tiny sizes: stubbed torch.cuda, the
     build replaced by a canned ptxas log, the kernels routed to counting
     wrappers of their plain versions. Every phase runs; the kernels line has
@@ -176,6 +213,12 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path):
     paths'; the last line is the ok object."""
     from ray_tpu_torch.models import llama
 
+    # One intra-op thread: the tensors are tiny, and where test workers
+    # share the cores, a thread pool of every core in each of them makes
+    # the run tens of times slower.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    request.addfinalizer(lambda: torch.set_num_threads(threads))
     t0 = time.perf_counter()
     smoke = _load_chip_smoke(monkeypatch)
     # The card, stubbed.
@@ -250,6 +293,7 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(smoke, "SERVE_ATTN", (1, 64, 64, 4, 2, 32, True))
     monkeypatch.setattr(smoke, "BWD_SHAPES", [(1, 17, 40, 2, 1, 32, True),
                                               (1, 40, 17, 2, 2, 64, True)])
+    monkeypatch.setattr(smoke, "BWD_VIEW", (1, 20, 20, 2, 1, 64, True))
     monkeypatch.setattr(smoke, "flash_cases", lambda lengths: [
         (1, s, s, 4, 2, 32, torch.bfloat16, True, False) for s in lengths]
         + [(1, 30, 10, 2, 1, 64, torch.float32, True, True)])
@@ -291,7 +335,7 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path):
     assert by_path["flash_bwd_dq"] == {"serve": 0, "train": 13 * layers}
     assert by_path["flash_bwd_dkv"] == {"serve": 0, "train": 13 * layers}
     assert by_path["flash_fwd"]["serve"] >= 2 * layers
-    assert [k["design"] for k in kernels] == ["wgmma", "wmma", "wgmma"]
+    assert [k["design"] for k in kernels] == ["wgmma", "wgmma", "wgmma"]
     assert "library_ms" in kernels[0]["train_shape"]
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
