@@ -33,7 +33,29 @@ Phases, in order; any failure raises and the script exits non-zero:
       through the flash kernel (n_layers launches a call), its last-position
       logits held against `forward_with_cache` prefill;
   (e) `InferenceEngine(max_batch=4, max_len=2048)` answers 8 greedy
-      requests (more than slots); a second run gives the same tokens;
+      requests (more than slots); a second run gives the same tokens; the
+      repaired cache attention (bf16 cache read as it is, fp32
+      accumulation) against its fp32-copy plain version at the 8B cache;
+      one decode step on 4 slots at lengths near 2048, timed and split by
+      torch.profiler in three forms (the former loop: the fp32-copy
+      attention, eager, a host read a step; repaired eager; repaired CUDA
+      graph), the graph's token block and executed steps identical to the
+      eager loop's; and `benchmark_engine` (decode tok/s at 8 slots
+      against the card's memory-bandwidth bound);
+  (i) the paged serving path on the same 8B weights: `forward_with_paged_
+      cache` through a scrambled block table against `forward_with_cache`
+      (a 1500-token prefill, then 4 decode steps); a prefix hit (1024
+      tokens from cached blocks, the tail prefilled at offset 1024) against
+      a cold prefill; `PagedInferenceEngine(block_size=64, max_len=2048,
+      max_batch=8)` serving 12 requests on a shared 1024-token system
+      prompt, half at the start and half once the first is done, twice on
+      fresh engines (identical streams, prefix hits, every block back);
+      TTFT cold against a prefix hit; decode tok/s at 8 slots and a
+      profile of one such step (eager and graph); then the tiny fp32
+      config on the card against the CPU (a small pool that preempts, and
+      a prefix-hit script): streams, block tables after every wave and
+      prefix statistics identical; and sampling inside the decode graph
+      repeatable on two fresh engines of each kind;
   (h) the training path, on the JAX package's train-bench configuration
       (bench.py: Llama-3-8B layer widths, 5 layers, vocab 32000, chunked CE
       of 1024, remat "dots", bf16, B=4, S=2048): `make_train_step` with
@@ -43,7 +65,8 @@ Phases, in order; any failure raises and the script exits non-zero:
       weights agree.
 
 The launch counts are set to 0 just before each main path (serving: (d)
-and (e); training: (h)) and read just after it. The last three lines of
+and (e); paged serving: (i), which runs no flash kernel; training: (h)) and
+read just after it. The last three lines of
 stdout are the card's `nvidia-smi` name and power limit, one JSON object on
 the kernels, and `{"ok": true, "device": ...}`. Without CUDA, or without
 the repository beside it, it exits non-zero and prints no result.
@@ -136,6 +159,33 @@ CHUNKED_LOSS_REL_TOL = 1e-3
 # the last-position logits; a wrong mask or head mapping gives ~1.
 FORWARD_REL_TOL = 5e-2
 
+
+# (e): the dense decode on the card, 4 slots at lengths near the engine's
+# max_len of 2048, timed over DECODE_STEPS steps.
+DECODE_LENGTHS = (2000, 1990, 1950, 1900)
+DECODE_MAX_LEN = 2048
+DECODE_STEPS = 32
+# The repaired cache attention against its fp32-copy plain version on the
+# same bf16 inputs: both round only their inputs (and their bf16 output)
+# and accumulate in fp32 in another order. Relative L2 of the output; a
+# wrong head mapping or mask gives ~1.
+ATTN_REL_TOL = 1e-3
+# benchmark_engine at 8B: decode tok/s at full occupancy.
+ENGINE_BENCH = dict(max_batch=8, max_len=512, new_tokens=64)
+
+# (i): the paged engine's settings (its default pool: 129 blocks), the
+# prompts of the forward checks, and the serving script.
+PAGED_ENGINE = dict(block_size=64, max_len=2048, max_batch=8)
+PAGED_PROMPT = 1500
+PAGED_PREFIX = 1024
+PAGED_DECODE_STEPS = 4
+SERVE_REQUESTS = 12
+SERVE_TAIL = (64, 900)
+SERVE_NEW = 48
+# Paged against dense logits at 8B bf16 (and a prefix hit against a cold
+# prefill): the same arithmetic through other shapes for 32 layers, as
+# phase (d)'s bound. Relative L2.
+PAGED_REL_TOL = 5e-2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -583,6 +633,537 @@ def phase_engine(cfg, params, seed):
         f" run, {n_decode / (t1 - t_prefill):.1f} tok/s")
 
 
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def phase_cache_attention(cfg, seed):
+    """The repaired `_decode_attention` and `_cached_attention` against
+    their fp32-copy plain versions, on bf16 inputs at the 8B cache's shape
+    (4 rows of 2048 positions, lengths near 2048)."""
+    from ray_tpu_torch.models import llama
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE).to(cfg.dtype)
+
+    b, t = len(DECODE_LENGTHS), DECODE_MAX_LEN
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    k_cache, v_cache = randn(b, t, kv, d), randn(b, t, kv, d)
+    lengths = torch.as_tensor(DECODE_LENGTHS, device=DEVICE)
+    q, k, v = randn(b, 1, h, d), randn(b, 1, kv, d), randn(b, 1, kv, d)
+    s = 16  # a block of new queries whose keys are already in the cache
+    q_block = randn(b, s, h, d)
+    with torch.no_grad():
+        pairs = {
+            "_decode_attention": (
+                llama._decode_attention(q, k, v, k_cache, v_cache, lengths,
+                                        cfg),
+                llama._decode_attention_plain(q, k, v, k_cache, v_cache,
+                                              lengths, cfg)),
+            "_cached_attention": (
+                llama._cached_attention(q_block, k_cache, v_cache,
+                                        lengths - s, cfg),
+                llama._cached_attention_plain(q_block, k_cache, v_cache,
+                                              lengths - s, cfg)),
+        }
+    for name, (got, want) in pairs.items():
+        rel = rel_l2(got, want)
+        log(f"[e] {name} (bf16 cache [{b},{t},{kv},{d}], lengths "
+            f"{list(DECODE_LENGTHS)}) against its fp32-copy plain version: "
+            f"rel L2 {rel:.3e}")
+        check(got.dtype == want.dtype and bool(torch.isfinite(got).all())
+              and rel <= ATTN_REL_TOL, f"{name} disagrees (rel {rel:.3e})")
+
+
+def op_group(key):
+    """A profiled CPU op -> the group a decode step's device time goes to."""
+    if key == "aten::mm":
+        return "matrix products (weights)"
+    if key == "aten::bmm":
+        return "cache attention products"
+    if key in ("aten::copy_", "aten::index_select", "aten::index",
+               "aten::index_put_", "aten::_index_put_impl_", "aten::cat",
+               "aten::stack", "aten::index_copy_", "aten::gather"):
+        return "copies, casts and gathers"
+    return "elementwise, reductions, softmax, sampling"
+
+
+def profile_decode(run_steps, n):
+    """run_steps(n) under torch.profiler -> (wall ms a step, kernel ms a
+    step, {group: ms a step}); the groups come from the CPU op each kernel
+    was launched by, so a graph replay (whose kernels have no op) shows
+    only its total."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_steps(n)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    groups = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and \
+                e.self_device_time_total > 0:
+            grp = op_group(e.key)
+            groups[grp] = groups.get(grp, 0.0) + \
+                e.self_device_time_total / 1e3 / n
+    return wall, busy, groups
+
+
+def prefill_slots(eng, cfg, lengths, seed):
+    """Prefill slots 0..len(lengths)-1 with random prompts of those lengths;
+    -> the decode loop's inputs (first tokens, lengths, budget, active)."""
+    from ray_tpu_torch.inference import GenerationConfig
+
+    rng = np.random.default_rng(seed)
+    n, bucket = len(lengths), eng._bucket_for(max(lengths))
+    toks = np.zeros((n, bucket), np.int64)
+    for i, s in enumerate(lengths):
+        toks[i, :s] = rng.integers(0, cfg.vocab_size, s)
+    slots = eng._tensor(range(n))
+    firsts = eng._prefill_batch(eng._tensor(toks), slots,
+                                eng._tensor(lengths), GenerationConfig())
+    budget = torch.full((n,), 1 << 20, device=DEVICE)
+    active = torch.ones(n, dtype=torch.bool, device=DEVICE)
+    return firsts[:, None], eng._tensor(lengths), budget, active
+
+
+def time_decode(tag, name, run_steps, n, slots):
+    """Time run_steps(n) decode steps on `slots` rows, profile 4 more, and
+    log both."""
+    run_steps(2)  # warm: a graph is captured on first use
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps(n)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    wall, busy, groups = profile_decode(run_steps, 4)
+    log(f"[{tag}] decode step, {name}: {ms:.3f} ms a step, "
+        f"{slots * 1e3 / ms:.1f} tok/s; torch.profiler over 4 steps: "
+        f"{wall:.3f} ms a step, kernels {busy:.3f} ms (device idle share "
+        f"{max(0.0, 1 - busy / wall):.3f})"
+        + ("; by group (ms a step): " + ", ".join(
+            f"{g} {v:.3f}" for g, v in sorted(groups.items(),
+                                               key=lambda x: -x[1]))
+           if groups else ""))
+
+
+def decode_bound_ms(cfg, params, lengths):
+    """Least time of one decode step on this card: every weight but the
+    embedding table (one row a token) read once, and each row's K/V up to
+    its length."""
+    nbytes = sum(w.numel() * w.element_size() for w in (
+        [params[k] for k in ("final_norm", "lm_head")]
+        + list(params["layers"].values())))
+    nbytes += (sum(lengths) * 2 * cfg.n_layers * cfg.n_kv_heads * cfg.d_head
+               * params["lm_head"].element_size())
+    return nbytes / PEAKS[1] * 1e3
+
+
+def phase_decode(cfg, params, seed):
+    """One dense decode step at 4 slots: where its time goes, before and
+    after the repairs; the graph against the eager loop."""
+    from ray_tpu_torch.inference import GenerationConfig, InferenceEngine
+    from ray_tpu_torch.models import llama
+
+    b, n = len(DECODE_LENGTHS), DECODE_STEPS
+    eng = InferenceEngine(params, cfg, max_batch=b, max_len=DECODE_MAX_LEN,
+                          device=DEVICE)
+    inputs = prefill_slots(eng, cfg, DECODE_LENGTHS, seed)
+    gen = GenerationConfig(max_new_tokens=n + 1)
+    dec = eng._decoder
+    graph_mode = dec.use_graph  # on the card; a rehearsal has no graphs
+    # The graph against the eager loop on this first wave: each writes the
+    # K/V it reads, so the second run reads nothing the first left behind.
+    dec.use_graph = False
+    eager = eng._decode_full(*inputs, n, -1, gen)
+    dec.use_graph = graph_mode
+    graph = eng._decode_full(*inputs, n, -1, gen)
+    log(f"[e] decode {n} steps on {b} slots: eager executed {eager[1]}, "
+        f"graph executed {graph[1]}; token blocks identical "
+        f"{np.array_equal(eager[0], graph[0])}")
+    check(eager[1] == graph[1] == n and np.array_equal(eager[0], graph[0]),
+          "the CUDA graph's decode differs from the eager loop's")
+
+    def run(steps, use_graph):
+        dec.use_graph = use_graph
+        dec.run(*inputs, steps, -1, gen)
+
+    def run_former(steps):
+        # The former loop: the fp32-copy attention, eager, a host read a
+        # step.
+        dec._load({"tok": inputs[0], "lens": inputs[1], "rem": inputs[2],
+                   "act": inputs[3], "eos": -1})
+        for _ in range(steps):
+            dec._step(gen)
+            dec._state["act"].any().item()
+
+    forms = {"former (fp32-copy attention, eager, host read a step)":
+             run_former,
+             "repaired, eager": lambda k: run(k, False),
+             "repaired, CUDA graph": lambda k: run(k, graph_mode)}
+    plain = llama._decode_attention
+    for name, fn in forms.items():
+        if name.startswith("former"):
+            llama._decode_attention = llama._decode_attention_plain
+        try:
+            time_decode("e", name, fn, n, b)
+        finally:
+            llama._decode_attention = plain
+    bound_ms = decode_bound_ms(cfg, params, DECODE_LENGTHS)
+    log(f"[e] decode step bound: the weights but the embedding table, and "
+        f"the cache up to each length, once at {PEAKS[1] / 1e12:.2f} TB/s: "
+        f"{bound_ms:.3f} ms, {b * 1e3 / bound_ms:.1f} tok/s on {b} slots")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from ray_tpu_torch.inference.benchmarks import benchmark_engine
+    res = benchmark_engine(cfg, device=DEVICE, **ENGINE_BENCH)
+    det = res["detail"]
+    bound = ("no bound off the card" if det["roofline_frac"] is None else
+             f"bound {det['hbm_roofline_tokens_per_sec']:.1f} tok/s, "
+             f"roofline share {det['roofline_frac']:.3f}")
+    log(f"[e] benchmark_engine {ENGINE_BENCH}: {res['value']:.1f} tok/s "
+        f"({res['seconds']:.3f} s) on {det['device_kind']}, {bound}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# -- (i) ---------------------------------------------------------------------
+
+def paged_pool_blocks():
+    nb = -(-PAGED_ENGINE["max_len"] // PAGED_ENGINE["block_size"])
+    return nb, 1 + max(nb, PAGED_ENGINE["max_batch"] * nb // 2)
+
+
+def phase_paged_forward(cfg, params, seed):
+    """(i-1) paged against dense through a scrambled block table; (i-2) a
+    prefix hit against a cold prefill."""
+    from ray_tpu_torch.models import llama
+
+    rng = np.random.default_rng(seed)
+    bs, max_len = PAGED_ENGINE["block_size"], PAGED_ENGINE["max_len"]
+    nb, n_blocks = paged_pool_blocks()
+    pool = llama.init_paged_kv_cache(cfg, n_blocks, bs, device=DEVICE)
+    perm = rng.permutation(np.arange(1, n_blocks))
+    table = torch.as_tensor(perm[None, :nb], device=DEVICE)
+    s = PAGED_PROMPT
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, s),
+                             device=DEVICE)
+    toks = torch.zeros((1, max_len), dtype=torch.int64, device=DEVICE)
+    toks[0, :s] = prompt  # padded to the engine's bucket
+    valid = torch.arange(max_len, device=DEVICE)[None] < s
+    zero = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    cache = llama.init_kv_cache(cfg, 1, max_len, device=DEVICE)
+    with torch.no_grad():
+        paged, _ = llama.forward_with_paged_cache(params, toks, pool, table,
+                                                  zero, cfg, valid=valid)
+        cold_last = paged[0, s - 1].clone()
+        del paged
+        dense, _ = llama.forward_with_cache(params, toks[:, :s], cache, zero,
+                                            cfg)
+        dense = dense[:, -1]
+        rels = [rel_l2(cold_last, dense[0])]
+        for step in range(PAGED_DECODE_STEPS):
+            nxt = dense.argmax(-1)[:, None]
+            lens = torch.full((1,), s + step, device=DEVICE)
+            paged, _ = llama.forward_with_paged_cache(params, nxt, pool,
+                                                      table, lens, cfg)
+            dense, _ = llama.forward_with_cache(params, nxt, cache, lens, cfg)
+            dense = dense[:, -1]
+            rels.append(rel_l2(paged[0, -1], dense[0]))
+    log(f"[i-1] forward_with_paged_cache through a scrambled table "
+        f"{perm[:6].tolist()}... against forward_with_cache: prefill of {s} "
+        f"(padded to {max_len}), then {PAGED_DECODE_STEPS} decode steps: "
+        f"rel L2 {[f'{r:.3e}' for r in rels]}")
+    check(max(rels) <= PAGED_REL_TOL, f"paged and dense differ ({rels})")
+    del cache
+    # (i-2): the first PAGED_PREFIX tokens' blocks serve a second table.
+    m = PAGED_PREFIX
+    k = m // bs
+    hit_table = torch.cat([table[:, :k], torch.as_tensor(
+        perm[None, nb:2 * nb - k], device=DEVICE)], dim=1)
+    shared = [x[:, table[0, :k]].clone() for x in pool.values()]
+    n_tail = s - m
+    bucket = 1 << (n_tail - 1).bit_length()
+    tail = torch.zeros((1, bucket), dtype=torch.int64, device=DEVICE)
+    tail[0, :n_tail] = prompt[m:]
+    tail_valid = torch.arange(bucket, device=DEVICE)[None] < n_tail
+    with torch.no_grad():
+        hit, _ = llama.forward_with_paged_cache(
+            params, tail, pool, hit_table, torch.full((1,), m, device=DEVICE),
+            cfg, valid=tail_valid)
+    rel = rel_l2(hit[0, n_tail - 1], cold_last)
+    kept = all(torch.equal(a, x[:, table[0, :k]])
+               for a, x in zip(shared, pool.values()))
+    log(f"[i-2] prefix hit: {m} tokens from {k} cached blocks, the {n_tail}-"
+        f"token tail prefilled at offset {m} (bucket {bucket}), against the "
+        f"cold prefill of all {s}: last-position rel L2 {rel:.3e}; cached "
+        f"blocks unchanged {kept}")
+    check(rel <= PAGED_REL_TOL and kept,
+          f"prefix-hit logits differ (rel {rel:.3e}) or the cached blocks "
+          "changed")
+
+
+def serve_script(eng, prompts, new):
+    """Half of `prompts` at the start, the rest once the first request is
+    done. -> ({req: tokens}, {req: done count}, seconds)."""
+    from ray_tpu_torch.inference import GenerationConfig
+
+    half = len(prompts) // 2
+    sent = {"early": False, "late": False, "first_done": False}
+
+    def feed(_block):
+        if not sent["early"]:
+            sent["early"] = True
+            return [(i, prompts[i], new) for i in range(half)], (), False
+        if sent["first_done"] and not sent["late"]:
+            sent["late"] = True
+            return [(i, prompts[i], new)
+                    for i in range(half, len(prompts))], (), False
+        return [], (), sent["late"]
+
+    streams = {i: [] for i in range(len(prompts))}
+    dones = {i: 0 for i in range(len(prompts))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid, tok, done in eng.serve_stream(feed, GenerationConfig(
+            max_new_tokens=new)):
+        check(tok is not None, f"request {rid} aborted: "
+              f"{eng.abort_reasons.get(rid)}")
+        streams[rid].append(tok)
+        if done:
+            dones[rid] += 1
+            sent["first_done"] = True
+    torch.cuda.synchronize()
+    return streams, dones, time.perf_counter() - t0
+
+
+def check_drained(eng, tag):
+    rep = eng.kv_block_report()
+    check(rep["active_blocks"] == 0 and rep["active_slots"] == 0
+          and rep["free_blocks"] + rep["cached_blocks"] == eng.n_blocks - 1,
+          f"{tag}: blocks not all returned ({rep})")
+    return rep
+
+
+def phase_paged_serve(cfg, params, seed):
+    """(i-3): serve_stream on the 8B weights, twice, and the rates."""
+    from ray_tpu_torch.inference import GenerationConfig
+    from ray_tpu_torch.inference.paged_engine import PagedInferenceEngine
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab_size, PAGED_PREFIX).tolist()
+    tails = np.linspace(*SERVE_TAIL, SERVE_REQUESTS).astype(int)
+    rng.shuffle(tails)
+    prompts = [system + rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in tails]
+    runs = []
+    for run in range(2):
+        eng = PagedInferenceEngine(params, cfg, device=DEVICE, **PAGED_ENGINE)
+        eng.profiler.reset()
+        torch.cuda.reset_peak_memory_stats()
+        streams, dones, secs = serve_script(eng, prompts, SERVE_NEW)
+        rep = check_drained(eng, f"serve run {run + 1}")
+        ph = eng.profiler.report(recent=0)["phase_seconds"]
+        stats = dict(eng.prefix_stats)
+        n_prefill = sum(map(len, prompts)) - stats["hit_tokens"]
+        log(f"[i-3] run {run + 1} (fresh engine, {eng.n_blocks} blocks of "
+            f"{eng.block_size}, {rep['bytes_per_token']} B a token): "
+            f"{SERVE_REQUESTS} requests, tails {sorted(tails.tolist())}, "
+            f"{SERVE_NEW} new each, in {secs:.3f} s; prefix {stats}; "
+            f"preemptions {eng.preemptions}, peak active {eng.peak_active}; "
+            f"phases {ph}; prefill {n_prefill} tokens, "
+            f"{n_prefill / max(ph.get('prefill', 0), 1e-9):.1f} tok/s of "
+            f"prefill phase; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(all(len(v) == SERVE_NEW for v in streams.values())
+              and all(v == 1 for v in dones.values()),
+              f"run {run + 1}: tokens {[len(v) for v in streams.values()]}, "
+              f"done {list(dones.values())}")
+        runs.append((streams, stats, eng.preemptions))
+        if run == 0:
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    check(runs[0][0] == runs[1][0], "the two runs' greedy streams differ")
+    check(runs[0][1:] == runs[1][1:], "the two runs' prefix statistics or "
+          "preemptions differ")
+    check(runs[1][1]["hit_requests"] > 0, "the second run had no prefix hit")
+    log("[i-3] the two runs: streams, prefix statistics and preemptions "
+        "identical")
+
+    # TTFT, on the second engine (its cache holds the system prompt):
+    # a prefix hit against a cold system prompt, in turns, each on a tail
+    # of its own.
+    ttft = {"cold": [], "hit": []}
+    for _ in range(2):
+        for kind in ("cold", "hit"):
+            head = (system if kind == "hit" else
+                    rng.integers(0, cfg.vocab_size, PAGED_PREFIX).tolist())
+            tail = rng.integers(0, cfg.vocab_size,
+                                PAGED_PROMPT - PAGED_PREFIX).tolist()
+            before = eng.prefix_stats["hit_tokens"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.generate([head + tail], GenerationConfig(max_new_tokens=1))
+            ttft[kind].append(time.perf_counter() - t0)
+            hit = eng.prefix_stats["hit_tokens"] - before
+            check((hit == PAGED_PREFIX) == (kind == "hit"),
+                  f"{kind} request matched {hit} tokens")
+    log(f"[i-3] TTFT of a {PAGED_PROMPT}-token prompt (max_new_tokens=1): "
+        f"cold {[f'{t * 1e3:.2f}' for t in ttft['cold']]} ms "
+        f"({PAGED_PROMPT / min(ttft['cold']):.1f} prompt tok/s), prefix hit "
+        f"of {PAGED_PREFIX} {[f'{t * 1e3:.2f}' for t in ttft['hit']]} ms")
+
+    # Decode at 8 slots: 8 requests on the cached system prompt, each with
+    # a tail of one block, asking for one block of new tokens: one wave.
+    slots, new = PAGED_ENGINE["max_batch"], PAGED_ENGINE["block_size"]
+    batch = [system + rng.integers(0, cfg.vocab_size, new).tolist()
+             for _ in range(slots)]
+    eng.profiler.reset()
+    out = eng.generate(batch, GenerationConfig(max_new_tokens=new))
+    check_drained(eng, "decode at 8 slots")
+    rep = eng.profiler.report(recent=64)
+    decode_tok = sum(r["tokens"] for r in rep["recent_steps"])
+    dev_s = rep["phase_seconds"]["device_execute"]
+    log(f"[i-3] decode at {slots} slots: {decode_tok} tokens in "
+        f"{len(rep['recent_steps'])} waves, device_execute {dev_s:.3f} s, "
+        f"{decode_tok / dev_s:.1f} tok/s ({dev_s * 1e3 * slots / decode_tok:.3f}"
+        f" ms a step)")
+    check(all(len(o) == new for o in out), "decode at 8 slots: token counts")
+
+    # Where a paged decode step's time goes: the 8 slots at these lengths,
+    # the system prompt's blocks shared as the prefix cache shares them
+    # (the step's work does not depend on the pool's contents).
+    dec, bs = eng._decoder, eng.block_size
+    shared = PAGED_PREFIX // bs
+    lens = len(batch[0]) + 1
+    own = -(-(lens + DECODE_STEPS + 8) // bs) - shared
+    table = np.zeros_like(eng.block_table)
+    table[:, :shared] = np.arange(1, shared + 1)
+    table[:, shared:shared + own] = (shared + 1 + np.arange(slots * own)
+                                     ).reshape(slots, own)
+    tokens = rng.integers(0, cfg.vocab_size, (slots, 1))
+    inputs = (tokens, np.full(slots, lens), np.full(slots, 1 << 20),
+              np.ones(slots, bool))
+    gen = GenerationConfig()
+    graph_mode = dec.use_graph
+
+    def run(steps, use_graph):
+        dec.use_graph = use_graph
+        dec.run(*inputs, steps, -1, gen, table=table)
+
+    for name, use_graph in (("eager", False), ("CUDA graph", graph_mode)):
+        time_decode("i-3", f"paged, {slots} slots at {lens}, {name}",
+                    lambda k: run(k, use_graph), DECODE_STEPS, slots)
+    bound_ms = decode_bound_ms(cfg, params, [lens] * slots)
+    log(f"[i-3] paged decode step bound: {bound_ms:.3f} ms, "
+        f"{slots * 1e3 / bound_ms:.1f} tok/s on {slots} slots")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def paged_snapshot(eng):
+    rep = eng.kv_block_report()
+    return (eng.block_table.tolist(), eng.lengths.tolist(),
+            dict(eng.prefix_stats), eng.preemptions,
+            {k: rep[k] for k in ("free_blocks", "cached_blocks",
+                                 "active_blocks", "active_slots")})
+
+
+def watch_waves(eng):
+    """-> the list that gets the engine's paged_snapshot after every decode
+    wave (the engine records each wave in its profiler)."""
+    snaps, prof = [], eng.profiler
+
+    class Watch:
+        def record_step(self, *args, **kwargs):
+            prof.record_step(*args, **kwargs)
+            snaps.append(paged_snapshot(eng))
+
+        def report(self, *args, **kwargs):
+            return prof.report(*args, **kwargs)
+
+    eng.profiler = Watch()
+    return snaps
+
+
+def phase_paged_tiny(seed=7):
+    """(i-4): the tiny fp32 config through the paged engine on the card and
+    on the CPU from the same weights: a pool small enough to preempt
+    (tests/test_paged_engine.py) and a prefix-hit script
+    (tests/test_prefix_cache.py)."""
+    import dataclasses
+
+    from ray_tpu_torch.inference import GenerationConfig, InferenceEngine
+    from ray_tpu_torch.inference.paged_engine import PagedInferenceEngine
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.optim import tree_map
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=128),
+                              dtype=torch.float32)
+    weights = llama.init(cfg, torch.Generator().manual_seed(seed),
+                         device="cpu")
+    shared = [3] * 37
+    scripts = {
+        "preemption": (dict(max_batch=4, max_len=64, block_size=8,
+                            n_blocks=9), 24,
+                       [[[2, 4, 6], [1, 3, 5], [7, 8, 9]]]),
+        "prefix": (dict(max_batch=4, max_len=128, block_size=16,
+                        decode_chunk=4), 10,
+                   [[shared + [7, 8]], [shared + [9]], [[5] * 32],
+                    [[5] * 32], [[11, 4, 8]]]),
+    }
+    for name, (kw, new, calls) in scripts.items():
+        got = {}
+        for dev in (DEVICE, "cpu"):
+            params = tree_map(lambda w: w.to(dev, copy=True), weights)
+            eng = PagedInferenceEngine(params, cfg, device=dev, **kw)
+            snaps = watch_waves(eng)
+            outs = [eng.generate(prompts, GenerationConfig(
+                max_new_tokens=new)) for prompts in calls]
+            got[dev] = (outs, snaps, paged_snapshot(eng))
+        same = got[DEVICE] == got["cpu"]
+        final = got["cpu"][2]
+        log(f"[i-4] tiny fp32 paged '{name}' {kw}: {len(got['cpu'][1])} "
+            f"decode waves; prefix {final[2]}, preemptions {final[3]}; "
+            f"{DEVICE} and cpu streams, block tables after every wave and "
+            f"prefix statistics identical {same}")
+        check(same, f"tiny paged '{name}' differs between {DEVICE} and cpu")
+        check(final[3] > 0 if name == "preemption"
+              else final[2]["hit_requests"] > 0 and final[2]["cow_copies"] > 0,
+              f"tiny paged '{name}' never preempted or hit")
+    # Sampling inside the decode graph draws from the engine's generator,
+    # registered with the graph: seeded, so two fresh engines agree.
+    params = tree_map(lambda w: w.to(DEVICE, copy=True), weights)
+    gen = GenerationConfig(max_new_tokens=12, temperature=1.0, top_k=20,
+                           top_p=0.9)
+    prompts = [[2, 4, 6], [1, 3, 5, 7, 9]]
+    for cls, kw in ((InferenceEngine, dict(max_batch=2, max_len=64)),
+                    (PagedInferenceEngine, dict(max_batch=2, max_len=64,
+                                                block_size=8))):
+        runs = [cls(params, cfg, device=DEVICE, **kw).generate(prompts, gen)
+                for _ in range(2)]
+        ok = runs[0] == runs[1] and all(
+            0 <= t < cfg.vocab_size and len(o) == 12
+            for o in runs[0] for t in o)
+        log(f"[i-4] tiny {cls.__name__} sampled (temperature 1, top_k 20, "
+            f"top_p 0.9) on {DEVICE}: two fresh engines agree and stay in the "
+            f"vocabulary {ok}")
+        check(ok, f"sampled {cls.__name__} on {DEVICE} not repeatable")
+
+
 # -- (h) ---------------------------------------------------------------------
 
 def bench_config():
@@ -824,10 +1405,20 @@ def main() -> int:
     reset_kernel_counts()
     phase_forward(cfg, params, main_lengths, seed=1)
     phase_engine(cfg, params, seed=2)
+    phase_cache_attention(cfg, seed=4)
+    phase_decode(cfg, params, seed=5)
     serve = kernel_counts()
     check(serve["flash_fwd"] > 0, "the serving path never launched flash_fwd")
     log(f"[d+e] launches on the serving path: {serve}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+
+    reset_kernel_counts()
+    phase_paged_forward(cfg, params, seed=6)
+    phase_paged_serve(cfg, params, seed=8)
+    phase_paged_tiny()
+    log(f"[i] launches on the paged serving path: {kernel_counts()} (it "
+        f"attends through the cache attention, not the flash kernel); "
         f"{time.perf_counter() - t_start:.1f} s so far")
     del params
     gc.collect()

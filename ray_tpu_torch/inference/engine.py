@@ -12,9 +12,10 @@ Counterpart of `ray_tpu/inference/engine.py`, with its scheduling kept:
     call with on-device sampling and per-slot budget/EOS/length tracking,
     handing the host one [steps, B] token block at the end.
 
-PyTorch runs eagerly, so the JAX package's compiled while-loop is a Python
-loop here that reads one flag from the device per step (to stop when every
-slot is done); the KV cache is updated in place where JAX donates it.
+The JAX package's compiled while-loop is `FusedDecode`: on the card each
+step is one CUDA graph replay, the host reads the device once every
+SYNC_EVERY steps (to stop when every slot is done) and once at the end; the
+KV cache is updated in place where JAX donates it.
 
 Model-agnostic: any model exposing `forward_with_cache(params, tokens,
 cache, lengths, config)` and `init_kv_cache(config, batch, max_len,
@@ -89,6 +90,10 @@ class InferenceEngine:
         self.free_slots = list(range(max_batch))
         self._gen = torch.Generator(device=self.device).manual_seed(0)
         self.decode_chunk = max(1, decode_chunk)
+        self._decoder = FusedDecode(
+            lambda tok, lens, _table: self._fwd(
+                self.params, tok, self.cache, lens, self.config)[0],
+            max_batch, max_len, self._gen, stop_at_len=max_len)
 
     # -- device side --------------------------------------------------------
 
@@ -119,32 +124,15 @@ class InferenceEngine:
         return sample_token(last, self._gen, temperature=gen.temperature,
                             top_k=gen.top_k, top_p=gen.top_p)
 
-    @torch.no_grad()
     def _decode_full(self, tokens, lengths, budget, active, n_steps: int,
                      eos_id: int, gen):
         """Up to `n_steps` decode steps with on-device sampling, per-slot
         budget/EOS/length tracking, and an early exit when every slot is
         done. tokens [B,1]; budget [B] remaining new-token allowance;
         active [B] bool; eos_id -1 for none.
-        -> (out [n_steps, B] tokens, -1 where inactive; executed steps)."""
-        t_max = self.cache["k"].shape[2]
-        out = torch.zeros((n_steps, tokens.shape[0]), dtype=torch.int64,
-                          device=self.device)
-        tok, lens, rem, act = tokens, lengths, budget, active
-        i = 0
-        while i < n_steps and bool(act.any()):
-            logits, self.cache = self._fwd(self.params, tok, self.cache,
-                                           lens, self.config)
-            nxt = sample_token(logits[:, -1], self._gen,
-                               temperature=gen.temperature,
-                               top_k=gen.top_k, top_p=gen.top_p)
-            out[i] = torch.where(act, nxt, -1)
-            lens = torch.where(act, lens + 1, lens)
-            rem = torch.where(act, rem - 1, rem)
-            act = act & (rem > 0) & (nxt != eos_id) & (lens + 1 < t_max)
-            tok = nxt[:, None]
-            i += 1
-        return out, i
+        -> (out [n_steps, B] numpy, -1 where inactive; executed steps)."""
+        return self._decoder.run(tokens, lengths, budget, active, n_steps,
+                                 eos_id, gen)
 
     # -- internals ----------------------------------------------------------
 
@@ -221,7 +209,7 @@ class InferenceEngine:
             act0 &= bud0 > 0
             out, executed = self._decode_full(tok0, lens0, bud0, act0, need,
                                               eos, gen)
-            firsts, out = firsts.cpu().numpy(), out.cpu().numpy()
+            firsts = firsts.cpu().numpy()
         except Exception:
             self.free_slots.extend(slots)
             raise
@@ -333,7 +321,6 @@ class InferenceEngine:
                 self._tensor(tokens), self._tensor(self.lengths),
                 self._tensor(budget),
                 torch.as_tensor(act, device=self.device), need, eos, gen)
-            out = out.cpu().numpy()
             n_before = len(active)
             yield from self._consume_block(out, executed, active, gen)
             if pending and len(active) < n_before:
@@ -346,6 +333,135 @@ class InferenceEngine:
         for req_idx, token in self.generate_stream(prompts, gen):
             out[req_idx].append(token)
         return out
+
+
+# Decode steps between two host reads of the device in FusedDecode: it
+# checks once every SYNC_EVERY steps whether any slot is still active, so at
+# most SYNC_EVERY - 1 steps run after the last slot is done.
+SYNC_EVERY = 8
+
+
+class FusedDecode:
+    """The decode-sample-append loop of both engines (the JAX engines'
+    compiled `lax.while_loop`): up to n steps with on-device sampling and
+    per-slot budget/EOS/length tracking, the host out of the loop.
+
+    The loop state lives in fixed device tensors. On the card one step is
+    one CUDA graph, captured once for the engine's shapes and each sampling
+    configuration (the JAX engines compile one program per configuration)
+    and replayed n times; a failed capture or replay raises. `use_graph`
+    (set for cuda) is the only switch; the card check turns it off to hold
+    the graph against the eager loop.
+
+    The host reads the device once every SYNC_EVERY steps and once at the
+    end, so up to SYNC_EVERY - 1 steps may run after every slot is done.
+    They count for nothing: `executed` counts the steps that began with a
+    slot active, as the reference's loop condition does; their rows of
+    `out` stay 0; their K/V lands at each row's length, a masked position
+    that the next prefill of that slot overwrites, as inactive rows write
+    inside the reference's loop."""
+
+    def __init__(self, forward: Callable, batch: int, max_steps: int,
+                 generator: torch.Generator, *,
+                 stop_at_len: Optional[int] = None,
+                 table_shape: Optional[Tuple[int, int]] = None):
+        """forward(tok [B,1], lens [B], table) -> logits [B,1,V], writing
+        the step's K/V into the engine's cache in place; table is the
+        [B, max_blocks] block table (paged) or None. stop_at_len: a row
+        stops once its length + 1 reaches it (the dense cache's end)."""
+        self._forward = forward
+        self._generator = generator
+        self._stop_at_len = stop_at_len
+        dev = generator.device
+        self.device = dev
+        self.use_graph = dev.type == "cuda"
+
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self._state = {"tok": zeros(batch, 1), "lens": zeros(batch),
+                       "rem": zeros(batch),
+                       "act": zeros(batch, dtype=torch.bool), "eos": zeros()}
+        if table_shape is not None:
+            self._state["table"] = zeros(*table_shape)
+        self._out = zeros(max_steps, batch)
+        self._step_index = zeros(1)
+        self._executed = zeros()
+        self._graphs: Dict[Tuple, Any] = {}
+
+    def run(self, tokens, lengths, budget, active, n_steps: int,
+            eos_id: int, gen, table=None) -> Tuple[np.ndarray, int]:
+        """-> (out [n_steps, B] numpy, the sampled token where the slot
+        was active at the step, -1 where not, 0 past `executed`;
+        executed)."""
+        if n_steps > self._out.shape[0]:
+            raise ValueError(f"{n_steps} steps exceed the loop's "
+                             f"{self._out.shape[0]}")
+        inputs = {"tok": tokens, "lens": lengths, "rem": budget,
+                  "act": active, "eos": eos_id, "table": table}
+        self._load(inputs)
+        step = (self._graph(gen, inputs) if self.use_graph
+                else lambda: self._step(gen))
+        for i in range(n_steps):
+            if i and i % SYNC_EVERY == 0 and self._executed.item() < i:
+                break  # a step began with no slot active: all are done
+            step()
+        host = torch.cat([self._out[:n_steps].reshape(-1),
+                          self._executed.view(1)]).cpu().numpy()
+        return host[:-1].reshape(n_steps, -1), int(host[-1])
+
+    def _load(self, inputs) -> None:
+        for name, buf in self._state.items():
+            buf.copy_(torch.as_tensor(inputs[name], device=self.device))
+        self._out.zero_()
+        self._step_index.zero_()
+        self._executed.zero_()
+
+    @torch.no_grad()
+    def _step(self, gen) -> None:
+        st = self._state
+        act = st["act"]
+        began = act.any()
+        logits = self._forward(st["tok"], st["lens"], st.get("table"))
+        nxt = sample_token(logits[:, -1], self._generator,
+                           temperature=gen.temperature, top_k=gen.top_k,
+                           top_p=gen.top_p)
+        row = torch.where(began, torch.where(act, nxt, -1), 0)
+        self._out.index_copy_(0, self._step_index, row[None])
+        self._step_index.add_(1)
+        self._executed.add_(began.to(torch.int64))
+        lens = torch.where(act, st["lens"] + 1, st["lens"])
+        rem = torch.where(act, st["rem"] - 1, st["rem"])
+        act = act & (rem > 0) & (nxt != st["eos"])
+        if self._stop_at_len is not None:
+            act = act & (lens + 1 < self._stop_at_len)
+        st["tok"].copy_(nxt[:, None])
+        st["lens"].copy_(lens)
+        st["rem"].copy_(rem)
+        st["act"].copy_(act)
+
+    def _graph(self, gen, inputs) -> Callable[[], None]:
+        """The replay of this sampling configuration's step graph; captures
+        it on first use. The warm-up step before the capture runs on the
+        real inputs (it writes the K/V the first replay writes again), and
+        the inputs are loaded anew after it."""
+        key = (gen.temperature, gen.top_k, gen.top_p)
+        graph = self._graphs.get(key)
+        if graph is None:
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self._step(gen)
+            current.wait_stream(side)
+            self._load(inputs)
+            graph = torch.cuda.CUDAGraph()
+            if gen.temperature > 0:
+                graph.register_generator_state(self._generator)
+            with torch.cuda.graph(graph):
+                self._step(gen)
+            self._graphs[key] = graph
+        return graph.replay
 
 
 def _tensors(tree) -> Iterator[torch.Tensor]:

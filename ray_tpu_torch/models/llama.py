@@ -8,9 +8,10 @@ JAX package puts them, so bf16 rounds at the same points. The scan over
 layers becomes a Python loop; its per-layer remat (`jax.checkpoint` with a
 policy) becomes `torch.utils.checkpoint` with selective checkpointing.
 
-The KV-cache paths update the cache in place where the JAX package donates
-it and returns a new one. The paged cache and the mesh (sharding rules, ring
-attention) are later slices.
+The KV-cache paths, dense and paged, update the cache in place where the
+JAX package donates it and returns a new one, and contract the cache as it
+is stored with fp32 accumulation (`_attend`; no fp32 copy of the cache).
+The mesh (sharding rules, ring attention) is a later slice.
 """
 
 from __future__ import annotations
@@ -342,13 +343,91 @@ def init_kv_cache(config: LlamaConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def _kv_major(cache):
+    """[B,T,kv,K] cache -> [kv*B, T, K], the layout one batched matrix
+    product takes. The cache's (B, kv) strides cannot fold into one batch
+    stride, so this is one copy, in the cache's own dtype."""
+    b, t, g, d = cache.shape
+    return cache.permute(2, 0, 1, 3).reshape(g * b, t, d)
+
+
+def _bmm_f32(a, b):
+    """a @ b over a batch with an fp32 result. On the card bf16 operands
+    are read as they are and cuBLAS accumulates in fp32 (bmm's out_dtype
+    overload, as preferred_element_type=float32 asks in the JAX package);
+    elsewhere, and for fp32 operands, both go through fp32 (the CPU has no
+    kernel for that overload), which computes the same products."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _attend(q, k, v, visible, config: LlamaConfig, self_kv=None):
+    """Grouped-query attention of q [B,S,H,K] over kv-major k/v [kv*B,T,K]
+    (`_kv_major`): no repeat of the KV heads and no fp32 copy of k or v;
+    scores, softmax and the output accumulate in fp32. visible [B,S,T] is
+    the mask. self_kv=(k_new, v_new), each [B,kv,K] (S=1), adds the
+    current token's own key as one more visible column (decode)."""
+    c = config
+    b, s, h, d = q.shape
+    g, rep, t = c.n_kv_heads, c.n_heads // c.n_kv_heads, k.shape[1]
+    qg = q.reshape(b, s, g, rep, d).permute(2, 0, 3, 1, 4)  # [g,b,r,s,K]
+    scores = _bmm_f32(qg.reshape(g * b, rep * s, d), k.transpose(1, 2))
+    scores = scores.view(g, b, rep, s, t) / (d ** 0.5)
+    scores = torch.where(visible[None, :, None], scores, NEG_INF)
+    if self_kv is not None:
+        k_new, v_new = (x.permute(1, 0, 2)[:, :, None, None].float()
+                        for x in self_kv)  # [g,b,1,1,K]
+        self_score = (qg.float() * k_new).sum(-1, keepdim=True) / (d ** 0.5)
+        scores = torch.cat([scores, self_score], dim=-1)
+    probs = torch.softmax(scores, dim=-1)
+    out = _bmm_f32(probs[..., :t].to(v.dtype).reshape(g * b, rep * s, t), v)
+    out = out.view(g, b, rep, s, d)
+    if self_kv is not None:
+        out = out + probs[..., t:] * v_new
+    return out.permute(1, 3, 0, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
 def _cached_attention(q, k_cache, v_cache, lengths, config: LlamaConfig):
     """q: [B,S,H,K] new queries at positions lengths..lengths+S;
     k/v_cache: [B,T,kv,K] full cache (already containing the new keys).
     Masks out cache positions >= lengths+S and enforces causality within
-    the new block. Grouped-query aware (q as [B,S,kv,rep,K], no repeat of
-    the cache); products accumulate in fp32 as the JAX package's
-    preferred_element_type asks."""
+    the new block. Grouped-query aware, products accumulate in fp32 from
+    the cache as it is stored (`_attend`)."""
+    s, t = q.shape[1], k_cache.shape[1]
+    return _attend(q, _kv_major(k_cache), _kv_major(v_cache),
+                   _causal_visible(lengths, s, t), config)
+
+
+def _causal_visible(lengths, s, t):
+    """[B,S,T]: key j is visible to query i (at lengths+i) iff j <= it."""
+    dev = lengths.device
+    q_pos = lengths[:, None, None] + torch.arange(s, device=dev)[None, :, None]
+    return torch.arange(t, device=dev)[None, None, :] <= q_pos
+
+
+def _decode_attention(q, k_new, v_new, k_cache, v_cache, lengths,
+                      config: LlamaConfig):
+    """Single-token attention where the current token's K/V is NOT yet in
+    the cache: q/k_new/v_new [B,1,H|kv,K], k/v_cache [B,T,kv,K] holding
+    positions 0..lengths-1. The self-attention term is computed directly
+    from k_new/v_new, so the cache takes one scatter per decode step
+    (forward_with_cache) instead of one per layer."""
+    return _attend(q, _kv_major(k_cache), _kv_major(v_cache),
+                   _prefix_visible(lengths, k_cache.shape[1]), config,
+                   self_kv=(k_new[:, 0], v_new[:, 0]))
+
+
+def _prefix_visible(lengths, t):
+    """[B,1,T]: the cache positions below each row's length."""
+    return (torch.arange(t, device=lengths.device)[None, None, :]
+            < lengths[:, None, None])
+
+
+def _cached_attention_plain(q, k_cache, v_cache, lengths,
+                            config: LlamaConfig):
+    """Plain version of `_cached_attention`: the cache copied to fp32 and
+    contracted by einsum. The card check holds the repaired path to it."""
     c = config
     b, s, h, d = q.shape
     t = k_cache.shape[1]
@@ -367,13 +446,9 @@ def _cached_attention(q, k_cache, v_cache, lengths, config: LlamaConfig):
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
-def _decode_attention(q, k_new, v_new, k_cache, v_cache, lengths,
-                      config: LlamaConfig):
-    """Single-token attention where the current token's K/V is NOT yet in
-    the cache: q/k_new/v_new [B,1,H|kv,K], k/v_cache [B,T,kv,K] holding
-    positions 0..lengths-1. The self-attention term is computed directly
-    from k_new/v_new, so the cache takes one scatter per decode step
-    (forward_with_cache) instead of one per layer."""
+def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, lengths,
+                            config: LlamaConfig):
+    """Plain version of `_decode_attention`, the cache copied to fp32."""
     c = config
     b, s, h, d = q.shape
     t = k_cache.shape[1]
@@ -452,6 +527,125 @@ def forward_with_cache(params, tokens, cache, lengths, config: LlamaConfig):
             x = _mlp_sublayer(x, lp, c)
     x = _rms_norm(x, params["final_norm"], c.norm_eps)
     return (x @ params["lm_head"]).float(), cache
+
+
+def init_paged_kv_cache(config: LlamaConfig, n_blocks: int,
+                        block_size: int, dtype: Optional[torch.dtype] = None,
+                        device=None) -> Dict[str, torch.Tensor]:
+    """Block-pool KV cache (PagedAttention layout): tensors [n_layers,
+    n_blocks, block_size, n_kv_heads, d_head]. Sequences map logical
+    positions onto blocks through a block table, so memory is budgeted by
+    the tokens in flight instead of batch x max_len. Block 0 is scratch:
+    masked writes land there and padding entries of a block table point at
+    it. Zero-filled: masked positions enter P.V with P = 0, and 0 times a
+    NaN left in uninitialised memory would be NaN."""
+    c = config
+    dev = resolve_device(device)
+    shape = (c.n_layers, n_blocks, block_size, c.n_kv_heads, c.d_head)
+    dtype = dtype or c.dtype
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _gather_kv_major(pool, block_table):
+    """One layer's pool [n_blocks, bs, kv, K] through block_table [B, nb]
+    -> [kv*B, nb*bs, K]: logical position t of row b lands at index t, in
+    the layout `_attend` takes, by one gather (the JAX package's per-layer
+    take, written straight into that layout)."""
+    _, bs, g, d = pool.shape
+    b, nb = block_table.shape
+    rows = pool.permute(2, 0, 1, 3).index_select(1, block_table.reshape(-1))
+    return rows.reshape(g * b, nb * bs, d)
+
+
+def _flat_slots(block_table, positions, block_size, valid):
+    """Pool row (block * block_size + offset) of each logical position, 0
+    (the scratch block) where `valid` is False. A padded position past the
+    table is clamped before the lookup; it is invalid, so it goes to 0."""
+    nb = block_table.shape[1]
+    blk = torch.gather(block_table, 1,
+                       (positions // block_size).clamp(max=nb - 1))
+    return torch.where(valid, blk * block_size + positions % block_size, 0)
+
+
+def _attn_sublayer_paged(x, params, positions, config: LlamaConfig,
+                         k_pool, v_pool, block_table, lengths, valid):
+    """Prefill attention over a paged pool for ONE layer: the new K/V go
+    into the pool in place (invalid rows to the scratch block; duplicate
+    targets there are harmless, block 0 is never read at a live position),
+    then the queries attend over the per-layer gather of the table."""
+    c = config
+    q, k, v = _qkv(x, params, positions, c)
+    n_blocks, bs, kvh, d = k_pool.shape
+    flat = _flat_slots(block_table, positions, bs, valid).reshape(-1)
+    for pool, new in ((k_pool, k), (v_pool, v)):
+        pool.view(n_blocks * bs, kvh, d)[flat] = new.reshape(
+            -1, kvh, d).to(pool.dtype)
+    s, t = positions.shape[1], block_table.shape[1] * bs
+    attn = _attend(q, _gather_kv_major(k_pool, block_table),
+                   _gather_kv_major(v_pool, block_table),
+                   _causal_visible(lengths, s, t), c)
+    return x + _proj_out(attn, params["wo"])
+
+
+def _attn_sublayer_paged_decode(x, params, positions, config: LlamaConfig,
+                                k_pool, v_pool, block_table):
+    """Decode-step (S=1) paged attention: reads each row's positions below
+    its length from the pool (READ-ONLY here), adds the new token's own
+    term directly, and returns the new K/V for the single deferred pool
+    scatter in forward_with_paged_cache."""
+    c = config
+    q, k, v = _qkv(x, params, positions, c)
+    k, v = k.to(k_pool.dtype), v.to(v_pool.dtype)
+    t = block_table.shape[1] * k_pool.shape[1]
+    attn = _attend(q, _gather_kv_major(k_pool, block_table),
+                   _gather_kv_major(v_pool, block_table),
+                   _prefix_visible(positions[:, 0], t), c,
+                   self_kv=(k[:, 0], v[:, 0]))
+    return x + _proj_out(attn, params["wo"]), (k[:, 0], v[:, 0])
+
+
+def forward_with_paged_cache(params, tokens, pool, block_table, lengths,
+                             config: LlamaConfig, valid=None):
+    """forward_with_cache over a paged pool (see init_paged_kv_cache).
+
+    tokens: [B, S] new tokens at positions lengths..lengths+S; block_table
+    [B, max_blocks] integer; valid: optional [B, S] bool for padded prefill
+    tails (invalid positions write to the scratch block and are masked
+    from attention by `lengths`). The pool is updated IN PLACE (the JAX
+    package donates it and returns a new one); this returns the same dict.
+    -> (logits [B, S, vocab] fp32, pool)"""
+    c = config
+    b, s = tokens.shape
+    positions = lengths[:, None] + torch.arange(s, device=tokens.device)[None]
+    if valid is None:
+        valid = torch.ones((b, s), dtype=torch.bool, device=tokens.device)
+    x = params["embed"][tokens].to(c.dtype)
+    if s == 1:
+        # The layers only READ the pool, so none sees this step's K/V in
+        # it; every layer's new K/V lands with one scatter after the loop.
+        k_new, v_new = [], []
+        for i in range(c.n_layers):
+            lp = _layer_params(params, i)
+            x, (k1, v1) = _attn_sublayer_paged_decode(
+                x, lp, positions, c, pool["k"][i], pool["v"][i], block_table)
+            x = _mlp_sublayer(x, lp, c)
+            k_new.append(k1)
+            v_new.append(v1)
+        n_layers, n_blocks, bs = pool["k"].shape[:3]
+        flat = _flat_slots(block_table, positions, bs, valid)[:, 0]
+        for name, rows in (("k", k_new), ("v", v_new)):
+            pool[name].view(n_layers, n_blocks * bs,
+                            *pool[name].shape[3:])[:, flat] = torch.stack(rows)
+    else:
+        for i in range(c.n_layers):
+            lp = _layer_params(params, i)
+            x = _attn_sublayer_paged(x, lp, positions, c, pool["k"][i],
+                                     pool["v"][i], block_table, lengths,
+                                     valid)
+            x = _mlp_sublayer(x, lp, c)
+    x = _rms_norm(x, params["final_norm"], c.norm_eps)
+    return (x @ params["lm_head"]).float(), pool
 
 
 def flops_per_token(config: LlamaConfig, seq_len: int) -> float:

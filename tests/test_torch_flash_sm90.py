@@ -308,11 +308,39 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
         assert [len(o) for o in out] == [3, 3]
 
     monkeypatch.setattr(smoke, "phase_engine", engine)
+    # The decode phase and the paged path, at tiny sizes.
+    monkeypatch.setattr(smoke, "DECODE_LENGTHS", (40, 30))
+    monkeypatch.setattr(smoke, "DECODE_MAX_LEN", 64)
+    monkeypatch.setattr(smoke, "DECODE_STEPS", 4)
+    monkeypatch.setattr(smoke, "ENGINE_BENCH",
+                        dict(max_batch=2, max_len=64, new_tokens=4))
+    monkeypatch.setattr(smoke, "profile_decode",
+                        lambda run, n: (run(n), (1.0, 0.5, {}))[1])
+    monkeypatch.setattr(smoke, "PAGED_ENGINE",
+                        dict(block_size=8, max_len=64, max_batch=4))
+    monkeypatch.setattr(smoke, "PAGED_PROMPT", 40)
+    monkeypatch.setattr(smoke, "PAGED_PREFIX", 16)
+    monkeypatch.setattr(smoke, "SERVE_REQUESTS", 4)
+    monkeypatch.setattr(smoke, "SERVE_TAIL", (4, 20))
+    monkeypatch.setattr(smoke, "SERVE_NEW", 5)
 
     assert smoke.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
-    for tag in ("[a]", "[b]", "[c]", "[f]", "[g]", "[d]", "[d+e]", "[h]"):
+    for tag in ("[a]", "[b]", "[c]", "[f]", "[g]", "[d]", "[d+e]", "[h]",
+                "[i-1]", "[i-2]", "[i-3]", "[i-4]", "[i]"):
         assert any(line.startswith(tag) for line in lines), tag
+    for text in ("[e] _decode_attention", "[e] _cached_attention",
+                 "token blocks identical True", "[e] decode step, former",
+                 "[e] decode step, repaired, CUDA graph",
+                 "[e] benchmark_engine", "streams, prefix statistics and "
+                 "preemptions identical", "[i-3] TTFT", "[i-3] decode at 4"):
+        assert any(text in line for line in lines), text
+    assert sum("identical True" in line and line.startswith("[i-4]")
+               for line in lines) == 2
+    assert sum("vocabulary True" in line and line.startswith("[i-4]")
+               for line in lines) == 2
+    assert sum(line.startswith("[i-3] decode step, paged") for line in lines) \
+        == 2
     assert any("flash_fwd_sm90_kernel bf16 D=128: 168 registers, spill "
                "stores 0 B, loads 0 B, dynamic shared memory 164920 B" in line
                for line in lines)

@@ -60,7 +60,11 @@ def test_importing_the_port_loads_no_jax():
             "import ray_tpu_torch, ray_tpu_torch.inference, "
             "ray_tpu_torch.models.llama, ray_tpu_torch.models.convert, "
             "ray_tpu_torch.ops.flash_attention, ray_tpu_torch.ops._build, "
-            "ray_tpu_torch.train, ray_tpu_torch._private.accelerators.nvidia; "
+            "ray_tpu_torch.train, ray_tpu_torch._private.accelerators.nvidia, "
+            "ray_tpu_torch.inference.paged_engine, "
+            "ray_tpu_torch.inference.benchmarks, "
+            "ray_tpu_torch._private.kv_registry, "
+            "ray_tpu_torch._private.device_profiler; "
             "print(sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -92,6 +96,32 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     assert eng.cache["k"].device.type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_paged_serving_entry_points_need_cuda_unless_asked_for_cpu(
+        monkeypatch):
+    from ray_tpu_torch._private.device_profiler import (DeviceStepProfiler,
+                                                        get_profiler)
+    from ray_tpu_torch.inference.benchmarks import benchmark_engine
+    from ray_tpu_torch.inference.paged_engine import PagedInferenceEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama.LlamaConfig.tiny(vocab_size=64)
+    params = llama.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for call in (lambda: PagedInferenceEngine(params, cfg),
+                 lambda: llama.init_paged_kv_cache(cfg, 3, 8),
+                 lambda: benchmark_engine(cfg),
+                 lambda: get_profiler("decode"),
+                 lambda: DeviceStepProfiler("decode")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    eng = PagedInferenceEngine(params, cfg, max_batch=1, max_len=16,
+                               block_size=8, device="cpu")
+    assert eng.pool["k"].device.type == "cpu"
+    assert eng.profiler.report()["hbm"] == {}  # no device memory on the CPU
+    params["lm_head"] = params["lm_head"].to("meta")
+    with pytest.raises(ValueError, match="meta"):
+        PagedInferenceEngine(params, cfg, device="cpu")
 
 
 @pytest.mark.parametrize("name,peak", [
