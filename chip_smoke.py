@@ -58,15 +58,28 @@ Phases, in order; any failure raises and the script exits non-zero:
       repeatable on two fresh engines of each kind;
   (h) the training path, on the JAX package's train-bench configuration
       (bench.py: Llama-3-8B layer widths, 5 layers, vocab 32000, chunked CE
-      of 1024, remat "dots", bf16, B=4, S=2048): `make_train_step` with
-      AdamW takes a warm-up step and 10 timed steps on one batch; each step
-      launches flash_fwd 2L times (remat reruns it), dQ and dK/dV L times.
-      Then 3 steps of the tiny fp32 config on cuda and on cpu from the same
-      weights agree.
+      of 1024, remat "dots", bf16, B=4, S=2048): the eager step
+      (`make_train_step(..., compiled=False)`) with AdamW takes a warm-up
+      step and 10 timed steps on one batch; each step launches flash_fwd 2L
+      times (remat reruns it), dQ and dK/dV L times; its device time by
+      kernel group, and the group of elementwise work, reductions, casts
+      and AdamW by operator;
+  (h-2) the compiled step (`make_train_step`'s default: the loss with its
+      backward and the norm with AdamW, each a torch.compile program, the
+      flash kernels custom operators inside) from the same seeded state,
+      under "dots" (launches 2L / L / L a step) and "dots_attn" (L / L / L:
+      the forward's O and lse are saved): its first 3 steps' losses and
+      grad norms against the eager step's, the loss falls, step time,
+      tokens/s, MFU, compile seconds, peak memory and the device time by
+      kernel group. Then 3 steps of the tiny fp32 config eagerly on cuda,
+      compiled on cuda and eagerly on cpu from the same weights agree;
+  (bench) `python -m ray_tpu_torch.bench`'s run in this process, its JSON
+      line printed;
+  (j) `graft_entry.entry()` compiled (fullgraph) against its eager forward.
 
 The launch counts are set to 0 just before each main path (serving: (d)
-and (e); paged serving: (i), which runs no flash kernel; training: (h)) and
-read just after it. The last three lines of
+and (e); paged serving: (i), which runs no flash kernel; training: (h);
+compiled training: (h-2)) and read just after it. The last three lines of
 stdout are the card's `nvidia-smi` name and power limit, one JSON object on
 the kernels, and `{"ok": true, "device": ...}`. Without CUDA, or without
 the repository beside it, it exits non-zero and prints no result.
@@ -147,6 +160,16 @@ ROUND_TRIP = (2, 300, 300, 32, 8, 128, True)
 # direction set by that rounding, so they agree to the learning rate.
 TINY_LR = 1e-3
 TINY_REL_TOL = 1e-4
+
+# The compiled step (h-2) against the eager step (h) from the same seeded
+# state, the first COMPARED_STEPS steps: bf16 through 5 layers, the same
+# function with other fusions and so other roundings. Relative.
+COMPILED_LOSS_REL_TOL = 1e-2
+COMPILED_NORM_REL_TOL = 2e-2
+COMPARED_STEPS = 3
+# What torch.compile builds the compiled step with on the card (a rehearsal
+# on the CPU takes aot_eager).
+COMPILE_BACKEND = "inductor"
 
 # The first training step's loss (chunked CE) against the loss from the full
 # `forward` logits on the same parameters: bf16 logits from products tiled
@@ -1167,15 +1190,12 @@ def phase_paged_tiny(seed=7):
 # -- (h) ---------------------------------------------------------------------
 
 def bench_config():
-    """The JAX package's train-bench configuration (bench.py:191-199):
-    Llama-3-8B layer widths at 5 layers, vocab 32000, chunked CE of 1024;
-    remat "dots" and bf16 are the config's defaults."""
-    from ray_tpu_torch.models import llama
+    """The JAX package's train-bench configuration (bench.py:191-199) as the
+    port's bench takes it: Llama-3-8B layer widths at 5 layers, vocab
+    32000, chunked CE of 1024, remat "dots", bf16."""
+    from ray_tpu_torch.bench import bench_config
 
-    return llama.LlamaConfig(
-        vocab_size=32_000, d_model=4096, n_layers=5, n_heads=32,
-        n_kv_heads=8, d_head=128, d_ff=14_336, max_seq_len=2048,
-        loss_chunk_size=1024)
+    return bench_config()
 
 
 def kernel_counts():
@@ -1205,7 +1225,8 @@ def kernel_group(name):
 
 def profile_steps(step, state, data, n):
     """Run n steps under torch.profiler; -> (state, [(kernel name, ms a
-    step, launches a step)]) from the device events."""
+    step, launches a step)] from the device events, {operator: ms a step}
+    of the device time of the kernels each CPU operator launched)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1213,14 +1234,20 @@ def profile_steps(step, state, data, n):
         for _ in range(n):
             state, _ = step(state, data)
         torch.cuda.synchronize()
+    events = prof.key_averages()
     kernels = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
-               for e in prof.key_averages()
+               for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    return state, sorted(kernels, key=lambda k: -k[1])
+    ops = {e.key: e.self_device_time_total / 1e3 / n for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0}
+    return state, sorted(kernels, key=lambda k: -k[1]), ops
 
 
 def phase_train(cfg, batch, seq, steps, seed):
-    """The training main path; returns its kernel launch counts."""
+    """The training main path, the eager step; returns its kernel launch
+    counts and {"ms", "tok_s", "mfu", "peak_gib", "first": the first
+    COMPARED_STEPS steps' (loss, grad norm)}."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
 
@@ -1229,10 +1256,9 @@ def phase_train(cfg, batch, seq, steps, seed):
     t0 = time.perf_counter()
     state = init_train_state(functools.partial(llama.init, cfg, gen), opt,
                              device=DEVICE)
-    step = make_train_step(functools.partial(llama.loss_fn, config=cfg), opt)
-    toks = torch.as_tensor(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (batch, seq + 1)), device=DEVICE)
-    data = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    step = make_train_step(functools.partial(llama.loss_fn, config=cfg), opt,
+                           compiled=False)
+    data = train_batch(cfg, batch, seq, seed)
     with torch.no_grad():  # the unchunked loss of the same parameters
         logits = llama.forward(state.params, data["inputs"], cfg)
         full_loss = float(torch.nn.functional.cross_entropy(
@@ -1256,7 +1282,7 @@ def phase_train(cfg, batch, seq, steps, seed):
     first_loss = float(m["loss"])
     warm_s = time.perf_counter() - t0
     per_step.append(kernel_counts())
-    metrics = []
+    metrics = [m]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -1271,19 +1297,15 @@ def phase_train(cfg, batch, seq, steps, seed):
     losses = torch.stack([m["loss"] for m in metrics]).float().cpu()
     norms = torch.stack([m["grad_norm"] for m in metrics]).float().cpu()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-
-    from ray_tpu_torch._private.accelerators.nvidia import (
-        bf16_peak_flops_per_device)
-    peak = bf16_peak_flops_per_device(torch.cuda.get_device_name(0))
-    tok_s = batch * seq / step_s
-    mfu = llama.flops_per_token(cfg, seq) * tok_s / peak
+    tok_s, mfu = train_rates(cfg, batch, seq, step_s)
     log(f"[h] B={batch} S={seq}: warm-up step {warm_s:.3f} s (loss "
         f"{first_loss:.4f}; from full forward logits {full_loss:.4f}); "
         f"{steps} steps on one batch: {step_s * 1e3:.2f} ms a step, "
-        f"{tok_s:.1f} tok/s, MFU {mfu:.4f} (of {peak / 1e12:.0f} TFLOP/s "
-        f"bf16 dense), peak memory {peak_gib:.2f} GiB")
+        f"{tok_s:.1f} tok/s, MFU {mfu:.4f} (of {PEAKS[0] / 1e12:.0f} TFLOP/s"
+        f" bf16 dense), peak memory {peak_gib:.2f} GiB")
     log(f"[h] losses {[round(x, 4) for x in losses.tolist()]}; grad norms "
-        f"{[round(x, 4) for x in norms.tolist()]}")
+        f"{[round(x, 4) for x in norms.tolist()]} (the first is the warm-up "
+        "step's)")
     log(f"[h] launches a step {per_step[1]}; in all {counts}")
     check(bool(torch.isfinite(losses).all() and torch.isfinite(norms).all()),
           "non-finite loss or grad norm")
@@ -1295,60 +1317,238 @@ def phase_train(cfg, batch, seq, steps, seed):
     check(all(p == want for p in per_step),
           f"launches per step {per_step}, not {want}")
 
-    # Where a step's device time goes: two more steps under torch.profiler.
-    state, kernels = profile_steps(step, state, data, 2)
+    # Where a step's device time goes: two more steps under torch.profiler,
+    # and the group of elementwise work, reductions, casts and AdamW split
+    # by the operator that launched each kernel.
+    state, kernels, ops = profile_steps(step, state, data, 2)
+    log_kernel_groups("h", "eager dots", kernels, step_s)
+    other = sorted(((op, ms) for op, ms in ops.items()
+                    if op_is_other(op)), key=lambda x: -x[1])
+    log(f"[h] the other group by operator ({sum(ms for _, ms in other):.2f}"
+        " ms a step): " + ", ".join(f"{op} {ms:.2f}" for op, ms in
+                                    other[:16]))
+    first = [(float(m["loss"]), float(m["grad_norm"]))
+             for m in metrics[:COMPARED_STEPS]]
+    return kernel_counts(), {"ms": step_s * 1e3, "tok_s": tok_s, "mfu": mfu,
+                             "peak_gib": peak_gib, "first": first}
+
+
+def train_batch(cfg, batch, seq, seed):
+    """One batch of random tokens from `seed`, on the card, laid out as the
+    bench lays its batch out (so a compiled step serves both)."""
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, seq + 1)), device=DEVICE)
+    return {"inputs": toks[:, :-1].contiguous(),
+            "targets": toks[:, 1:].contiguous()}
+
+
+def train_rates(cfg, batch, seq, step_s):
+    """-> (tokens/s, MFU against the card's dense bf16 peak)."""
+    from ray_tpu_torch.models import llama
+
+    tok_s = batch * seq / step_s
+    return tok_s, llama.flops_per_token(cfg, seq) * tok_s / PEAKS[0]
+
+
+def op_is_other(op):
+    """Whether a profiled operator's kernels fall in kernel_group's other
+    group (not a matrix product, not a flash kernel)."""
+    return op_group(op) != "matrix products (weights)" and \
+        not op.startswith("ray_tpu_torch::")
+
+
+def log_kernel_groups(tag, form, kernels, step_s):
     busy = sum(ms for _, ms, _ in kernels)
     groups = {}
     for name, ms, _ in kernels:
         groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
-    log(f"[h] torch.profiler, 2 steps: kernels {busy:.2f} ms a step of the "
-        f"{step_s * 1e3:.2f} ms step (device idle share "
+    log(f"[{tag}] {form}, torch.profiler, 2 steps: kernels {busy:.2f} ms a "
+        f"step of the {step_s * 1e3:.2f} ms step (device idle share "
         f"{1 - busy / (step_s * 1e3):.3f}); by group (ms a step): "
         + ", ".join(f"{g} {ms:.2f}" for g, ms in
                     sorted(groups.items(), key=lambda x: -x[1])))
     for name, ms, n in kernels[:10]:
-        log(f"[h]   {ms:8.3f} ms {n:6.1f}x  {name[:110]}")
-    return kernel_counts()
+        log(f"[{tag}]   {ms:8.3f} ms {n:6.1f}x  {name[:110]}")
 
 
-def phase_train_tiny(steps=3, seed=5):
-    """3 fp32 steps of LlamaConfig.tiny() on cuda (kernels) and cpu (plain
-    versions) from the same weights and batches."""
+def phase_train_compiled(cfg, batch, seq, steps, seed, eager):
+    """(h-2): the compiled step (`make_train_step`'s default) at the bench
+    configuration under "dots" and "dots_attn", each from the state phase
+    (h) started from; `eager` is (h)'s result. Returns the launch counts."""
     import dataclasses
 
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+
+    data = train_batch(cfg, batch, seq, seed)
+    fwd_per_layer = {"dots": 2, "dots_attn": 1}
+    forms = {"eager dots": eager}
+    for policy, per_layer in fwd_per_layer.items():
+        pcfg = dataclasses.replace(cfg, remat_policy=policy)
+        opt = adamw(3e-4, weight_decay=0.0)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        state = init_train_state(functools.partial(llama.init, pcfg, gen),
+                                 opt, device=DEVICE)
+        step = make_train_step(functools.partial(llama.loss_fn, config=pcfg),
+                               opt, backend=COMPILE_BACKEND)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want = {"flash_fwd": per_layer * cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
+        per_step, first = [], []
+        t0 = time.perf_counter()
+        for i in range(COMPARED_STEPS):
+            before = kernel_counts()
+            state, m = step(state, data)
+            first.append((float(m["loss"]), float(m["grad_norm"])))
+            after = kernel_counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+            if i == 0:
+                compile_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            before = kernel_counts()
+            state, m = step(state, data)
+            after = kernel_counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / steps
+        last_loss = float(m["loss"])
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        tok_s, mfu = train_rates(pcfg, batch, seq, step_s)
+        form = f"compiled {policy}"
+        forms[form] = {"ms": step_s * 1e3, "tok_s": tok_s, "mfu": mfu,
+                       "peak_gib": peak_gib, "compile_s": compile_s}
+        rel_loss = [abs(a[0] - b[0]) / abs(b[0])
+                    for a, b in zip(first, eager["first"])]
+        rel_norm = [abs(a[1] - b[1]) / abs(b[1])
+                    for a, b in zip(first, eager["first"])]
+        log(f"[h-2] {form} ({COMPILE_BACKEND}): first step (compiles) "
+            f"{compile_s:.2f} s; {steps} steps: {step_s * 1e3:.2f} ms a step,"
+            f" {tok_s:.1f} tok/s, MFU {mfu:.4f}, peak memory {peak_gib:.2f} "
+            f"GiB; launches a step {per_step[0]}")
+        log(f"[h-2] {form}: first {COMPARED_STEPS} steps (loss, grad norm) "
+            f"{first}, eager {eager['first']}: relative difference loss "
+            f"{max(rel_loss):.3e}, grad norm {max(rel_norm):.3e}; last loss "
+            f"{last_loss:.4f}")
+        check(all(p == want for p in per_step),
+              f"{form}: launches per step {per_step}, not {want}")
+        check(max(rel_loss) <= COMPILED_LOSS_REL_TOL
+              and max(rel_norm) <= COMPILED_NORM_REL_TOL,
+              f"{form} differs from the eager step")
+        check(np.isfinite(last_loss) and last_loss < first[0][0],
+              f"{form}: the loss did not fall")
+        state, kernels, _ = profile_steps(step, state, data, 2)
+        log_kernel_groups("h-2", form, kernels, step_s)
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("[h-2] forms (ms a step, tok/s, MFU, peak GiB, compile s): "
+        + "; ".join(f"{form} {r['ms']:.2f}, {r['tok_s']:.1f}, "
+                    f"{r['mfu']:.4f}, {r['peak_gib']:.2f}, "
+                    f"{r.get('compile_s', 0.0):.2f}"
+                    for form, r in forms.items()))
+    return kernel_counts()
+
+
+def tiny_train_config():
+    """LlamaConfig.tiny() in fp32, its loss in chunks of 32 (two a row of
+    the tiny batches)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32,
+                               loss_chunk_size=32)
+
+
+def phase_train_tiny(steps=3, seed=5):
+    """3 fp32 steps of the tiny config on cuda (kernels), eagerly and
+    compiled, and eagerly on cpu (plain versions) from the same weights and
+    batches (laid out as train_batch lays them out)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
     from ray_tpu_torch.train.optim import tree_map
 
-    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+    cfg = tiny_train_config()
     weights = llama.init(cfg, torch.Generator().manual_seed(seed),
                          device="cpu")
     rng = np.random.default_rng(seed)
     batches = [rng.integers(0, cfg.vocab_size, (2, 65)) for _ in range(steps)]
     runs = {}
-    for dev in (DEVICE, "cpu"):
+    # The eager step on the card, the compiled step on the card, and the
+    # eager step on the CPU (the plain versions) that both are held to.
+    for name, dev, compiled in (("eager", DEVICE, False),
+                                ("compiled", DEVICE, True),
+                                ("cpu", "cpu", False)):
         opt = adamw(TINY_LR, weight_decay=1e-4)
         state = init_train_state(
             lambda d: tree_map(lambda w: w.to(d, copy=True), weights), opt,
             device=dev)
         step = make_train_step(functools.partial(llama.loss_fn, config=cfg),
-                               opt)
+                               opt, compiled=compiled,
+                               backend=COMPILE_BACKEND)
         out = []
         for b in batches:
-            state, m = step(state, {"tokens": torch.as_tensor(b, device=dev)})
+            toks = torch.as_tensor(b, device=dev)
+            state, m = step(state, {"inputs": toks[:, :-1].contiguous(),
+                                    "targets": toks[:, 1:].contiguous()})
             out.append((float(m["loss"]), float(m["grad_norm"])))
-        runs[dev] = (out, state.params)
-    (got, p_got), (want, p_want) = runs[DEVICE], runs["cpu"]
-    rel = max(max(abs(a - b) / abs(b) for a, b in zip(x, y))
-              for x, y in zip(got, want))
+        runs[name] = (out, state.params)
     from ray_tpu_torch.train.optim import tree_leaves
-    p_err = max(float((a.cpu() - b).abs().max())
-                for a, b in zip(tree_leaves(p_got), tree_leaves(p_want)))
-    log(f"[h] tiny fp32, {steps} steps, cuda vs cpu: (loss, grad norm) "
-        f"{got} vs {want}; largest relative difference {rel:.3e}, "
-        f"parameters {p_err:.3e}")
-    check(rel <= TINY_REL_TOL and p_err <= TINY_LR,
-          "tiny train steps on cuda and cpu disagree")
+    want, p_want = runs["cpu"]
+    for name in ("eager", "compiled"):
+        got, p_got = runs[name]
+        rel = max(max(abs(a - b) / abs(b) for a, b in zip(x, y))
+                  for x, y in zip(got, want))
+        p_err = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(tree_leaves(p_got), tree_leaves(p_want)))
+        how = COMPILE_BACKEND if name == "compiled" else "eager"
+        log(f"[h] tiny fp32, {steps} steps, {name} ({how}) on {DEVICE} vs "
+            f"eager on cpu: "
+            f"(loss, grad norm) {got} vs {want}; largest relative difference "
+            f"{rel:.3e}, parameters {p_err:.3e}")
+        check(rel <= TINY_REL_TOL and p_err <= TINY_LR,
+              f"tiny train steps, {name} on {DEVICE} and eager on cpu, "
+              "disagree")
+
+
+def phase_bench():
+    """The port's bench in this process (`python -m ray_tpu_torch.bench`):
+    its JSON line, on an earlier line of this script's output. On the card
+    its configuration and batch are (h-2)'s "dots" form's, whose compiled
+    programs it finds in torch.compile's cache."""
+    from ray_tpu_torch import bench
+
+    res = bench.run(DEVICE, config=bench_config())
+    log(f"[bench] {json.dumps(res)}")
+    det = res["detail"]
+    check(res["value"] > 0 and np.isfinite(det["loss"])
+          and det["compile_s"] > 0, "the bench's step did not run")
+    check(det["mfu"] is not None or DEVICE == "cpu",
+          "the bench reported no MFU on the card")
+
+
+def phase_entry():
+    """(j) `graft_entry.entry()` compiled (fullgraph) against its eager
+    forward on the same arguments."""
+    from ray_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry(DEVICE)
+    with torch.no_grad():
+        want = fn(*args)
+        t0 = time.perf_counter()
+        got = torch.compile(fn, backend=COMPILE_BACKEND, fullgraph=True)(
+            *args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    rel = rel_l2(got, want)
+    log(f"[j] graft_entry.entry() compiled ({COMPILE_BACKEND}, fullgraph) in"
+        f" {secs:.2f} s with its first call: logits {tuple(got.shape)}, rel "
+        f"L2 to the eager forward {rel:.3e}")
+    check(got.shape == want.shape and bool(torch.isfinite(got).all())
+          and rel <= FORWARD_REL_TOL, "the compiled entry differs")
 
 
 def nvidia_smi_line() -> str:
@@ -1424,25 +1624,39 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    train = phase_train(bench_config(), batch=TRAIN_ATTN[0],
-                        seq=TRAIN_ATTN[1], steps=10, seed=3)
-    phase_train_tiny()
+    cfg = bench_config()
+    train, eager = phase_train(cfg, batch=TRAIN_ATTN[0], seq=TRAIN_ATTN[1],
+                               steps=10, seed=3)
     log(f"[h] launches on the training path: {train}; "
-        f"{time.perf_counter() - t_start:.1f} s in all")
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_kernel_counts()
+    compiled = phase_train_compiled(cfg, batch=TRAIN_ATTN[0],
+                                    seq=TRAIN_ATTN[1], steps=10, seed=3,
+                                    eager=eager)
+    log(f"[h-2] launches on the compiled training path: {compiled}; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    phase_train_tiny()
+    phase_bench()
+    phase_entry()
+    log(f"[bench+j] {time.perf_counter() - t_start:.1f} s in all")
 
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu", 45),
                "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu", 151),
                "flash_bwd_dkv": ("ray_tpu_torch/ops/csrc/flash_bwd.cu", 201)}
     kernels = []
     for name, (source, line) in sources.items():
-        launches = serve[name] + train[name]
-        check(launches > 0, f"no main path launched {name}")
+        by_path = {"serve": serve[name], "train": train[name],
+                   "train_compiled": compiled[name]}
+        check(by_path["train"] > 0 and by_path["train_compiled"] > 0,
+              f"a training path never launched {name}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
-            "launches": launches,
+            "launches": sum(by_path.values()),
             "design": fa.built_variant(name, torch.bfloat16, 128),
-            "launches_by_path": {"serve": serve[name], "train": train[name]},
+            "launches_by_path": by_path,
             "max_abs_err": max_err[name], **timing[name]})
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -44,7 +44,8 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
     # "full" recomputes everything; "dots" saves the outputs of the
-    # un-batched matrix products and recomputes the rest (attention too).
+    # un-batched matrix products and recomputes the rest (attention too);
+    # "dots_attn" also saves the attention forward's outputs.
     remat_policy: str = "dots"
     # >0: compute the training CE over sequence chunks of this size so the
     # full [B,S,V] fp32 logits tensor never materializes (chunked_ce).
@@ -226,22 +227,43 @@ def _save_dots(ctx, op, *args, **kwargs):
     """`dots_with_no_batch_dims_saveable`: keep what an un-batched matrix
     product (aten.mm, which every projection here lowers to) returns;
     recompute the rest, batched products (aten.bmm) and the flash-attention
-    kernel included, as the JAX policy recomputes its pallas_call."""
-    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
-            else CheckpointPolicy.PREFER_RECOMPUTE)
+    forward included, as the JAX policy recomputes its pallas_call. The
+    forward is marked must-recompute, so a compiled step reruns it as the
+    eager one does whatever the partitioner's cost model would choose."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    if op == torch.ops.ray_tpu_torch.flash_fwd.default:
+        return CheckpointPolicy.MUST_RECOMPUTE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots_attn(ctx, op, *args, **kwargs):
+    """"dots" and the flash-attention forward's outputs, O and lse, so the
+    backward reruns no attention forward. The JAX policy saves O by name
+    ("attn_out") but not the custom_vjp's lse residual, so its backward
+    still reruns the kernel (4 pallas_calls a layer, as under "dots"); this
+    keeps the policy's stated purpose: one forward launch a layer."""
+    if op in (torch.ops.aten.mm.default,
+              torch.ops.ray_tpu_torch.flash_fwd.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_POLICIES = {"dots": _save_dots, "dots_attn": _save_dots_attn}
 
 
 def _remat_context(config: LlamaConfig):
     """config.remat_policy -> the `context_fn` of torch.utils.checkpoint:
-    "full" saves nothing; "dots" saves the matrix products' outputs.
-    "dots_attn" (which also saves the flash output by name) is not ported."""
+    "full" saves nothing; "dots" saves the matrix products' outputs;
+    "dots_attn" those and the attention forward's (O and lse)."""
     name = config.remat_policy
     if name == "full":
         return None
-    if name == "dots":
+    if name in _REMAT_POLICIES:
         return functools.partial(create_selective_checkpoint_contexts,
-                                 _save_dots)
-    raise ValueError(f"remat_policy {name!r} not in ('full', 'dots')")
+                                 _REMAT_POLICIES[name])
+    raise ValueError(f"remat_policy {name!r} not in ('full', "
+                     f"{', '.join(map(repr, _REMAT_POLICIES))})")
 
 
 def _layer(x, params, positions, config: LlamaConfig):

@@ -9,9 +9,12 @@ bf16 at D = 64 and 128, the main path, runs all three on Hopper's wgmma
 with register accumulators and a TMA-fed tile ring (`csrc/flash_sm90.cuh`);
 fp32, and bf16 at D = 32, keep the first WMMA / FMA design.
 `_reference_attention_torch` and `_flash_bwd_reference_torch` are the plain
-PyTorch versions of the same functions. `_FlashAttention` is the
-counterpart of the `_flash_bhsd` custom_vjp, so gradients flow through
-`flash_attention` on either device. The public call takes `[B, S, H, D]` as
+PyTorch versions of the same functions. The forward and the backward are
+`torch.library` custom operators, `ray_tpu_torch::flash_fwd` (-> o, lse)
+and `ray_tpu_torch::flash_bwd` (-> dq, dk, dv), with fake implementations
+for torch.compile and the forward's autograd formula registered as the
+counterpart of the `_flash_bhsd` custom_vjp; a remat policy can name
+`flash_fwd` to save its outputs. The public call takes `[B, S, H, D]` as
 the JAX package does.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
@@ -337,25 +340,63 @@ def _flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
     raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
 
 
-class _FlashAttention(torch.autograd.Function):
+# The kernels as custom operators: an opaque node to torch.compile (whose
+# graphs cannot hold the ctypes launch) that checkpoint policies can name.
+# The bodies look `_flash_fwd` / `_flash_bwd` up by name when they run.
+
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [B,S_q,H,D], lse [B,H,S_q] fp32), both contiguous: the forward
+    kernel on CUDA tensors, its plain version on CPU tensors."""
+    o, lse = _flash_fwd(q, k, v, causal, scale)
+    return o.contiguous(), lse.contiguous()
+
+
+@flash_fwd.register_fake
+def _(q, k, v, causal, scale):
+    b, s_q, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, s_q), dtype=torch.float32))
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_bwd", mutates_args=())
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              causal: bool, scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) like q, k and v, contiguous: the two backward kernels on
+    CUDA tensors, the plain backward on CPU tensors."""
+    dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, causal, scale)
+    return dq.contiguous(), dk.contiguous(), dv.contiguous()
+
+
+@flash_bwd.register_fake
+def _(q, k, v, o, lse, do, causal, scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _flash_fwd_setup_context(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.scale = causal, scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_fwd_backward(ctx, do, _dlse):
     """The counterpart of the JAX package's `_flash_bhsd` custom_vjp: the
-    forward saves q, k, v, o and lse; the backward runs `_flash_bwd`."""
+    forward saved q, k, v, o and lse; lse carries no gradient."""
+    q, k, v, o, lse = ctx.saved_tensors
+    # An incoming gradient may be strided or expanded (zero strides, as
+    # from .sum()); the kernels take a dense head dimension.
+    dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.causal,
+                           ctx.scale)
+    return dq, dk, dv, None, None
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = _flash_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        # An incoming gradient may be strided or expanded (zero strides, as
-        # from .sum()); the kernels take a dense head dimension.
-        dq, dk, dv = _flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.causal,
-                                ctx.scale)
-        return dq, dk, dv, None, None
+flash_fwd.register_autograd(_flash_fwd_backward,
+                            setup_context=_flash_fwd_setup_context)
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -365,6 +406,10 @@ def flash_attention(q, k, v, causal: bool = True,
 
     Under causal, query i sees key j iff i + (s_k - s_q) >= j. The default
     scale is d ** -0.5."""
+    if q.device.type not in ("cpu", "cuda"):
+        # The operator's fake implementation would answer for a meta tensor.
+        raise ValueError(
+            f"flash_attention runs on cuda or cpu, not {q.device}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, causal, scale)
+    return flash_fwd(q, k, v, causal, scale)[0]

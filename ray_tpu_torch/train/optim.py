@@ -9,14 +9,13 @@ sqrt(nu_hat); the decay is decoupled and applied to the parameter before the
 update. The moments are kept in the parameter's dtype, as optax keeps them.
 Where the JAX package returns new arrays (and donates the old ones), this
 updates parameters and moments in place, with PyTorch's multi-tensor
-(`_foreach`) operations.
+(`_foreach`) operations, eagerly or as one compiled program (`updater`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -55,6 +54,35 @@ class AdamWState:
     nu: Dict[str, Any]
 
 
+@torch.no_grad()
+def _adamw_(p, g, mu, nu, count, lr, b1, b2, eps, weight_decay) -> None:
+    """One AdamW update of the lists p, mu and nu in place from g. count is
+    the update's number as a 0-d fp32 tensor on the parameters' device, so
+    the bias corrections are computed there in fp32, as optax computes them,
+    and a compiled update takes every step with one program."""
+    bc1, bc2 = 1.0 - b1 ** count, 1.0 - b2 ** count
+    torch._foreach_lerp_(mu, g, 1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, g, g, 1.0 - b2)
+    if weight_decay:
+        torch._foreach_mul_(p, 1.0 - lr * weight_decay)
+    # p -= lr * (mu / bc1) / (sqrt(nu / bc2) + eps), as p += mu / denom with
+    # denom = (sqrt(nu / bc2) + eps) * (-bc1 / lr): the step size folded
+    # into the denominator, so eagerly it takes as many passes over the
+    # parameters as with a number for the step size.
+    denom = torch._foreach_sqrt(nu)
+    torch._foreach_mul_(denom, -bc1 / (lr * torch.sqrt(bc2)))
+    torch._foreach_add_(denom, -eps * bc1 / lr)
+    torch._foreach_addcdiv_(p, mu, denom)
+
+
+def _norm_and_adamw_(p, g, mu, nu, count, *hyper) -> torch.Tensor:
+    """global_norm(g), then `_adamw_`: the optimizer's half of a step."""
+    norm = global_norm(g)
+    _adamw_(p, g, mu, nu, count, *hyper)
+    return norm
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """`optax.adamw`'s signature and defaults (weight_decay 1e-4)."""
@@ -68,26 +96,39 @@ class AdamW:
         return AdamWState(0, tree_map(torch.zeros_like, params),
                           tree_map(torch.zeros_like, params))
 
-    @torch.no_grad()
+    def updater(self, backend: Optional[str] = None
+                ) -> Callable[[Any, AdamWState, Any], torch.Tensor]:
+        """-> update(grads, state, params) -> global_norm(grads): one AdamW
+        update of `params` and `state` in place. With a backend the norm
+        and the update run as one program that torch.compile builds with
+        it (fullgraph, static shapes); without one they run eagerly."""
+        hyper = (self.learning_rate, self.b1, self.b2, self.eps,
+                 self.weight_decay)
+        fn = _norm_and_adamw_
+        if backend is not None:
+            # Inductor's loop reordering after fusion fails an internal
+            # assertion on this program at some shapes (torch 2.11, the tiny
+            # fp32 config); it only picks loop orders, so it is turned off.
+            options = ({"loop_ordering_after_fusion": False}
+                       if backend == "inductor" else None)
+            fn = torch.compile(fn, backend=backend, fullgraph=True,
+                               dynamic=False, options=options)
+
+        def update(grads, state: AdamWState, params) -> torch.Tensor:
+            p, g = tree_leaves(params), tree_leaves(grads)
+            state.count += 1
+            count = torch.full((), state.count, dtype=torch.float32,
+                               device=p[0].device)
+            return fn(p, g, tree_leaves(state.mu), tree_leaves(state.nu),
+                      count, *hyper)
+
+        return update
+
     def update_(self, grads, state: AdamWState, params) -> None:
-        """One AdamW update of `params` (and of `state`) in place; `grads`
-        holds the parameters' gradients in their order (a tree like params,
-        or the list of its leaves)."""
-        p, g = tree_leaves(params), tree_leaves(grads)
-        mu, nu = tree_leaves(state.mu), tree_leaves(state.nu)
-        state.count += 1
-        bc1 = 1.0 - self.b1 ** state.count
-        bc2 = 1.0 - self.b2 ** state.count
-        torch._foreach_lerp_(mu, g, 1.0 - self.b1)
-        torch._foreach_mul_(nu, self.b2)
-        torch._foreach_addcmul_(nu, g, g, 1.0 - self.b2)
-        if self.weight_decay:
-            torch._foreach_mul_(p, 1.0 - self.learning_rate * self.weight_decay)
-        # p -= lr * (mu / bc1) / (sqrt(nu / bc2) + eps)
-        denom = torch._foreach_sqrt(nu)
-        torch._foreach_div_(denom, math.sqrt(bc2))
-        torch._foreach_add_(denom, self.eps)
-        torch._foreach_addcdiv_(p, mu, denom, -self.learning_rate / bc1)
+        """One eager AdamW update of `params` (and of `state`) in place;
+        `grads` holds the parameters' gradients in their order (a tree like
+        params, or the list of its leaves)."""
+        self.updater()(grads, state, params)
 
 
 adamw = AdamW  # called by optax's name: adamw(learning_rate, ...)

@@ -1,11 +1,15 @@
 """One-device training step: parameters, optimizer state and an AdamW step.
 
 Counterpart of `ray_tpu/train/step.py` on one device (the mesh shardings
-of the JAX package are a later slice). Where the JAX step is one jitted
-program that donates the state's buffers, this runs eagerly and updates the
-parameter and moment tensors in place: the state a step returns holds the
-same tensors as the state it was given. Metrics stay on the device; nothing
-in the step waits for the card.
+of the JAX package are a later slice). The JAX step is one jitted program
+that donates the state's buffers; here the step is two programs that
+`torch.compile` builds, with eager glue between them: the loss with its
+backward (AOTAutograd compiles the backward; the flash kernels are custom
+operators inside both) and the global norm with the AdamW update. The
+update writes the parameter and moment tensors in place: the state a step
+returns holds the same tensors as the state it was given. The eager step
+stays as an explicit choice. Metrics stay on the device; nothing in the
+step waits for the card.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.train.optim import AdamW, global_norm, tree_leaves
+from ray_tpu_torch.train.optim import AdamW, tree_leaves
 
 
 @dataclasses.dataclass
@@ -42,9 +46,20 @@ def init_train_state(init_fn: Callable[[torch.device], Any],
 
 
 def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
-                    optimizer: AdamW):
+                    optimizer: AdamW, *, compiled: bool = True,
+                    backend: str = "inductor"):
     """loss_fn(params, batch) -> scalar loss; returns step(state, batch) ->
-    (state, {"loss", "grad_norm", "step"}), the metrics device tensors."""
+    (state, {"loss", "grad_norm", "step"}), the metrics device tensors.
+
+    compiled (the default, as the JAX step is always jitted): the loss and
+    its backward, and the norm and update, each one torch.compile program
+    (fullgraph, static shapes) built by `backend` on the first step; a
+    failure to compile raises. compiled=False runs the same functions
+    eagerly."""
+    if compiled:
+        loss_fn = torch.compile(loss_fn, backend=backend, fullgraph=True,
+                                dynamic=False)
+    update = optimizer.updater(backend if compiled else None)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         leaves = tree_leaves(state.params)
@@ -57,8 +72,7 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        grad_norm = global_norm(grads)
-        optimizer.update_(grads, state.opt_state, state.params)
+        grad_norm = update(grads, state.opt_state, state.params)
         new_step = state.step + 1
         return (TrainState(state.params, state.opt_state, new_step),
                 {"loss": loss.detach(), "grad_norm": grad_norm,

@@ -1,8 +1,9 @@
 """ray_tpu_torch flash-attention gradients against the JAX package's Pallas
 backward, on the CPU.
 
-The port's gradients on CPU tensors (autograd through `_FlashAttention`
-into `_flash_bwd_reference_torch`, the plain version of the dQ and dK/dV
+The port's gradients on CPU tensors (autograd through the
+`ray_tpu_torch::flash_fwd` custom operator into `flash_bwd` and
+`_flash_bwd_reference_torch`, the plain version of the dQ and dK/dV
 kernels) are held against `jax.grad` through `ray_tpu.ops.flash_attention`
 run as `tests/test_ops.py` runs it: the Pallas kernels in interpret mode.
 Inputs come from numpy with a seed. The CUDA kernels are held against the

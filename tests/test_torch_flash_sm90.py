@@ -204,8 +204,23 @@ def _plain_from_delta(q, k, v, do, lse, delta, causal, scale):
     return fa._flash_bwd_reference_torch(q, k, v, o, lse, do, causal, scale)
 
 
+@pytest.fixture
+def fresh_dynamo():
+    """torch.compile's caches empty before and after: the compiled phases
+    count from no earlier test's programs and leave none behind. Its
+    modules (dynamo, AOTAutograd, the partitioner) are imported here, as
+    torch itself is, not on the rehearsal's clock."""
+    import torch._dynamo.backends.debugging  # noqa: F401
+    import torch._functorch.partitioners  # noqa: F401
+    import torch._inductor.compile_fx  # noqa: F401
+
+    torch._dynamo.reset()
+    yield
+    torch._dynamo.reset()
+
+
 def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
-                                             request):
+                                             request, fresh_dynamo):
     """chip_smoke.main() end to end at tiny sizes: stubbed torch.cuda, the
     build replaced by a canned ptxas log, the kernels routed to counting
     wrappers of their plain versions. Every phase runs; the kernels line has
@@ -230,6 +245,10 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda *a: "NVIDIA H100 80GB HBM3")
+    # torch.compile keeps the card's random state across a trace.
+    monkeypatch.setattr(torch.cuda, "get_rng_state",
+                        lambda *a, **k: torch.zeros(0, dtype=torch.uint8))
+    monkeypatch.setattr(torch.cuda, "set_rng_state", lambda *a, **k: None)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32",
                         torch.backends.cuda.matmul.allow_tf32)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
@@ -251,7 +270,8 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     def profile_steps(step, state, data, n):
         for _ in range(n):
             state, _ = step(state, data)
-        return state, [("flash_fwd_sm90_kernel<128>", 1.0, 2.0)]
+        return state, [("flash_fwd_sm90_kernel<128>", 1.0, 2.0)], {
+            "aten::mul": 1.0, "aten::mm": 2.0}
 
     monkeypatch.setattr(smoke, "profile_steps", profile_steps)
     # The build: nothing compiled, a canned log.
@@ -281,13 +301,33 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     monkeypatch.setattr(fa, "flash_bwd_dkv_cuda", dkv)
     monkeypatch.setattr(fa, "_flash_fwd", fwd)
     monkeypatch.setattr(fa, "_flash_bwd", flash_bwd)
+    # The compiled step: AOTAutograd's graphs run eagerly (no inductor on
+    # the CPU).
+    monkeypatch.setattr(smoke, "COMPILE_BACKEND", "aot_eager")
+    # The bench at (h-2)'s batch, as on the card.
+    from ray_tpu_torch import bench
+    monkeypatch.setattr(bench, "CPU_BATCH", 2)
+    monkeypatch.setattr(bench, "CPU_SEQ", 64)
     # Tiny sizes.
     tiny = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=256),
                                n_layers=2, max_seq_len=256)
+    # (j), the entry's compile, is held on the CPU by
+    # tests/test_torch_compiled_step.py; here it runs eagerly.
+    from ray_tpu_torch import graft_entry
+    monkeypatch.setattr(graft_entry, "flagship_config", lambda: tiny)
+
+    def entry():
+        fn, args = graft_entry.entry("cpu")
+        shape = tuple(fn(*args).shape)
+        smoke.log(f"[j] graft_entry.entry() eagerly: logits {shape}")
+
+    monkeypatch.setattr(smoke, "phase_entry", entry)
     monkeypatch.setattr(llama.LlamaConfig, "llama3_8b",
                         staticmethod(lambda: tiny))
-    monkeypatch.setattr(smoke, "bench_config", lambda: dataclasses.replace(
-        tiny, loss_chunk_size=32))
+    # The train-bench configuration: the tiny fp32 config of phase
+    # (h)'s tiny run, so the compiled tiny run finds (h-2)'s "dots" loss in
+    # torch.compile's cache.
+    monkeypatch.setattr(smoke, "bench_config", smoke.tiny_train_config)
     monkeypatch.setattr(smoke, "MAIN_LENGTHS", (40, 70))
     monkeypatch.setattr(smoke, "TRAIN_ATTN", (2, 64, 64, 4, 2, 32, True))
     monkeypatch.setattr(smoke, "SERVE_ATTN", (1, 64, 64, 4, 2, 32, True))
@@ -327,13 +367,16 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     assert smoke.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
     for tag in ("[a]", "[b]", "[c]", "[f]", "[g]", "[d]", "[d+e]", "[h]",
-                "[i-1]", "[i-2]", "[i-3]", "[i-4]", "[i]"):
+                "[i-1]", "[i-2]", "[i-3]", "[i-4]", "[i]", "[h-2]",
+                "[bench]", "[j]"):
         assert any(line.startswith(tag) for line in lines), tag
     for text in ("[e] _decode_attention", "[e] _cached_attention",
                  "token blocks identical True", "[e] decode step, former",
                  "[e] decode step, repaired, CUDA graph",
                  "[e] benchmark_engine", "streams, prefix statistics and "
-                 "preemptions identical", "[i-3] TTFT", "[i-3] decode at 4"):
+                 "preemptions identical", "[i-3] TTFT", "[i-3] decode at 4",
+                 "[h] the other group by operator", "[h-2] compiled dots ",
+                 "[h-2] compiled dots_attn ", "[h-2] forms"):
         assert any(text in line for line in lines), text
     assert sum("identical True" in line and line.startswith("[i-4]")
                for line in lines) == 2
@@ -355,14 +398,24 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
         assert fields <= set(k), k["name"]
         assert k["route"] == "cuda" and (ROOT / k["source"]).exists()
         assert k["bound_by"] in ("bytes", "operations")
+    assert sum(line.startswith("[h] tiny fp32") for line in lines) == 2
+    bench_line = next(line for line in lines if line.startswith("[bench]"))
+    assert json.loads(bench_line[len("[bench] "):])["metric"] == \
+        "llama_train_tokens_per_sec_per_gpu"
     layers = tiny.n_layers
     # Serving: forward at each length (one launch a layer), then the engine;
-    # training: 13 steps (warm-up, 10 timed, 2 profiled) of 2L / L / L.
+    # training: 13 steps (warm-up, 10 timed, 2 profiled) of 2L / L / L;
+    # compiled training: 15 steps (3 compared, 10 timed, 2 profiled) under
+    # "dots", 2L / L / L, and 15 under "dots_attn", L / L / L.
     by_path = {k["name"]: k["launches_by_path"] for k in kernels}
     assert by_path["flash_fwd"]["train"] == 13 * 2 * layers
-    assert by_path["flash_bwd_dq"] == {"serve": 0, "train": 13 * layers}
-    assert by_path["flash_bwd_dkv"] == {"serve": 0, "train": 13 * layers}
+    assert by_path["flash_fwd"]["train_compiled"] == 15 * 3 * layers
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert by_path[name] == {"serve": 0, "train": 13 * layers,
+                                 "train_compiled": 30 * layers}
     assert by_path["flash_fwd"]["serve"] >= 2 * layers
+    assert [k["launches"] for k in kernels] == [
+        sum(by_path[k["name"]].values()) for k in kernels]
     assert [k["design"] for k in kernels] == ["wgmma", "wgmma", "wgmma"]
     assert "library_ms" in kernels[0]["train_shape"]
     assert json.loads(lines[-1]) == {"ok": True, "device": {

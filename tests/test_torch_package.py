@@ -64,7 +64,8 @@ def test_importing_the_port_loads_no_jax():
             "ray_tpu_torch.inference.paged_engine, "
             "ray_tpu_torch.inference.benchmarks, "
             "ray_tpu_torch._private.kv_registry, "
-            "ray_tpu_torch._private.device_profiler; "
+            "ray_tpu_torch._private.device_profiler, ray_tpu_torch.bench, "
+            "ray_tpu_torch.graft_entry; "
             "print(sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -163,9 +163,22 @@ def test_dots_policy_saves_only_unbatched_products():
     assert tl._save_dots(None, aten.mm.default) == save
     for op in (aten.bmm.default, aten.mul.Tensor, aten.exp.default):
         assert tl._save_dots(None, op) == recompute
+    # "dots" reruns the attention forward: must, so that the compiler's
+    # partitioner reruns it as eager does.
+    flash = torch.ops.ray_tpu_torch.flash_fwd.default
+    assert tl._save_dots(None, flash) == \
+        torch.utils.checkpoint.CheckpointPolicy.MUST_RECOMPUTE
+    # "dots_attn": the same and the attention forward's O and lse saved.
+    assert tl._save_dots_attn(None, aten.mm.default) == save
+    assert tl._save_dots_attn(None, flash) == save
+    for op in (aten.bmm.default, aten.mul.Tensor, aten.exp.default):
+        assert tl._save_dots_attn(None, op) == recompute
+    context = tl._remat_context(dataclasses.replace(
+        tl.LlamaConfig.tiny(), remat_policy="dots_attn"))
+    assert context.args == (tl._save_dots_attn,)
     with pytest.raises(ValueError, match="dots_attn"):
         tl._remat_context(dataclasses.replace(tl.LlamaConfig.tiny(),
-                                              remat_policy="dots_attn"))
+                                              remat_policy="attn"))
 
 
 def test_dots_recomputes_no_matrix_product(tiny_params):
@@ -300,7 +313,8 @@ def test_three_adamw_steps_match_jax(jax_run):
     state = init_train_state(
         lambda dev: params_from_jax_numpy(jax_run["init"], tcfg, dev), opt,
         device="cpu")
-    step = make_train_step(partial(tl.loss_fn, config=tcfg), opt)
+    step = make_train_step(partial(tl.loss_fn, config=tcfg), opt,
+                           compiled=False)
     for i, (b, (jloss, jnorm)) in enumerate(zip(jax_run["batches"],
                                                 jax_run["metrics"])):
         state, m = step(state, {"tokens": torch.from_numpy(b)})
@@ -328,7 +342,8 @@ def test_resume_from_jax_state(jax_run):
         device="cpu")
     state.opt_state = adamw_state_from_jax_numpy(opt_state, tcfg, "cpu")
     assert state.opt_state.count == 2
-    step = make_train_step(partial(tl.loss_fn, config=tcfg), opt)
+    step = make_train_step(partial(tl.loss_fn, config=tcfg), opt,
+                           compiled=False)
     state, m = step(state, {"tokens": torch.from_numpy(jax_run["batches"][2])})
     jloss, jnorm = jax_run["metrics"][2]
     np.testing.assert_allclose(float(m["loss"]), jloss, rtol=LOSS_RTOL)
@@ -358,7 +373,8 @@ def test_bf16_step_matches_jax():
         lambda dev: params_from_jax_numpy(init, tcfg, dev), topt,
         device="cpu")
     assert state.params["layers"]["wq"].dtype == torch.bfloat16
-    step = make_train_step(partial(tl.loss_fn, config=tcfg), topt)
+    step = make_train_step(partial(tl.loss_fn, config=tcfg), topt,
+                           compiled=False)
     state, m = step(state, {"tokens": torch.from_numpy(tokens)})
     assert state.opt_state.mu["lm_head"].dtype == torch.bfloat16
     np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
