@@ -75,11 +75,30 @@ Phases, in order; any failure raises and the script exits non-zero:
       compiled on cuda and eagerly on cpu from the same weights agree;
   (bench) `python -m ray_tpu_torch.bench`'s run in this process, its JSON
       line printed;
-  (j) `graft_entry.entry()` compiled (fullgraph) against its eager forward.
+  (j) `graft_entry.entry()` compiled (fullgraph) against its eager forward;
+  (k) the model zoo (`ray_tpu_torch.models.{mixtral,vit,t5,mlp}`): (k-1)
+      Mixtral at Mixtral-8x7B's widths and 2 layers (MIXTRAL_8X7B), random
+      bf16 weights from a seed, `forward` on B=4, S=2048 through the flash
+      kernel (L launches) and through the plain attention: logits, and the
+      share of routing choices that differ; (k-2) its training step,
+      compiled (inductor, remat "dots"), with AdamW as the bench takes it:
+      2L / L / L launches a step, each of the first 3 steps against the
+      eager loss and gradient of the same state (the first the seeded
+      state; the drift from the eager trajectory is logged beside the
+      spread that one bf16 ulp of one gate weight gives it), the loss
+      falls, step ms, tok/s, MFU, compile seconds, peak memory and the
+      device time by group (projection mm, expert bmm, routing, dispatch
+      and combine, flash); (k-3) the tiny fp32 Mixtral, 3 eager steps on
+      cuda against cpu; (k-4)
+      ViT-B/16 (B=32) and T5-base (B=8, 512 -> 128) in bf16 and the MLP,
+      eagerly: a forward, 3 steps in which the loss falls, T5's greedy
+      decode of 32 tokens twice with the same tokens, and each tiny fp32
+      config on cuda against cpu.
 
 The launch counts are set to 0 just before each main path (serving: (d)
 and (e); paged serving: (i), which runs no flash kernel; training: (h);
-compiled training: (h-2)) and read just after it. The last three lines of
+compiled training: (h-2); Mixtral: (k-1) and (k-2)) and read just after
+it. The last three lines of
 stdout are the card's `nvidia-smi` name and power limit, one JSON object on
 the kernels, and `{"ok": true, "device": ...}`. Without CUDA, or without
 the repository beside it, it exits non-zero and prints no result.
@@ -209,6 +228,39 @@ SERVE_NEW = 48
 # prefill): the same arithmetic through other shapes for 32 layers, as
 # phase (d)'s bound. Relative L2.
 PAGED_REL_TOL = 5e-2
+
+# (k): Mixtral-8x7B's widths, from Mistral AI's published
+# Mixtral-8x7B-v0.1 config.json (hidden 4096, intermediate 14336, 32 query
+# and 8 KV heads of 128, 8 local experts with 2 a token, vocab 32000,
+# rope_theta 1e6, rms_norm_eps 1e-5, 32768 positions), cut in depth from 32
+# layers to 2: a layer holds 1.451 B parameters, and the whole model's
+# weights, gradients and AdamW moments in bf16 would need ~370 GB.
+# capacity_factor 1.25 and aux_loss_coef 0.01 are the JAX package's
+# defaults; bf16, remat "dots" (MixtralConfig's defaults).
+MIXTRAL_8X7B = dict(vocab_size=32_000, d_model=4096, n_layers=2, n_heads=32,
+                    n_kv_heads=8, d_head=128, d_ff=14_336, rope_theta=1e6,
+                    norm_eps=1e-5, max_seq_len=32_768, n_experts=8,
+                    experts_per_token=2, capacity_factor=1.25,
+                    aux_loss_coef=0.01)
+# Its batch (B, S): the Llama training shape, so the flash kernels see the
+# shape of phase (h); the timed compiled steps.
+MIXTRAL_BATCH = (4, 2048)
+MIXTRAL_STEPS = 10
+# (k-4): ViT-B/16 and T5-base at their published widths (fields of
+# ViTConfig.base_16() and T5Config.base() replaced: none on the card), in
+# bf16 on VIT_BATCH images and T5_SHAPE = (batch, source, target) tokens,
+# T5's greedy decode of T5_DECODE tokens, the MLP on MLP_BATCH rows, each
+# for ZOO_STEPS eager steps.
+VIT_CUT = {}
+VIT_BATCH = 32
+T5_CUT = {}
+T5_SHAPE = (8, 512, 128)
+T5_DECODE = 32
+MLP_BATCH = 256
+ZOO_STEPS = 3
+# Their tiny fp32 configs on the card against the CPU, logits and loss:
+# |a - b| <= ZOO_TINY_TOL * (1 + |b|) (fp32, sums in another order).
+ZOO_TINY_TOL = 1e-4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1463,55 +1515,72 @@ def tiny_train_config():
                                loss_chunk_size=32)
 
 
-def phase_train_tiny(steps=3, seed=5):
-    """3 fp32 steps of the tiny config on cuda (kernels), eagerly and
-    compiled, and eagerly on cpu (plain versions) from the same weights and
-    batches (laid out as train_batch lays them out)."""
-    from ray_tpu_torch.models import llama
+def tiny_runs(loss_fn, weights, batches, forms):
+    """Steps of make_train_step from the same weights on each batch, for
+    each form (name, device, compiled): {name: ([(loss, grad norm)],
+    final parameters)}."""
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
     from ray_tpu_torch.train.optim import tree_map
 
-    cfg = tiny_train_config()
-    weights = llama.init(cfg, torch.Generator().manual_seed(seed),
-                         device="cpu")
-    rng = np.random.default_rng(seed)
-    batches = [rng.integers(0, cfg.vocab_size, (2, 65)) for _ in range(steps)]
     runs = {}
-    # The eager step on the card, the compiled step on the card, and the
-    # eager step on the CPU (the plain versions) that both are held to.
-    for name, dev, compiled in (("eager", DEVICE, False),
-                                ("compiled", DEVICE, True),
-                                ("cpu", "cpu", False)):
+    for name, dev, compiled in forms:
         opt = adamw(TINY_LR, weight_decay=1e-4)
         state = init_train_state(
             lambda d: tree_map(lambda w: w.to(d, copy=True), weights), opt,
             device=dev)
-        step = make_train_step(functools.partial(llama.loss_fn, config=cfg),
-                               opt, compiled=compiled,
+        step = make_train_step(loss_fn, opt, compiled=compiled,
                                backend=COMPILE_BACKEND)
         out = []
-        for b in batches:
-            toks = torch.as_tensor(b, device=dev)
-            state, m = step(state, {"inputs": toks[:, :-1].contiguous(),
-                                    "targets": toks[:, 1:].contiguous()})
+        for batch in batches:
+            state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
             out.append((float(m["loss"]), float(m["grad_norm"])))
         runs[name] = (out, state.params)
+    return runs
+
+
+def check_tiny(tag, runs, names):
+    """Each named run against the "cpu" run: loss and grad norm within
+    TINY_REL_TOL, parameters within TINY_LR."""
     from ray_tpu_torch.train.optim import tree_leaves
+
     want, p_want = runs["cpu"]
-    for name in ("eager", "compiled"):
+    for name in names:
         got, p_got = runs[name]
         rel = max(max(abs(a - b) / abs(b) for a, b in zip(x, y))
                   for x, y in zip(got, want))
         p_err = max(float((a.cpu() - b).abs().max())
                     for a, b in zip(tree_leaves(p_got), tree_leaves(p_want)))
-        how = COMPILE_BACKEND if name == "compiled" else "eager"
-        log(f"[h] tiny fp32, {steps} steps, {name} ({how}) on {DEVICE} vs "
-            f"eager on cpu: "
-            f"(loss, grad norm) {got} vs {want}; largest relative difference "
-            f"{rel:.3e}, parameters {p_err:.3e}")
+        log(f"[{tag}] tiny fp32, {len(got)} steps, {name} on {DEVICE} vs "
+            f"eager on cpu: (loss, grad norm) {got} vs {want}; largest "
+            f"relative difference {rel:.3e}, parameters {p_err:.3e}")
         check(rel <= TINY_REL_TOL and p_err <= TINY_LR,
               f"tiny train steps, {name} on {DEVICE} and eager on cpu, "
               "disagree")
+
+
+def phase_train_tiny(steps=3, seed=5):
+    """3 fp32 steps of the tiny config on cuda (kernels), eagerly and
+    compiled, and eagerly on cpu (plain versions) from the same weights and
+    batches (laid out as train_batch lays them out)."""
+    from ray_tpu_torch.models import llama
+
+    cfg = tiny_train_config()
+    weights = llama.init(cfg, torch.Generator().manual_seed(seed),
+                         device="cpu")
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(steps):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 65)))
+        batches.append({"inputs": toks[:, :-1].contiguous(),
+                        "targets": toks[:, 1:].contiguous()})
+    # The eager step on the card, the compiled step on the card, and the
+    # eager step on the CPU (the plain versions) that both are held to.
+    compiled = f"compiled ({COMPILE_BACKEND})"
+    runs = tiny_runs(functools.partial(llama.loss_fn, config=cfg), weights,
+                     batches, (("eager", DEVICE, False),
+                               (compiled, DEVICE, True),
+                               ("cpu", "cpu", False)))
+    check_tiny("h", runs, ["eager", compiled])
 
 
 def phase_bench():
@@ -1549,6 +1618,444 @@ def phase_entry():
         f"L2 to the eager forward {rel:.3e}")
     check(got.shape == want.shape and bool(torch.isfinite(got).all())
           and rel <= FORWARD_REL_TOL, "the compiled entry differs")
+
+
+# -- (k) ---------------------------------------------------------------------
+
+def mixtral_config():
+    from ray_tpu_torch.models import mixtral
+
+    return mixtral.MixtralConfig(**MIXTRAL_8X7B)
+
+
+def mixtral_state(cfg, seed, opt):
+    """The training state of `cfg` from `seed`, on the card."""
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.train import init_train_state
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return init_train_state(functools.partial(mixtral.init, cfg, gen), opt,
+                            device=DEVICE)
+
+
+def phase_mixtral_forward(cfg, params, seed):
+    """(k-1) `mixtral.forward` through the flash kernel and through the
+    plain attention on the same weights and batch: logits, and the share of
+    (token, slot) routing choices that differ between the two."""
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import moe
+
+    b, s = MIXTRAL_BATCH
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s)), device=DEVICE)
+    route, kernel_fwd = moe.route, fa._flash_fwd
+
+    def run(attention):
+        routes = []
+
+        def recording(logits, k, capacity):
+            r = route(logits, k, capacity)
+            routes.append(torch.where(r.keep, r.expert, -1))
+            return r
+
+        moe.route, fa._flash_fwd = recording, attention
+        try:
+            before = fa.flash_fwd_cuda.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, aux = mixtral.forward(params, tokens, cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            moe.route, fa._flash_fwd = route, kernel_fwd
+        return (logits, float(aux), torch.stack(routes), secs,
+                fa.flash_fwd_cuda.launches - before)
+
+    got = run(kernel_fwd)
+    want = run(fa._reference_attention_torch)
+    rel = rel_l2(got[0], want[0])
+    flips = float((got[2] != want[2]).float().mean())
+    log(f"[k-1] mixtral.forward B={b} S={s} at 8x7B widths, {cfg.n_layers} "
+        f"layers: flash kernel {got[3]:.3f} s (the first call of the phase; "
+        f"{got[4]} launches), plain attention {want[3]:.3f} s ({want[4]} "
+        f"launches); logits rel L2 "
+        f"{rel:.3e}; aux {got[1]:.6f} / {want[1]:.6f}; (token, slot) "
+        f"routing choices that differ {flips:.3e} of {got[2].numel()}")
+    check(tuple(got[0].shape) == (b, s, cfg.vocab_size)
+          and bool(torch.isfinite(got[0]).all()), "mixtral logits")
+    check(got[4] == cfg.n_layers and want[4] == 0,
+          f"forward launched flash_fwd {got[4]} and {want[4]} times, not "
+          f"{cfg.n_layers} and 0")
+    check(rel <= FORWARD_REL_TOL,
+          f"mixtral forward: kernel and plain attention differ ({rel:.3e})")
+
+
+def log_mixtral_groups(form, kernels, ops, step_s):
+    """The step's device time by group: the flash kernels; the matrix
+    products (cuBLAS kernels), split by the operator that launched them
+    (aten::mm: attention projections, gate logits, lm_head; aten::bmm: the
+    experts); routing, dispatch and combine (sort, cumsum, gather, scatter
+    and index kernels: the embedding's and the loss's gathers fall here
+    too); and the rest."""
+    busy = sum(ms for _, ms, _ in kernels)
+    groups = {}
+    for name, ms, _ in kernels:
+        grp = kernel_group(name)
+        if grp.startswith("other") and any(
+                t in name.lower() for t in ("index", "gather", "scatter",
+                                            "sort", "cumsum", "scan")):
+            grp = "routing, dispatch and combine"
+        groups[grp] = groups.get(grp, 0.0) + ms
+    log(f"[k-2] {form}, torch.profiler, 2 steps: kernels {busy:.2f} ms a "
+        f"step of the {step_s * 1e3:.2f} ms step (device idle share "
+        f"{1 - busy / (step_s * 1e3):.3f}); by group (ms a step): "
+        + ", ".join(f"{g} {ms:.2f}" for g, ms in
+                    sorted(groups.items(), key=lambda x: -x[1]))
+        + f"; matrix products by operator: projection aten::mm "
+        f"{ops.get('aten::mm', 0.0):.2f}, expert aten::bmm "
+        f"{ops.get('aten::bmm', 0.0):.2f}")
+    for name, ms, n in kernels[:10]:
+        log(f"[k-2]   {ms:8.3f} ms {n:6.1f}x  {name[:110]}")
+
+
+def loss_and_norm(loss_fn, params, data):
+    """(loss, global grad norm) of loss_fn at params, eagerly, no update."""
+    from ray_tpu_torch.train.optim import global_norm, tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss = loss_fn(params, data)
+            grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return float(loss), float(global_norm(grads))
+
+
+def rel_diffs(got, want):
+    """Largest relative difference of loss and of grad norm, step by
+    step."""
+    return (max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, want)),
+            max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, want)))
+
+
+def phase_mixtral_train(cfg, seed):
+    """(k-2) make_train_step over mixtral.loss_fn, compiled, with AdamW as
+    the bench takes it: a warm-up step and MIXTRAL_STEPS timed steps on one
+    batch, 2L / L / L launches a step; each of its first COMPARED_STEPS
+    steps held against the eager loss and gradient of the same state (the
+    first is the seeded state). The eager trajectory from the seeded state,
+    and from it with one gate weight one bf16 ulp away, say how far a
+    trajectory moves by itself: routing is a discrete choice, and AdamW's
+    first steps are lr * sign(g)."""
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    b, s = MIXTRAL_BATCH
+    data = train_batch(cfg, b, s, seed)
+    loss = functools.partial(mixtral.loss_fn, config=cfg)
+    opt = adamw(3e-4, weight_decay=0.0)  # as bench.py:210
+    trajectories = []
+    for nudge in (False, True):
+        state = mixtral_state(cfg, seed, opt)
+        if nudge:  # the next bf16 value of one gate weight
+            state.params["layers"]["moe_gate"].view(-1)[:1].view(
+                torch.int16).add_(1)
+        step = make_train_step(loss, opt, compiled=False)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = []
+        for _ in range(COMPARED_STEPS):
+            state, m = step(state, data)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        trajectories.append(out)
+        eager_s = time.perf_counter() - t0
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    eager, nudged = trajectories
+    spread = rel_diffs(nudged, eager)
+    log(f"[k-2] eager: {COMPARED_STEPS} steps in {eager_s:.2f} s, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; (loss,"
+        f" grad norm) from the seeded state {eager}; with one moe_gate "
+        f"weight one bf16 ulp away {nudged}: relative spread loss "
+        f"{spread[0]:.3e}, grad norm {spread[1]:.3e}")
+
+    state = mixtral_state(cfg, seed, opt)
+    step = make_train_step(loss, opt, backend=COMPILE_BACKEND)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    per_step, first, same_state = [], [], []
+    compile_s = 0.0
+    for i in range(COMPARED_STEPS):
+        same_state.append(loss_and_norm(loss, state.params, data))
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, data)
+        first.append((float(m["loss"]), float(m["grad_norm"])))
+        if i == 0:
+            compile_s = time.perf_counter() - t0
+        after = kernel_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MIXTRAL_STEPS):
+        before = kernel_counts()
+        state, m = step(state, data)
+        after = kernel_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / MIXTRAL_STEPS
+    last_loss = float(m["loss"])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    tok_s = b * s / step_s
+    mfu = mixtral.flops_per_token(cfg, s) * tok_s / PEAKS[0]
+    rel_loss, rel_norm = rel_diffs(first, same_state)
+    drift = rel_diffs(first, eager)
+    log(f"[k-2] compiled dots ({COMPILE_BACKEND}) B={b} S={s}, "
+        f"{cfg.num_params() / 1e9:.3f} B params: first step (compiles) "
+        f"{compile_s:.2f} s; {MIXTRAL_STEPS} steps: {step_s * 1e3:.2f} ms a "
+        f"step, {tok_s:.1f} tok/s, MFU {mfu:.4f} (mixtral.flops_per_token "
+        f"{mixtral.flops_per_token(cfg, s) * b * s / 1e12:.2f} TFLOP a step,"
+        f" of {PEAKS[0] / 1e12:.0f} TFLOP/s bf16 dense), peak memory "
+        f"{peak_gib:.2f} GiB; launches a step {per_step[0]}")
+    log(f"[k-2] compiled dots: first {COMPARED_STEPS} steps (loss, grad "
+        f"norm) {first}; eager from the same states {same_state}: relative "
+        f"difference loss {rel_loss:.3e}, grad norm {rel_norm:.3e}; against "
+        f"the eager trajectory: loss {drift[0]:.3e}, grad norm "
+        f"{drift[1]:.3e}; last loss {last_loss:.4f}")
+    check(all(p == want for p in per_step),
+          f"mixtral: launches per step {per_step}, not {want}")
+    check(rel_loss <= COMPILED_LOSS_REL_TOL
+          and rel_norm <= COMPILED_NORM_REL_TOL,
+          "the compiled mixtral step differs from the eager step")
+    check(np.isfinite(last_loss) and last_loss < first[0][0],
+          "mixtral: the loss did not fall")
+    state, kernels, ops = profile_steps(step, state, data, 2)
+    log_mixtral_groups("compiled dots", kernels, ops, step_s)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_mixtral_tiny(steps=3, seed=9):
+    """(k-3) 3 eager fp32 steps of the tiny Mixtral on the card (kernels)
+    and on the CPU (plain versions) from the same weights."""
+    import dataclasses
+
+    from ray_tpu_torch.models import mixtral
+
+    cfg = dataclasses.replace(mixtral.MixtralConfig.tiny(vocab_size=256),
+                              dtype=torch.float32)
+    weights = mixtral.init(cfg, torch.Generator().manual_seed(seed),
+                           device="cpu")
+    rng = np.random.default_rng(seed)
+    batches = [{"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                       (2, 65)))}
+               for _ in range(steps)]
+    runs = tiny_runs(functools.partial(mixtral.loss_fn, config=cfg),
+                     weights, batches,
+                     (("eager", DEVICE, False), ("cpu", "cpu", False)))
+    check_tiny("k-3", runs, ["eager"])
+
+
+def train_eagerly(tag, loss_fn, params, batch, lr):
+    """ZOO_STEPS eager AdamW steps on one batch; checks that the loss
+    falls; -> the losses."""
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+
+    opt = adamw(lr, weight_decay=0.0)
+    state = init_train_state(lambda dev: params, opt, device=DEVICE)
+    step = make_train_step(loss_fn, opt, compiled=False)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ZOO_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"[k-4] {tag}: {ZOO_STEPS} eager AdamW steps (lr {lr}) on one batch"
+        f" in {secs:.3f} s, losses {[round(x, 4) for x in losses]}, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"{tag}: the loss did not fall ({losses})")
+    return losses
+
+
+def check_tiny_forward(tag, module, cfg, args, seed):
+    """The tiny fp32 config's logits and loss on the card against the CPU
+    from the same weights: |a - b| <= ZOO_TINY_TOL * (1 + |b|)."""
+    from ray_tpu_torch.train.optim import tree_map
+
+    weights = module.init(cfg, torch.Generator().manual_seed(seed),
+                          device="cpu")
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        params = tree_map(lambda w: w.to(dev, copy=True), weights)
+        inputs, batch = args(dev)
+        with torch.no_grad():
+            out[dev] = (module.forward(params, *inputs, cfg).cpu(),
+                        float(module.loss_fn(params, batch, cfg)))
+    (logits, loss), (ref, ref_loss) = out[DEVICE], out["cpu"]
+    err = float(((logits - ref).abs() / (1 + ref.abs())).max())
+    loss_err = abs(loss - ref_loss) / (1 + abs(ref_loss))
+    log(f"[k-4] tiny fp32 {tag}, {DEVICE} vs cpu: logits {tuple(ref.shape)} "
+        f"error {err:.3e}, loss {loss:.6f} vs {ref_loss:.6f}")
+    check(err <= ZOO_TINY_TOL and loss_err <= ZOO_TINY_TOL,
+          f"tiny {tag} differs between {DEVICE} and cpu")
+
+
+def phase_zoo_others(seed):
+    """(k-4) ViT-B/16, T5-base and the MLP on the card, eagerly: a forward,
+    ZOO_STEPS train steps in which the loss falls, T5's greedy decode twice
+    with the same tokens; and each tiny fp32 config on the card against the
+    CPU."""
+    import dataclasses
+
+    from ray_tpu_torch.models import mlp, t5, vit
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    cfg = dataclasses.replace(vit.ViTConfig.base_16(), **VIT_CUT)
+    params = vit.init(cfg, gen, device=DEVICE)
+    n = VIT_BATCH
+    batch = {"images": torch.as_tensor(rng.standard_normal(
+        (n, cfg.image_size, cfg.image_size, cfg.num_channels)),
+        dtype=torch.float32, device=DEVICE),
+        "labels": torch.as_tensor(rng.integers(0, cfg.num_classes, n),
+                                  device=DEVICE)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = vit.forward(params, batch["images"], cfg)
+    torch.cuda.synchronize()
+    log(f"[k-4] ViT-B/16 ({cfg.num_params() / 1e6:.1f} M params, bf16) "
+        f"forward of {n} images: {time.perf_counter() - t0:.3f} s, logits "
+        f"{tuple(logits.shape)}")
+    check(tuple(logits.shape) == (n, cfg.num_classes)
+          and bool(torch.isfinite(logits).all()), "ViT logits")
+    train_eagerly("ViT-B/16", functools.partial(vit.loss_fn, config=cfg),
+                  params, batch, 1e-3)
+    del params, batch, logits
+
+    cfg = dataclasses.replace(t5.T5Config.base(), **T5_CUT)
+    params = t5.init(cfg, gen, device=DEVICE)
+    n, s_src, s_tgt = T5_SHAPE
+    src = rng.integers(3, cfg.vocab_size, (n, s_src))
+    src[::2, s_src * 3 // 4:] = cfg.pad_id  # every other source padded
+    tgt = rng.integers(3, cfg.vocab_size, (n, s_tgt))
+    tgt[:, 0] = 1
+    batch = {"src": torch.as_tensor(src, device=DEVICE),
+             "tgt": torch.as_tensor(tgt, device=DEVICE)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = t5.forward(params, batch["src"], batch["tgt"][:, :-1], cfg)
+    torch.cuda.synchronize()
+    log(f"[k-4] T5-base ({cfg.num_params() / 1e6:.1f} M params, bf16) "
+        f"forward of {n} x {s_src} -> {s_tgt - 1}: "
+        f"{time.perf_counter() - t0:.3f} s, logits {tuple(logits.shape)}")
+    check(tuple(logits.shape) == (n, s_tgt - 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "T5 logits")
+    del logits
+    train_eagerly("T5-base", functools.partial(t5.loss_fn, config=cfg),
+                  params, batch, 1e-3)
+    decoded = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decoded.append(t5.greedy_decode(params, batch["src"], cfg,
+                                        max_len=T5_DECODE))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    same = torch.equal(decoded[0], decoded[1])
+    log(f"[k-4] T5-base greedy_decode of {T5_DECODE} tokens on {n} sources: "
+        f"{secs:.3f} s, shape {tuple(decoded[0].shape)}, two runs identical "
+        f"{same}")
+    check(same and decoded[0].shape == (n, T5_DECODE),
+          "T5 greedy decode not repeatable")
+    del params, batch, decoded
+
+    cfg = mlp.MLPConfig()
+    params = mlp.init(cfg, gen, device=DEVICE)
+    batch = {"x": torch.as_tensor(rng.standard_normal((MLP_BATCH, cfg.in_dim)),
+                                  dtype=torch.float32, device=DEVICE),
+             "y": torch.as_tensor(rng.integers(0, cfg.out_dim, MLP_BATCH),
+                                  device=DEVICE)}
+    train_eagerly("MLP", functools.partial(mlp.loss_fn, config=cfg), params,
+                  batch, 1e-3)
+    log(f"[k-4] MLP accuracy on its batch after {ZOO_STEPS} steps: "
+        f"{float(mlp.accuracy(params, batch, cfg)):.4f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def vit_args(dev):
+        images = torch.as_tensor(np.random.default_rng(1).standard_normal(
+            (2, 32, 32, 3)), dtype=torch.float32, device=dev)
+        labels = torch.tensor([3, 7], device=dev)
+        return (images,), {"images": images, "labels": labels}
+
+    def t5_args(dev):
+        b = {k: torch.as_tensor(v, device=dev) for k, v in _tiny_t5().items()}
+        return (b["src"], b["tgt"][:, :-1]), b
+
+    def mlp_args(dev):
+        x = torch.as_tensor(np.random.default_rng(2).standard_normal(
+            (8, 784)), dtype=torch.float32, device=dev)
+        return (x,), {"x": x, "y": torch.arange(8, device=dev)}
+
+    check_tiny_forward("ViT", vit, vit.ViTConfig.tiny(), vit_args, seed)
+    check_tiny_forward("T5", t5, t5.T5Config.tiny(vocab_size=128), t5_args,
+                       seed)
+    check_tiny_forward("MLP", mlp, mlp.MLPConfig(), mlp_args, seed)
+
+
+def _tiny_t5():
+    rng = np.random.default_rng(3)
+    src = rng.integers(3, 128, (2, 20))
+    src[1, 12:] = 0
+    tgt = rng.integers(3, 128, (2, 10))
+    tgt[:, 0] = 1
+    return {"src": src, "tgt": tgt}
+
+
+def phase_zoo(t_start):
+    """(k): the model zoo on the card. Its main path is Mixtral's, (k-1) and
+    (k-2): the launch counts are set to 0 before it and read after it. ->
+    those counts."""
+    from ray_tpu_torch.models import mixtral
+
+    cfg = mixtral_config()
+    t0 = time.perf_counter()
+    params = mixtral.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"[k] Mixtral at 8x7B widths, {cfg.n_layers} layers, bf16: "
+        f"{cfg.num_params() / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    reset_kernel_counts()
+    phase_mixtral_forward(cfg, params, seed=10)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mixtral_train(cfg, seed=11)
+    counts = kernel_counts()
+    log(f"[k] launches on the Mixtral path: {counts}; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    phase_mixtral_tiny()
+    phase_zoo_others(seed=12)
+    log(f"[k-4] {time.perf_counter() - t_start:.1f} s so far")
+    return counts
 
 
 def nvidia_smi_line() -> str:
@@ -1640,7 +2147,11 @@ def main() -> int:
     phase_train_tiny()
     phase_bench()
     phase_entry()
-    log(f"[bench+j] {time.perf_counter() - t_start:.1f} s in all")
+    log(f"[bench+j] {time.perf_counter() - t_start:.1f} s so far")
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo = phase_zoo(t_start)
+    log(f"[k] {time.perf_counter() - t_start:.1f} s in all")
 
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu", 45),
                "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu", 151),
@@ -1648,8 +2159,9 @@ def main() -> int:
     kernels = []
     for name, (source, line) in sources.items():
         by_path = {"serve": serve[name], "train": train[name],
-                   "train_compiled": compiled[name]}
-        check(by_path["train"] > 0 and by_path["train_compiled"] > 0,
+                   "train_compiled": compiled[name], "mixtral": zoo[name]}
+        check(by_path["train"] > 0 and by_path["train_compiled"] > 0
+              and by_path["mixtral"] > 0,
               f"a training path never launched {name}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,

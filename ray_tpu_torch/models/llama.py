@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -115,28 +115,59 @@ def init(config: LlamaConfig, generator: torch.Generator,
     """Random parameters with the JAX `init`'s shapes and fan-in scaling
     (normal * fan_in ** -0.5, norms at one). `generator` lives on `device`."""
     c = config
-    dev = resolve_device(device)
-    if generator.device.type != dev.type:
-        raise ValueError(f"generator is on {generator.device}, "
-                         f"parameters go to {dev}")
     fan_in = {"embed": c.d_model, "wq": c.d_model, "wk": c.d_model,
               "wv": c.d_model, "wo": c.n_heads * c.d_head,
               "w_gate": c.d_model, "w_up": c.d_model, "w_down": c.d_ff,
               "lm_head": c.d_model}
+    return random_params(
+        param_shapes(c), lambda name, shape: (
+            None if name.endswith("norm") else fan_in[name] ** -0.5),
+        generator, c.dtype, device)
+
+
+def random_params(shapes, std: Callable[[str, tuple], Optional[float]],
+                  generator: torch.Generator, dtype: torch.dtype,
+                  device=None):
+    """Nested dictionaries and lists of shapes -> tensors of `dtype` on
+    `device`, drawn in the shapes' order: normal * std(name, shape), ones
+    where std is None and zeros where it is 0. `generator` lives on
+    `device`."""
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator is on {generator.device}, "
+                         f"parameters go to {dev}")
 
     def make(name, shape):
-        if name.endswith("norm"):
-            return torch.ones(shape, dtype=c.dtype, device=dev)
+        scale = std(name, shape)
+        if scale is None:
+            return torch.ones(shape, dtype=dtype, device=dev)
+        if scale == 0:
+            return torch.zeros(shape, dtype=dtype, device=dev)
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=dev)
-        return w.mul_(fan_in[name] ** -0.5).to(c.dtype)
+        return w.mul_(scale).to(dtype)
 
-    shapes = param_shapes(c)
-    return {
-        name: ({n: make(n, s) for n, s in shape.items()}
-               if name == "layers" else make(name, shape))
-        for name, shape in shapes.items()
-    }
+    def walk(name, node):
+        if isinstance(node, dict):
+            return {n: walk(n, v) for n, v in node.items()}
+        if isinstance(node, list):
+            return [walk(name, v) for v in node]
+        return make(name, node)
+
+    return walk("", shapes)
+
+
+def unbind_layers(layers, n: int):
+    """Parameters stacked on a leading L axis (nested dictionaries) -> the
+    n per-layer dictionaries. unbind, not indexing: its backward stacks the
+    L per-layer gradients in one tensor instead of adding L full-size
+    ones."""
+    per_layer = [{} for _ in range(n)]
+    for name, w in layers.items():
+        parts = unbind_layers(w, n) if isinstance(w, dict) else w.unbind(0)
+        for i in range(n):
+            per_layer[i][name] = parts[i]
+    return per_layer
 
 
 def _layer_params(params, i: int) -> Dict[str, torch.Tensor]:
@@ -266,6 +297,17 @@ def _remat_context(config: LlamaConfig):
                      f"{', '.join(map(repr, _REMAT_POLICIES))})")
 
 
+def layer_caller(config) -> Callable:
+    """-> call(layer_fn, *args) = layer_fn(*args), checkpointed under
+    config.remat_policy when config.remat and gradients are on (training);
+    called as it is otherwise (serving)."""
+    if not (config.remat and torch.is_grad_enabled()):
+        return lambda fn, *args: fn(*args)
+    context = _remat_context(config)
+    kw = {} if context is None else {"context_fn": context}
+    return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def _layer(x, params, positions, config: LlamaConfig):
     x = _attn_sublayer(x, params, positions, config)
     return _mlp_sublayer(x, params, config)
@@ -280,20 +322,9 @@ def forward_hidden(params, tokens, config: LlamaConfig):
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = params["embed"][tokens].to(c.dtype)
-    remat = c.remat and torch.is_grad_enabled()
-    if remat:
-        context = _remat_context(c)
-        kw = {} if context is None else {"context_fn": context}
-    # unbind, not indexing: its backward stacks the L per-layer gradients in
-    # one tensor instead of adding L full-size ones.
-    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
-    for i in range(c.n_layers):
-        lp = {name: ws[i] for name, ws in layers.items()}
-        if remat:
-            x = checkpoint(_layer, x, lp, positions, c, use_reentrant=False,
-                           **kw)
-        else:
-            x = _layer(x, lp, positions, c)
+    call = layer_caller(c)
+    for lp in unbind_layers(params["layers"], c.n_layers):
+        x = call(_layer, x, lp, positions, c)
     return _rms_norm(x, params["final_norm"], c.norm_eps)
 
 

@@ -31,9 +31,12 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 
 
 def tree_map(fn: Callable, tree):
-    """A nested dictionary of the same structure with fn(leaf) as leaves."""
+    """Nested dictionaries and lists of the same structure with fn(leaf) as
+    leaves."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 

@@ -219,22 +219,18 @@ def fresh_dynamo():
     torch._dynamo.reset()
 
 
-def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
-                                             request, fresh_dynamo):
-    """chip_smoke.main() end to end at tiny sizes: stubbed torch.cuda, the
-    build replaced by a canned ptxas log, the kernels routed to counting
-    wrappers of their plain versions. Every phase runs; the kernels line has
-    the three entries with every field; the launch counts are the main
-    paths'; the last line is the ok object."""
-    from ray_tpu_torch.models import llama
-
+def rehearse_on_the_cpu(monkeypatch, tmp_path, request):
+    """chip_smoke.py loaded with the card stubbed for a run on the CPU:
+    torch.cuda's calls, the build replaced by a canned ptxas log, the
+    kernels routed to counting wrappers of their plain versions, host
+    timers, a canned profile, the compiled phases on aot_eager (no inductor
+    on the CPU), and one intra-op thread. -> the module."""
     # One intra-op thread: the tensors are tiny, and where test workers
     # share the cores, a thread pool of every core in each of them makes
     # the run tens of times slower.
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     request.addfinalizer(lambda: torch.set_num_threads(threads))
-    t0 = time.perf_counter()
     smoke = _load_chip_smoke(monkeypatch)
     # The card, stubbed.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -301,9 +297,42 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     monkeypatch.setattr(fa, "flash_bwd_dkv_cuda", dkv)
     monkeypatch.setattr(fa, "_flash_fwd", fwd)
     monkeypatch.setattr(fa, "_flash_bwd", flash_bwd)
-    # The compiled step: AOTAutograd's graphs run eagerly (no inductor on
+    # The compiled steps: AOTAutograd's graphs run eagerly (no inductor on
     # the CPU).
     monkeypatch.setattr(smoke, "COMPILE_BACKEND", "aot_eager")
+    return smoke
+
+
+def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
+                                             request, fresh_dynamo):
+    """chip_smoke.main() end to end at tiny sizes: stubbed torch.cuda, the
+    build replaced by a canned ptxas log, the kernels routed to counting
+    wrappers of their plain versions. Every phase runs but (k), the model
+    zoo, which tests/test_torch_mixtral.py rehearses on its own: here one
+    tiny Mixtral step stands in for it. The kernels line has the three
+    entries with every field; the launch counts are the main paths'; the
+    last line is the ok object."""
+    from ray_tpu_torch.models import llama, mixtral
+    from ray_tpu_torch.train.optim import tree_leaves
+
+    t0 = time.perf_counter()
+    smoke = rehearse_on_the_cpu(monkeypatch, tmp_path, request)
+
+    def zoo(t_start):
+        smoke.reset_kernel_counts()
+        cfg = mixtral.MixtralConfig.tiny(vocab_size=64)
+        params = mixtral.init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = mixtral.loss_fn(params, {"tokens": torch.arange(34).view(
+            2, 17)}, cfg)
+        torch.autograd.grad(loss, leaves)
+        smoke.log("[k] one tiny Mixtral step in place of phase (k)")
+        return smoke.kernel_counts()
+
+    monkeypatch.setattr(smoke, "phase_zoo", zoo)
     # The bench at (h-2)'s batch, as on the card.
     from ray_tpu_torch import bench
     monkeypatch.setattr(bench, "CPU_BATCH", 2)
@@ -368,7 +397,7 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     lines = capsys.readouterr().out.strip().splitlines()
     for tag in ("[a]", "[b]", "[c]", "[f]", "[g]", "[d]", "[d+e]", "[h]",
                 "[i-1]", "[i-2]", "[i-3]", "[i-4]", "[i]", "[h-2]",
-                "[bench]", "[j]"):
+                "[bench]", "[j]", "[k]"):
         assert any(line.startswith(tag) for line in lines), tag
     for text in ("[e] _decode_attention", "[e] _cached_attention",
                  "token blocks identical True", "[e] decode step, former",
@@ -412,7 +441,9 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     assert by_path["flash_fwd"]["train_compiled"] == 15 * 3 * layers
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert by_path[name] == {"serve": 0, "train": 13 * layers,
-                                 "train_compiled": 30 * layers}
+                                 "train_compiled": 30 * layers,
+                                 "mixtral": 2}
+    assert by_path["flash_fwd"]["mixtral"] == 4  # 2 layers under "dots"
     assert by_path["flash_fwd"]["serve"] >= 2 * layers
     assert [k["launches"] for k in kernels] == [
         sum(by_path[k["name"]].values()) for k in kernels]

@@ -65,7 +65,9 @@ def test_importing_the_port_loads_no_jax():
             "ray_tpu_torch.inference.benchmarks, "
             "ray_tpu_torch._private.kv_registry, "
             "ray_tpu_torch._private.device_profiler, ray_tpu_torch.bench, "
-            "ray_tpu_torch.graft_entry; "
+            "ray_tpu_torch.graft_entry, ray_tpu_torch.parallel.moe, "
+            "ray_tpu_torch.models.mixtral, ray_tpu_torch.models.vit, "
+            "ray_tpu_torch.models.t5, ray_tpu_torch.models.mlp; "
             "print(sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -138,6 +140,31 @@ def test_peak_table_refuses_a_card_it_does_not_know():
     for name in ("NVIDIA A100-SXM4-80GB", "NVIDIA H200", "cpu"):
         with pytest.raises(ValueError, match="no peak rates"):
             bf16_peak_flops_per_device(name)
+
+
+def test_model_zoo_entry_points_need_cuda_unless_asked_for_cpu(
+        monkeypatch):
+    from ray_tpu_torch.models import mixtral, mlp, t5, vit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for module, cfg in ((mixtral, mixtral.MixtralConfig.tiny(64)),
+                        (vit, vit.ViTConfig.tiny()), (t5, t5.T5Config.tiny()),
+                        (mlp, mlp.MLPConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            module.init(cfg, torch.Generator())
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            params_from_jax_numpy({}, cfg)
+        params = module.init(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        assert {t.device.type for t in _leaves(params)} == {"cpu"}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return [tree]
 
 
 def test_params_from_numpy_go_where_asked():
