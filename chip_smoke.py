@@ -93,12 +93,34 @@ Phases, in order; any failure raises and the script exits non-zero:
       ViT-B/16 (B=32) and T5-base (B=8, 512 -> 128) in bf16 and the MLP,
       eagerly: a forward, 3 steps in which the loss falls, T5's greedy
       decode of 32 tokens twice with the same tokens, and each tiny fp32
-      config on cuda against cpu.
+      config on cuda against cpu;
+  (l) the SPMD path (`ray_tpu_torch.parallel`, `train.spmd`), its branch
+      chosen by `torch.cuda.device_count()`: (l-1) always, a world-1 NCCL
+      gang on cuda:0: the tiny fp32 config and the bench configuration
+      (SPMD_STEPS eager steps) through the sharded code on a 1 x ... x 1
+      mesh (DTensor parameters and moments, the local_map'ed flash
+      kernels) against the unsharded step from the same state (fp32 1e-5
+      relative; bf16 loss 1e-3, grad norm 1e-2; for the bench config the
+      unsharded steps are (h)'s first), with (h)'s 2L / L / L launches a
+      step; (l-2) with fewer than 4 cards, `graft_entry.dryrun_multichip(4,
+      device="cpu")` on 4 gloo CPU ranks (NCCL takes one rank a card), as
+      its lines say; (l-3) with 4 cards or more, one rank a card over NCCL:
+      the dry run, `spmd_bench` (fsdp=2 x tp=2 against the 1-GPU step on
+      one global batch, B=16 S=2048: tok/s and MFU per GPU, scaling
+      efficiency, peak memory per GPU, the collectives' device time, the
+      trajectories within 1e-2), the ring step at sp=2 x fsdp=2 (the
+      bench widths, B=4 S=2048) with each rank's flash launches (2L(c+1)
+      / L(c+1) / L(c+1) at sp coordinate c) and its losses and grad norms
+      against the same mesh without the ring (bf16 loss 1e-3, grad norm
+      1e-2), and Llama-3-8B at its full 32
+      layers over fsdp=4 (B=8 S=2048, 3 steps). `--only l` runs (l) alone
+      after (a); `python3 chip_smoke.py --only l` on a host with four
+      cards is the four-card run.
 
 The launch counts are set to 0 just before each main path (serving: (d)
 and (e); paged serving: (i), which runs no flash kernel; training: (h);
-compiled training: (h-2); Mixtral: (k-1) and (k-2)) and read just after
-it. The last three lines of
+compiled training: (h-2); Mixtral: (k-1) and (k-2); the SPMD path: (l))
+and read just after it. The last three lines of
 stdout are the card's `nvidia-smi` name and power limit, one JSON object on
 the kernels, and `{"ok": true, "device": ...}`. Without CUDA, or without
 the repository beside it, it exits non-zero and prints no result.
@@ -2058,6 +2080,258 @@ def phase_zoo(t_start):
     return counts
 
 
+# -- (l) ---------------------------------------------------------------------
+
+# (l-1): the sharded step on a world-1 mesh against the unsharded one.
+SPMD_STEPS = 3
+SPMD_TINY_REL_TOL = 1e-5      # fp32: the same arithmetic, reordered sums
+SPMD_LOSS_REL_TOL = 1e-3      # bf16 at the bench config
+SPMD_NORM_REL_TOL = 1e-2
+# (l-3): four cards.
+SPMD_CARDS = 4
+SPMD_BENCH_STEPS = 3
+SPMD_BENCH_LOSS_REL_TOL = 1e-2    # the 1-GPU and 4-GPU trajectories
+SPMD_RING = dict(plan={"sp": 2, "fsdp": 2}, batch=4, seq=2048)
+SPMD_FULL = dict(plan={"fsdp": 4}, batch=8, seq=2048, steps=3)
+SPMD_TIMEOUT_S = 900
+
+
+def spmd_world1_runs(cfg, batch, seq, seed, plain_first=None):
+    """SPMD_STEPS eager steps of cfg from the seeded state on train_batch's
+    batch through the sharded code on a 1 x ... x 1 mesh (the gang this
+    process has joined) and, unless `plain_first` holds them already,
+    through the unsharded step. -> (sharded [(loss, grad norm)], plain
+    [(loss, grad norm)], launches per sharded step, the sharded run's
+    launches: the counts are set to 0 just before it and read just
+    after)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+    from ray_tpu_torch.train.spmd import batch_sharding, shard_local_batch
+
+    data = train_batch(cfg, batch, seq, seed)
+
+    def run(mesh):
+        opt = adamw(3e-4, weight_decay=0.0)
+        init = functools.partial(llama.init, cfg, torch.Generator(
+            device=DEVICE).manual_seed(seed))
+        if mesh is None:
+            state = init_train_state(init, opt, device=DEVICE)
+            batch_in = data
+        else:
+            state = init_train_state(
+                init, opt, device=DEVICE, mesh=mesh,
+                param_logical_axes=llama.param_logical_axes(cfg))
+            batch_in = shard_local_batch(
+                {k: v.cpu().numpy() for k, v in data.items()},
+                batch_sharding(mesh), mesh, torch.device(DEVICE))
+        step = make_train_step(functools.partial(
+            llama.loss_fn, config=cfg, mesh=mesh), opt, compiled=False)
+        out, launches = [], []
+        reset_kernel_counts()
+        for _ in range(SPMD_STEPS):
+            before = kernel_counts()
+            state, m = step(state, batch_in)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+            after = kernel_counts()
+            launches.append({k: after[k] - before[k] for k in after})
+        total = kernel_counts()
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, launches, total
+
+    mesh = build_mesh(MeshConfig())
+    sharded, launches, total = run(mesh)
+    plain = plain_first if plain_first is not None else run(None)[0]
+    return sharded, plain, launches, total
+
+
+def phase_spmd_world1(eager_first=None):
+    """(l-1): a world-1 gang on the card (NCCL; gloo in a CPU rehearsal):
+    the tiny fp32 config and the bench configuration through the sharded
+    code on a 1 x ... x 1 mesh against the unsharded step from the same
+    state, with (h)'s launches a step. eager_first: (h)'s first
+    SPMD_STEPS (loss, grad norm), from the same seed and batch. -> the
+    kernel launches of the sharded steps (the unsharded ones they are
+    held to do not count)."""
+    import tempfile
+
+    from ray_tpu_torch.train import backend
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_gang_")
+    backend.init_process_group(0, 1, f"file://{store}/store", DEVICE)
+    try:
+        cfg = tiny_train_config()
+        got, want, _, tiny_total = spmd_world1_runs(cfg, 2, 64, seed=5)
+        rel = max(abs(a - b) / abs(b) for x, y in zip(got, want)
+                  for a, b in zip(x, y))
+        log(f"[l-1] tiny fp32, world-1 mesh, {SPMD_STEPS} steps: (loss, "
+            f"grad norm) {got} vs unsharded {want}: rel {rel:.3e}")
+        check(rel <= SPMD_TINY_REL_TOL, "the sharded tiny step on a world-1 "
+              "mesh differs from the unsharded one")
+        cfg = bench_config()
+        t0 = time.perf_counter()
+        got, want, launches, total = spmd_world1_runs(
+            cfg, TRAIN_ATTN[0], TRAIN_ATTN[1], seed=3, plain_first=eager_first)
+        secs = time.perf_counter() - t0
+        rel_loss = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, want))
+        rel_norm = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, want))
+        want_launch = {"flash_fwd": 2 * cfg.n_layers,
+                       "flash_bwd_dq": cfg.n_layers,
+                       "flash_bwd_dkv": cfg.n_layers}
+        log(f"[l-1] bench config (B={TRAIN_ATTN[0]} S={TRAIN_ATTN[1]}, bf16, "
+            f"eager {cfg.remat_policy}), world-1 mesh, {SPMD_STEPS} steps in "
+            f"{secs:.1f} s: {got} vs unsharded {want}: rel loss "
+            f"{rel_loss:.3e}, grad norm {rel_norm:.3e}; launches a step "
+            f"{launches}")
+        check(rel_loss <= SPMD_LOSS_REL_TOL and rel_norm <= SPMD_NORM_REL_TOL,
+              "the sharded bench step on a world-1 mesh differs from the "
+              "unsharded one")
+        check(all(x == want_launch for x in launches),
+              f"sharded launches a step {launches}, not {want_launch}")
+    finally:
+        backend.destroy_process_group()
+    return {k: tiny_total[k] + total[k] for k in total}
+
+
+def phase_spmd_cpu_ranks(n_cards):
+    """(l-2): with fewer than SPMD_CARDS cards, the 4-rank dry run on gloo
+    CPU ranks (NCCL takes one rank a card)."""
+    from ray_tpu_torch import graft_entry
+
+    log(f"[l-2] this machine has {n_cards} GPU(s); the {SPMD_CARDS}-rank "
+        "dry run runs on CPU ranks")
+    t0 = time.perf_counter()
+    lines = graft_entry.dryrun_multichip(SPMD_CARDS, device="cpu")
+    check(lines[-1].endswith("all multichip checks passed"),
+          "the CPU-rank dry run did not pass")
+    log(f"[l-2] the CPU-rank dry run took {time.perf_counter() - t0:.1f} s")
+
+
+def spmd_tokens(cfg, batch, seq, seed):
+    """A global batch of random tokens [batch, seq + 1] from `seed`."""
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (batch, seq + 1))
+
+
+def log_mesh_run(tag, cfg, res, batch, seq):
+    """Step ms, tok/s a GPU, MFU and peak memory per rank of a mesh run."""
+    step_s = max(r["step_s"] for r in res)
+    tok_s = batch * seq / step_s / len(res)
+    from ray_tpu_torch.models import llama
+
+    mfu = llama.flops_per_token(cfg, seq) * tok_s / PEAKS[0]
+    peaks = [r["peak_gib"] and round(r["peak_gib"], 2) for r in res]
+    log(f"[{tag}] {len(res)} GPUs: {step_s * 1e3:.2f} ms a step, {tok_s:.1f} "
+        f"tok/s per GPU, MFU {mfu:.4f}; peak GiB per GPU {peaks}; losses "
+        f"{[round(x, 4) for x in res[0]['losses']]}; collectives ms (rank 0, "
+        f"one step) {res[0].get('collectives_ms')}")
+    check(all(np.isfinite(r["losses"]).all() for r in res),
+          f"{tag}: a non-finite loss")
+    return {"ms": step_s * 1e3, "tok_s_per_gpu": tok_s, "mfu": mfu,
+            "peak_gib": [r["peak_gib"] for r in res]}
+
+
+def phase_spmd_cards():
+    """(l-3): on SPMD_CARDS cards, one rank a card over NCCL: the dry run,
+    spmd_bench (fsdp=2 x tp=2 against the 1-GPU step), the ring step
+    (sp=2 x fsdp=2) with its launches per rank, against the same mesh
+    without the ring, and Llama-3-8B at full depth over fsdp=4. -> the
+    ranks' kernel launches (the run without the ring, a reference, does
+    not count)."""
+    import dataclasses
+
+    from ray_tpu_torch import graft_entry
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import spmd_bench
+    from ray_tpu_torch.train.backend import launch_gang
+
+    n = SPMD_CARDS
+    t0 = time.perf_counter()
+    lines = graft_entry.dryrun_multichip(n, device=DEVICE)
+    check(lines[-1].endswith("all multichip checks passed"),
+          "the NCCL dry run did not pass")
+    log(f"[l-3] the NCCL dry run on {n} cards took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    res = spmd_bench.run(n, steps=SPMD_BENCH_STEPS, device=DEVICE)
+    log(f"[l-3] spmd_bench {json.dumps(res)}")
+    det = res["detail"]
+    check(det["loss_max_rel_diff"] <= SPMD_BENCH_LOSS_REL_TOL,
+          f"the {n}-GPU trajectory left the 1-GPU one: "
+          f"{det['loss_1dev']} vs {det['loss_ndev']}")
+    launches = {k: 0 for k in kernel_counts()}
+
+    cfg = dataclasses.replace(bench_config(), use_ring_attention=True)
+    r = SPMD_RING
+    tokens = spmd_tokens(cfg, r["batch"], r["seq"], 11)
+    res = launch_gang(spmd_bench.train_run, n, DEVICE, SPMD_TIMEOUT_S, args=(
+        cfg, r["plan"], tokens, SPMD_STEPS))
+    log_mesh_run(f"l-3 ring {r['plan']} B={r['batch']} S={r['seq']}", cfg,
+                 res, r["batch"], r["seq"])
+    # The same state and batch on the same mesh without the ring: the
+    # ring's bf16 blocks, their merge and its backward against one kernel
+    # call per shard.
+    flat = launch_gang(spmd_bench.train_run, n, DEVICE, SPMD_TIMEOUT_S, args=(
+        dataclasses.replace(cfg, use_ring_attention=False), r["plan"],
+        tokens, SPMD_STEPS))
+    log_mesh_run(f"l-3 no ring {r['plan']} B={r['batch']} S={r['seq']}", cfg,
+                 flat, r["batch"], r["seq"])
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(
+        res[0]["losses"], flat[0]["losses"]))
+    rel_norm = max(abs(a - b) / abs(b) for a, b in zip(
+        res[0]["grad_norms"], flat[0]["grad_norms"]))
+    log(f"[l-3] ring vs no ring, {len(res[0]['losses'])} steps (warm-up "
+        f"first): losses {res[0]['losses']} vs {flat[0]['losses']}, grad "
+        f"norms {res[0]['grad_norms']} vs {flat[0]['grad_norms']}: rel loss "
+        f"{rel_loss:.3e}, grad norm {rel_norm:.3e}")
+    check(rel_loss <= SPMD_LOSS_REL_TOL and rel_norm <= SPMD_NORM_REL_TOL,
+          "the ring step differs from the same mesh without the ring")
+    sp = r["plan"]["sp"]
+    for rank, x in enumerate(res):
+        # rank r sits at sp coordinate r % sp: under causal it visits its
+        # own block and every earlier one, under remat "dots" twice.
+        c = rank % sp + 1
+        want = {"flash_fwd": 2 * cfg.n_layers * c,
+                "flash_bwd_dq": cfg.n_layers * c,
+                "flash_bwd_dkv": cfg.n_layers * c}
+        log(f"[l-3] ring rank {rank} (sp {rank % sp}): launches a step "
+            f"{x['launches'][0]}, want {want}")
+        check(all(s == want for s in x["launches"]),
+              f"ring rank {rank} launched {x['launches']}, not {want}")
+        for k in launches:
+            launches[k] += sum(s[k] for s in x["launches"])
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    f = SPMD_FULL
+    res = launch_gang(spmd_bench.train_run, n, DEVICE, SPMD_TIMEOUT_S, args=(
+        cfg, f["plan"], spmd_tokens(cfg, f["batch"], f["seq"], 13),
+        f["steps"]))
+    log_mesh_run(f"l-3 Llama-3-8B {cfg.n_layers} layers {f['plan']} "
+                 f"B={f['batch']} S={f['seq']}", cfg, res, f["batch"],
+                 f["seq"])
+    for x in res:
+        for k in launches:
+            launches[k] += sum(s[k] for s in x["launches"])
+    return launches
+
+
+def phase_spmd(eager_first=None):
+    """(l): the SPMD path. -> the kernel launches of its main path."""
+    n_cards = torch.cuda.device_count()
+    branch = "(l-3)" if n_cards >= SPMD_CARDS else "(l-2)"
+    log(f"[l] {n_cards} GPU(s) visible: (l-1), then {branch}")
+    launches = phase_spmd_world1(eager_first)
+    if n_cards >= SPMD_CARDS:
+        for k, v in phase_spmd_cards().items():
+            launches[k] += v
+    else:
+        phase_spmd_cpu_ranks(n_cards)
+    log(f"[l] launches on the SPMD path: {launches}")
+    return launches
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2066,7 +2340,15 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive ray_tpu_torch on the "
+                                     "card(s); see the module docstring.")
+    parser.add_argument("--only", choices=("l",), default=None,
+                        help="run phase (l), the SPMD path, alone (after the "
+                        "kernel build); with 4 cards its 4-card part")
+    args = parser.parse_args(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on an NVIDIA card", file=sys.stderr)
@@ -2089,6 +2371,15 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_build()
+    if args.only == "l":
+        spmd = phase_spmd()
+        log(f"[l] {time.perf_counter() - t_start:.1f} s in all")
+        print(card)
+        print(json.dumps({"spmd_launches": spmd}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": info["platform"], "kind": info["kind"],
+            "count": info["count"]}}))
+        return 0
     main_lengths = MAIN_LENGTHS
     max_err = {"flash_fwd": phase_flash_check(main_lengths)}
     timing = {"flash_fwd": phase_flash_time()}
@@ -2151,7 +2442,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     zoo = phase_zoo(t_start)
-    log(f"[k] {time.perf_counter() - t_start:.1f} s in all")
+    log(f"[k] {time.perf_counter() - t_start:.1f} s so far")
+    gc.collect()
+    torch.cuda.empty_cache()
+    spmd = phase_spmd(eager["first"])
+    log(f"[l] {time.perf_counter() - t_start:.1f} s in all")
 
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu", 45),
                "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu", 151),
@@ -2159,9 +2454,10 @@ def main() -> int:
     kernels = []
     for name, (source, line) in sources.items():
         by_path = {"serve": serve[name], "train": train[name],
-                   "train_compiled": compiled[name], "mixtral": zoo[name]}
+                   "train_compiled": compiled[name], "mixtral": zoo[name],
+                   "spmd": spmd[name]}
         check(by_path["train"] > 0 and by_path["train_compiled"] > 0
-              and by_path["mixtral"] > 0,
+              and by_path["mixtral"] > 0 and by_path["spmd"] > 0,
               f"a training path never launched {name}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -2179,4 +2475,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

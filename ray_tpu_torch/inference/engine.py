@@ -43,6 +43,18 @@ class GenerationConfig:
     eos_token_id: Optional[int] = None
 
 
+def shard_params_for_inference(params, config, mesh, rules=None):
+    """Full llama-family parameters (the same on every rank) -> DTensors in
+    their tp layout for a sharded engine: heads and MLP hidden units over
+    the mesh's tp dim, everything else replicated (no fsdp and no vocab
+    split at inference: the weights are read-only)."""
+    from ray_tpu_torch.models.llama import param_logical_axes
+    from ray_tpu_torch.parallel.sharding import LogicalAxisRules, shard_params
+
+    rules = rules or LogicalAxisRules().replace(embed=None, vocab=None)
+    return shard_params(params, param_logical_axes(config), mesh, rules)
+
+
 def _default_buckets(max_len: int) -> Tuple[int, ...]:
     out, b = [], 64
     while b < max_len:

@@ -68,19 +68,50 @@ class PagedInferenceEngine:
         init_paged_kv_cache: Optional[Callable] = None,
         enable_prefix_cache: bool = True,
         device=None,
+        mesh: Any = None,
     ):
-        """`params` must already be on `device` (cuda unless "cpu")."""
+        """`params` must already be on `device` (cuda unless "cpu").
+
+        With `mesh`, decode runs tensor-parallel over its tp dim: `params`
+        are DTensors in their tp layout (`shard_params_for_inference`),
+        every rank of the gang runs the same engine on the same requests,
+        each on its block of the weights (heads and MLP hidden units) and
+        of the block pool (`pool_placements`: the KV-head dim over tp),
+        and the row-parallel products end in a sum over tp. The host
+        bookkeeping is the same on every rank. The decode loop runs
+        eagerly (no CUDA graph around a collective)."""
         from ray_tpu_torch.models import llama
 
         fwd = forward_with_paged_cache or llama.forward_with_paged_cache
         init_pool = init_paged_kv_cache or llama.init_paged_kv_cache
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.pool_placements = None
+        model_config = config
+        if mesh is not None:
+            import dataclasses
+            import functools
+
+            from ray_tpu_torch.parallel.sharding import ShardingContext
+            from ray_tpu_torch.train.optim import tree_map
+
+            ctx = ShardingContext(mesh)
+            model_config = dataclasses.replace(
+                config, n_heads=config.n_heads // ctx.tp,
+                n_kv_heads=config.n_kv_heads // ctx.tp)
+            with torch.no_grad():
+                params = tree_map(ctx.local, params)
+            fwd = functools.partial(fwd, tp_sum=ctx.tp_sum)
+            self.pool_placements = ctx.placements(
+                (None, None, None, "act_heads", None))
         for w in _tensors(params):
             if w.device.type != self.device.type:
                 raise ValueError(f"a parameter is on {w.device}; the engine "
                                  f"runs on {self.device}")
         self.params = params
         self.config = config
+        # What the model computes on this rank: its tp block's head counts.
+        self._model_config = model_config
         self.max_batch = max_batch
         self.max_len = max_len
         self.block_size = block_size
@@ -93,7 +124,7 @@ class PagedInferenceEngine:
         self.n_blocks = n_blocks
         self.buckets = prefill_buckets or _default_buckets(max_len)
         self._fwd = fwd
-        self.pool = init_pool(config, n_blocks, block_size,
+        self.pool = init_pool(model_config, n_blocks, block_size,
                               device=self.device)
         # host state
         self.block_table = np.zeros(
@@ -141,9 +172,12 @@ class PagedInferenceEngine:
         max_steps = 1 << max(0, max_len - 1).bit_length()
         self._decoder = FusedDecode(
             lambda tok, lens, table: self._fwd(
-                self.params, tok, self.pool, table, lens, self.config)[0],
+                self.params, tok, self.pool, table, lens,
+                self._model_config)[0],
             max_batch, max_steps, self._gen,
             table_shape=self.block_table.shape)
+        if mesh is not None:
+            self._decoder.use_graph = False
 
     # -- device side -----------------------------------------------------------
 
@@ -161,7 +195,7 @@ class PagedInferenceEngine:
         valid = (torch.arange(s, device=self.device)[None, :]
                  < true_lens[:, None])
         logits, _ = self._fwd(self.params, tokens, self.pool, block_rows,
-                              offsets, self.config, valid=valid)
+                              offsets, self._model_config, valid=valid)
         last = logits[torch.arange(n, device=self.device), true_lens - 1]
         return sample_token(last, self._gen, temperature=gen.temperature,
                             top_k=gen.top_k, top_p=gen.top_p)

@@ -11,7 +11,19 @@ policy) becomes `torch.utils.checkpoint` with selective checkpointing.
 The KV-cache paths, dense and paged, update the cache in place where the
 JAX package donates it and returns a new one, and contract the cache as it
 is stored with fp32 accumulation (`_attend`; no fp32 copy of the cache).
-The mesh (sharding rules, ring attention) is a later slice.
+
+With `mesh=` (a named DeviceMesh, `parallel.mesh`) `forward_hidden`,
+`forward` and `loss_fn` take DTensor parameters in their logical shardings
+(`param_logical_axes`, `parallel.sharding`) and a DTensor batch, and run
+each rank's block of the same arithmetic, saying the collectives GSPMD
+would insert (`ShardingContext`): a layer's weights are gathered over the
+data dims right before use, inside the layer's checkpoint, so the backward
+gathers them again and reduces their gradients (FSDP as GSPMD lowers it);
+column-parallel products take their heads or hidden units of the tp split
+and row-parallel ones end in the tp sum that JAX's act_embed constraint
+asks for; the embedding and the cross-entropy are vocab-parallel; attention
+runs through `flash_attention_sharded`, or the ring over sp
+(`use_ring_attention`). With mesh=None everything is as it was.
 """
 
 from __future__ import annotations
@@ -26,7 +38,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.ops.flash_attention import NEG_INF, flash_attention
+from ray_tpu_torch.ops.flash_attention import (NEG_INF, flash_attention,
+                                               flash_attention_sharded)
+from ray_tpu_torch.parallel.sharding import ShardingContext
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +64,7 @@ class LlamaConfig:
     # >0: compute the training CE over sequence chunks of this size so the
     # full [B,S,V] fp32 logits tensor never materializes (chunked_ce).
     loss_chunk_size: int = 0
+    use_ring_attention: bool = False  # set when mesh sp-axis > 1
 
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
@@ -107,6 +122,27 @@ def param_shapes(config: LlamaConfig) -> Dict[str, Any]:
         },
         "final_norm": (D,),
         "lm_head": (D, c.vocab_size),
+    }
+
+
+def param_logical_axes(config: LlamaConfig) -> Dict[str, Any]:
+    """Logical axis names per parameter (layers stacked on 'layers')."""
+    L = ("layers",)
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": L + (None,),
+            "wq": L + ("embed", "heads", "kv"),
+            "wk": L + ("embed", "heads", "kv"),
+            "wv": L + ("embed", "heads", "kv"),
+            "wo": L + ("heads", "kv", "embed"),
+            "mlp_norm": L + (None,),
+            "w_gate": L + ("embed", "mlp"),
+            "w_up": L + ("embed", "mlp"),
+            "w_down": L + ("mlp", "embed"),
+        },
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
     }
 
 
@@ -206,9 +242,11 @@ def _proj_out(attn, wo):
     return attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def _qkv(x, params, positions, config: LlamaConfig):
+def _qkv(x, params, positions, config: LlamaConfig, tp_copy=None):
+    """tp_copy: where wq/wk/wv hold this rank's heads of a tp split, the
+    identity whose backward sums the normed input's gradient over tp."""
     c = config
-    h = _rms_norm(x, params["attn_norm"], c.norm_eps)
+    h = _maybe(tp_copy, _rms_norm(x, params["attn_norm"], c.norm_eps))
     q = _rope(_proj_heads(h, params["wq"]), positions, c.rope_theta)
     k = _rope(_proj_heads(h, params["wk"]), positions, c.rope_theta)
     v = _proj_heads(h, params["wv"])
@@ -216,22 +254,26 @@ def _qkv(x, params, positions, config: LlamaConfig):
 
 
 def _attn_sublayer(x, params, positions, config: LlamaConfig,
-                   kv_cache=None, lengths=None):
+                   kv_cache=None, lengths=None, attention=flash_attention,
+                   tp_copy=None, tp_sum=None):
     """Pre-norm attention block. With kv_cache=(k_cache, v_cache), one
     layer's [B,T,kv,K] cache views, it adds the new K/V at `positions` into
     the cache in place (the JAX package's additive one-hot scatter, whose
     target slots are still zero) and attends over the cache; otherwise it
-    attends over the block itself through flash attention."""
+    attends over the block itself through `attention` (flash attention; on
+    a mesh, over the whole sequence from this rank's blocks). tp_copy and
+    tp_sum: the tp collectives around the column- and row-parallel
+    products (`_qkv`, `_mlp_sublayer`)."""
     c = config
-    q, k, v = _qkv(x, params, positions, c)
+    q, k, v = _qkv(x, params, positions, c, tp_copy)
     if kv_cache is not None:
         k_cache, v_cache = kv_cache
         _scatter_add(k_cache, positions, k)
         _scatter_add(v_cache, positions, v)
         attn = _cached_attention(q, k_cache, v_cache, lengths, c)
     else:
-        attn = flash_attention(q, k, v, causal=True)
-    return x + _proj_out(attn, params["wo"])
+        attn = attention(q, k, v, causal=True)
+    return x + _maybe(tp_sum, _proj_out(attn, params["wo"]))
 
 
 def _scatter_add(cache, positions, new):
@@ -245,13 +287,22 @@ def _scatter_add(cache, positions, new):
                      accumulate=True)
 
 
-def _mlp_sublayer(x, params, config: LlamaConfig):
-    """Pre-norm SwiGLU MLP block shared by the forward and decode paths."""
+def _mlp_sublayer(x, params, config: LlamaConfig, tp_copy=None,
+                  tp_sum=None):
+    """Pre-norm SwiGLU MLP block shared by the forward, decode and mesh
+    paths. Where w_gate/w_up hold this rank's hidden units of a tp split and
+    w_down the matching rows: tp_copy, the identity whose backward sums the
+    normed input's gradient over the tp ranks, and tp_sum, the sum of the
+    partial products over them."""
     c = config
-    h = _rms_norm(x, params["mlp_norm"], c.norm_eps)
+    h = _maybe(tp_copy, _rms_norm(x, params["mlp_norm"], c.norm_eps))
     gate = h @ params["w_gate"]
     up = h @ params["w_up"]
-    return x + (F.silu(gate) * up) @ params["w_down"]
+    return x + _maybe(tp_sum, (F.silu(gate) * up) @ params["w_down"])
+
+
+def _maybe(fn, x):
+    return x if fn is None else fn(x)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -313,11 +364,18 @@ def _layer(x, params, positions, config: LlamaConfig):
     return _mlp_sublayer(x, params, config)
 
 
-def forward_hidden(params, tokens, config: LlamaConfig):
+def forward_hidden(params, tokens, config: LlamaConfig, mesh=None,
+                   rules=None):
     """tokens [B,S] -> final-norm hidden states [B,S,D] (pre-lm_head).
 
     With config.remat and gradients enabled each layer is checkpointed under
-    config.remat_policy; without gradients (serving) nothing is."""
+    config.remat_policy; without gradients (serving) nothing is. With a
+    mesh, params and tokens are DTensors and so is the result (batch, seq,
+    act_embed)."""
+    if mesh is not None:
+        ctx = ShardingContext(mesh, rules)
+        x = _forward_hidden_sharded(params, tokens, config, ctx)
+        return _as_dtensor(x, ctx, ("batch", "seq", "act_embed"))
     c = config
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -328,8 +386,18 @@ def forward_hidden(params, tokens, config: LlamaConfig):
     return _rms_norm(x, params["final_norm"], c.norm_eps)
 
 
-def forward(params, tokens, config: LlamaConfig):
-    """tokens: [B, S] integer -> logits [B, S, vocab] (cast to fp32)."""
+def forward(params, tokens, config: LlamaConfig, mesh=None, rules=None):
+    """tokens: [B, S] integer -> logits [B, S, vocab] (cast to fp32); with a
+    mesh, a DTensor (batch, seq, act_vocab)."""
+    if mesh is not None:
+        ctx = ShardingContext(mesh, rules)
+        x = _forward_hidden_sharded(params, tokens, config, ctx)
+        lm = ctx.gather(ctx.local(params["lm_head"]),
+                        params["lm_head"].placements)
+        logits = (ctx.tp_copy(x) @ lm).float()
+        vocab = "act_vocab" if ctx.on_tp(params["lm_head"].placements, 1) \
+            else None
+        return _as_dtensor(logits, ctx, ("batch", "seq", vocab))
     x = forward_hidden(params, tokens, config)
     return (x @ params["lm_head"]).float()
 
@@ -342,37 +410,49 @@ def _chunk_nll(hidden, lm_head, targets, mask):
     return torch.sum(nll * mask)
 
 
-def chunked_ce(hidden, lm_head, targets, mask=None, chunk: int = 256):
+def chunked_ce(hidden, lm_head, targets, mask=None, chunk: int = 256,
+               nll=_chunk_nll, count_sum=None):
     """Cross-entropy without materializing full [B,S,V] fp32 logits: the
     sequence goes in chunks and each full chunk's logits are recomputed in
     the backward (checkpointed); a last partial chunk is taken as it is.
-    Returns sum(nll * mask) / max(sum(mask), 1)."""
+    chunk 0 takes the sequence as one piece, not checkpointed. nll: one
+    chunk's summed masked NLL (on a mesh with the vocab over tp, the
+    vocab-parallel one); count_sum: the mask count divided by, from this
+    rank's (on a mesh, its sum over the data dims).
+    Returns sum(nll * mask) / max(count_sum(sum(mask)), 1)."""
     b, s, _ = hidden.shape
     mask = (torch.ones((b, s), dtype=torch.float32, device=hidden.device)
             if mask is None else mask.to(torch.float32))
+    step = chunk or s
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for start in range(0, s, chunk):
-        sl = slice(start, start + chunk)
+    for start in range(0, s, step):
+        sl = slice(start, start + step)
         args = (hidden[:, sl], lm_head, targets[:, sl], mask[:, sl])
-        if start + chunk <= s and torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_nll, *args, use_reentrant=False)
+        if chunk and start + chunk <= s and torch.is_grad_enabled():
+            total = total + checkpoint(nll, *args, use_reentrant=False)
         else:
-            total = total + _chunk_nll(*args)
-    return total / torch.clamp(mask.sum(), min=1.0)
+            total = total + nll(*args)
+    return total / torch.clamp(_maybe(count_sum, mask.sum()), min=1.0)
 
 
-def loss_fn(params, batch, config: LlamaConfig):
+def _loss_inputs(batch):
+    if "inputs" in batch:
+        return batch["inputs"], batch["targets"], batch.get("mask")
+    tokens = batch["tokens"]
+    return tokens[:, :-1], tokens[:, 1:], None
+
+
+def loss_fn(params, batch, config: LlamaConfig, mesh=None, rules=None):
     """Next-token cross-entropy. batch: {"tokens": [B, S]} (targets are the
     shifted tokens) or explicit {"inputs", "targets", "mask"}.
     With config.loss_chunk_size > 0 the CE is computed chunk by chunk over
-    the sequence (see chunked_ce) so full-vocab logits never materialize."""
-    if "inputs" in batch:
-        inputs, targets = batch["inputs"], batch["targets"]
-        mask = batch.get("mask")
-    else:
-        tokens = batch["tokens"]
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        mask = None
+    the sequence (see chunked_ce) so full-vocab logits never materialize.
+    With a mesh, params and batch are DTensors in their shardings and the
+    loss, the mean over the global batch, is on every rank."""
+    if mesh is not None:
+        return _loss_sharded(params, batch, config, ShardingContext(
+            mesh, rules))
+    inputs, targets, mask = _loss_inputs(batch)
     hidden = forward_hidden(params, inputs, config)
     if config.loss_chunk_size:
         return chunked_ce(hidden, params["lm_head"], targets, mask,
@@ -381,6 +461,151 @@ def loss_fn(params, batch, config: LlamaConfig):
             if mask is None else mask.to(torch.float32))
     return (_chunk_nll(hidden, params["lm_head"], targets, mask)
             / torch.clamp(mask.sum(), min=1.0))
+
+
+# -- the sharded path ----------------------------------------------------------
+
+def _as_dtensor(local, ctx, logical_axes):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, ctx.mesh, ctx.placements(logical_axes),
+                              run_check=False)
+
+
+def _layer_placements(stacked):
+    """The placements of one layer's slice of a parameter stacked on a
+    leading L axis (which no rule splits)."""
+    from torch.distributed.tensor import Shard
+
+    out = []
+    for p in stacked:
+        if isinstance(p, Shard):
+            if p.dim == 0:
+                raise ValueError("the stacked layer axis of a parameter is "
+                                 "split; no rule of the port splits it")
+            p = Shard(p.dim - 1)
+        out.append(p)
+    return tuple(out)
+
+
+def _layer_sharded(x, lp, positions, config: LlamaConfig, ctx, placements):
+    """`_layer` on this rank's blocks: lp holds the layer's local parameter
+    blocks, gathered here, inside the layer's checkpoint, so the backward
+    gathers them again instead of keeping them; the sublayers take the tp
+    collectives where their products split over tp, and attention over the
+    whole sequence."""
+    w = {n: ctx.gather(t, placements[n]) for n, t in lp.items()}
+    heads_tp = ctx.on_tp(placements["wq"], 1)
+    if ctx.on_tp(placements["wo"], 0) != heads_tp:
+        raise ValueError("wq and wo split their heads differently over tp")
+    attention = functools.partial(_attention_sharded, config=config,
+                                  ctx=ctx, heads_tp=heads_tp)
+    x = _attn_sublayer(x, w, positions, config, attention=attention,
+                       **_tp_hooks(ctx, heads_tp))
+    return _mlp_sublayer(x, w, config,
+                         **_tp_hooks(ctx, ctx.on_tp(placements["w_gate"], 1)))
+
+
+def _tp_hooks(ctx, split: bool):
+    """The sublayers' tp collectives where their products split over tp."""
+    return {"tp_copy": ctx.tp_copy, "tp_sum": ctx.tp_sum} if split else {}
+
+
+def _attention_sharded(q, k, v, causal: bool = True, *,
+                       config: LlamaConfig, ctx, heads_tp: bool):
+    """Attention of this rank's q/k/v blocks [B_loc,S_loc,H_loc,D] over the
+    whole sequence: the blocks as DTensors (batch, seq, heads over tp when
+    the projections split them), through the ring over sp or the sharded
+    flash attention, the result back as this rank's block."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    pl = ctx.placements(("batch", "seq", None, None))
+    if heads_tp:
+        pl = tuple(Shard(2) if n == "tp" else p
+                   for n, p in zip(ctx.names, pl))
+    q, k, v = (DTensor.from_local(t, ctx.mesh, pl, run_check=False)
+               for t in (q, k, v))
+    if config.use_ring_attention and ctx.sizes.get("sp", 1) > 1:
+        from ray_tpu_torch.parallel.ring_attention import (
+            ring_attention_sharded)
+
+        out = ring_attention_sharded(q, k, v, ctx.mesh, causal=causal)
+    else:
+        out = flash_attention_sharded(q, k, v, ctx.mesh, causal=causal)
+    return out.to_local()
+
+
+def _embed_sharded(table, tokens, ctx, vocab_tp: bool):
+    """Rows of the table's local block [V_loc, D] for the tokens; with the
+    vocab split over tp, each rank looks up the tokens in its range and the
+    tp sum assembles them (a vocab-parallel embedding)."""
+    if not vocab_tp:
+        return table[tokens]
+    v_loc = table.shape[0]
+    idx = tokens - ctx.coord["tp"] * v_loc
+    inside = (idx >= 0) & (idx < v_loc)
+    rows = table[idx.clamp(0, v_loc - 1)]
+    return ctx.tp_sum(torch.where(inside[..., None], rows, 0))
+
+
+def _forward_hidden_sharded(params, tokens, config: LlamaConfig, ctx):
+    """This rank's block of the final-norm hidden states [B_loc,S_loc,D]."""
+    c = config
+    tokens = ctx.local(tokens)
+    b, s = tokens.shape
+    start = ctx.block_start("seq", s)
+    positions = torch.arange(start, start + s,
+                             device=tokens.device).expand(b, s)
+    table = params["embed"]
+    x = _embed_sharded(ctx.gather(ctx.local(table), table.placements),
+                       tokens, ctx, ctx.on_tp(table.placements, 0)).to(c.dtype)
+    stacked = params["layers"]
+    placements = {n: _layer_placements(w.placements)
+                  for n, w in stacked.items()}
+    locals_ = {n: ctx.local(w) for n, w in stacked.items()}
+    call = layer_caller(c)
+    for lp in unbind_layers(locals_, c.n_layers):
+        x = call(_layer_sharded, x, lp, positions, c, ctx, placements)
+    norm = params["final_norm"]
+    return _rms_norm(x, ctx.gather(ctx.local(norm), norm.placements),
+                     c.norm_eps)
+
+
+def _chunk_nll_vocab_parallel(h, lm_head, targets, mask, ctx):
+    """`_chunk_nll` with lm_head's vocab split over tp: each rank's logits
+    of its vocab block, the row max and sum of exponentials and the
+    target's logit assembled over tp."""
+    import torch.distributed as dist
+
+    logits = (h @ lm_head).float()
+    v_loc = logits.shape[-1]
+    m = logits.detach().amax(-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=ctx.mesh.get_group("tp"))
+    sumexp = ctx.tp_sum(torch.exp(logits - m).sum(-1))
+    idx = targets.long() - ctx.coord["tp"] * v_loc
+    inside = (idx >= 0) & (idx < v_loc)
+    picked = logits.gather(-1, idx.clamp(0, v_loc - 1)[..., None])[..., 0]
+    target = ctx.tp_sum(torch.where(inside, picked, 0.0))
+    nll = torch.log(sumexp) + m[..., 0] - target
+    return torch.sum(nll * mask)
+
+
+def _loss_sharded(params, batch, config: LlamaConfig, ctx):
+    """The global mean NLL from each rank's tokens: `chunked_ce` of the
+    rank's block over the global mask count, summed over the data dims."""
+    inputs, targets, mask = (ctx.local(t) if t is not None else None
+                             for t in _loss_inputs(batch))
+    hidden = _forward_hidden_sharded(params, inputs, config, ctx)
+    lm_dt = params["lm_head"]
+    lm = ctx.gather(ctx.local(lm_dt), lm_dt.placements)
+    vocab_tp = ctx.on_tp(lm_dt.placements, 1)
+    if vocab_tp:
+        hidden = ctx.tp_copy(hidden)
+    nll = (functools.partial(_chunk_nll_vocab_parallel, ctx=ctx) if vocab_tp
+           else _chunk_nll)
+    return ctx.data_sum(chunked_ce(hidden, lm, targets, mask,
+                                   config.loss_chunk_size, nll=nll,
+                                   count_sum=ctx.data_sum))
 
 
 def init_kv_cache(config: LlamaConfig, batch: int, max_len: int,
@@ -622,7 +847,8 @@ def _flat_slots(block_table, positions, block_size, valid):
 
 
 def _attn_sublayer_paged(x, params, positions, config: LlamaConfig,
-                         k_pool, v_pool, block_table, lengths, valid):
+                         k_pool, v_pool, block_table, lengths, valid,
+                         tp_sum=None):
     """Prefill attention over a paged pool for ONE layer: the new K/V go
     into the pool in place (invalid rows to the scratch block; duplicate
     targets there are harmless, block 0 is never read at a live position),
@@ -638,11 +864,11 @@ def _attn_sublayer_paged(x, params, positions, config: LlamaConfig,
     attn = _attend(q, _gather_kv_major(k_pool, block_table),
                    _gather_kv_major(v_pool, block_table),
                    _causal_visible(lengths, s, t), c)
-    return x + _proj_out(attn, params["wo"])
+    return x + _maybe(tp_sum, _proj_out(attn, params["wo"]))
 
 
 def _attn_sublayer_paged_decode(x, params, positions, config: LlamaConfig,
-                                k_pool, v_pool, block_table):
+                                k_pool, v_pool, block_table, tp_sum=None):
     """Decode-step (S=1) paged attention: reads each row's positions below
     its length from the pool (READ-ONLY here), adds the new token's own
     term directly, and returns the new K/V for the single deferred pool
@@ -655,11 +881,12 @@ def _attn_sublayer_paged_decode(x, params, positions, config: LlamaConfig,
                    _gather_kv_major(v_pool, block_table),
                    _prefix_visible(positions[:, 0], t), c,
                    self_kv=(k[:, 0], v[:, 0]))
-    return x + _proj_out(attn, params["wo"]), (k[:, 0], v[:, 0])
+    return (x + _maybe(tp_sum, _proj_out(attn, params["wo"])),
+            (k[:, 0], v[:, 0]))
 
 
 def forward_with_paged_cache(params, tokens, pool, block_table, lengths,
-                             config: LlamaConfig, valid=None):
+                             config: LlamaConfig, valid=None, tp_sum=None):
     """forward_with_cache over a paged pool (see init_paged_kv_cache).
 
     tokens: [B, S] new tokens at positions lengths..lengths+S; block_table
@@ -667,7 +894,10 @@ def forward_with_paged_cache(params, tokens, pool, block_table, lengths,
     tails (invalid positions write to the scratch block and are masked
     from attention by `lengths`). The pool is updated IN PLACE (the JAX
     package donates it and returns a new one); this returns the same dict.
-    -> (logits [B, S, vocab] fp32, pool)"""
+    Tensor-parallel serving passes one tp rank's blocks (heads and MLP
+    hidden units split, `config` with this rank's head counts, the pool's
+    KV heads split) and tp_sum, the sum over the tp ranks that ends each
+    row-parallel product. -> (logits [B, S, vocab] fp32, pool)"""
     c = config
     b, s = tokens.shape
     positions = lengths[:, None] + torch.arange(s, device=tokens.device)[None]
@@ -681,8 +911,9 @@ def forward_with_paged_cache(params, tokens, pool, block_table, lengths,
         for i in range(c.n_layers):
             lp = _layer_params(params, i)
             x, (k1, v1) = _attn_sublayer_paged_decode(
-                x, lp, positions, c, pool["k"][i], pool["v"][i], block_table)
-            x = _mlp_sublayer(x, lp, c)
+                x, lp, positions, c, pool["k"][i], pool["v"][i], block_table,
+                tp_sum)
+            x = _mlp_sublayer(x, lp, c, tp_sum=tp_sum)
             k_new.append(k1)
             v_new.append(v1)
         n_layers, n_blocks, bs = pool["k"].shape[:3]
@@ -695,8 +926,8 @@ def forward_with_paged_cache(params, tokens, pool, block_table, lengths,
             lp = _layer_params(params, i)
             x = _attn_sublayer_paged(x, lp, positions, c, pool["k"][i],
                                      pool["v"][i], block_table, lengths,
-                                     valid)
-            x = _mlp_sublayer(x, lp, c)
+                                     valid, tp_sum)
+            x = _mlp_sublayer(x, lp, c, tp_sum=tp_sum)
     x = _rms_norm(x, params["final_norm"], c.norm_eps)
     return (x @ params["lm_head"]).float(), pool
 

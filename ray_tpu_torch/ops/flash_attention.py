@@ -19,7 +19,9 @@ the JAX package does.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 versions; CUDA tensors launch the kernels or raise. There is no fallback
-from one to the other. The sharded entry point belongs to a later slice.
+from one to the other. `flash_attention_sharded` runs the same kernels on
+each rank's block of DTensors on a named mesh (`torch.distributed`'s
+`local_map`, the counterpart of the JAX wrapper's `shard_map`).
 """
 
 from __future__ import annotations
@@ -413,3 +415,78 @@ def flash_attention(q, k, v, causal: bool = True,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return flash_fwd(q, k, v, causal, scale)[0]
+
+
+def _attention_placements(mesh, b: int, h: int, seq_axis: Optional[str]):
+    """Placements of [B, S, H, D] attention operands on `mesh`: B over the
+    data-parallel dims (dcn, dp, fsdp; size > 1) when it divides their
+    product, else unsplit; S over `seq_axis`; H over tp when it divides.
+    -> (placements, whether H is split over tp)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    sizes = {n: mesh.size(i) for i, n in enumerate(names)}
+    batch_axes = [a for a in ("dcn", "dp", "fsdp") if sizes.get(a, 1) > 1]
+    div = 1
+    for a in batch_axes:
+        div *= sizes[a]
+    if b % div != 0:
+        batch_axes = []
+    heads = sizes.get("tp", 1) > 1 and h % sizes["tp"] == 0
+    out = []
+    for n in names:
+        if n in batch_axes:
+            out.append(Shard(0))
+        elif n == seq_axis and sizes[n] > 1:
+            out.append(Shard(1))
+        elif n == "tp" and heads:
+            out.append(Shard(2))
+        else:
+            out.append(Replicate())
+    return tuple(out), heads
+
+
+def _repeat_kv_heads(x, rep: int, mesh):
+    """A DTensor [B,S,H_kv,D] -> [B,S,H_kv*rep,D], each KV head repeated
+    for its query heads (the JAX wrapper's jnp.repeat), heads unsplit."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    pl = tuple(Replicate() if p == Shard(2) else p for p in x.placements)
+    local = x.redistribute(mesh, pl).to_local()
+    return DTensor.from_local(local.repeat_interleave(rep, dim=2), mesh, pl,
+                              run_check=False)
+
+
+def _local_map_attention(fn, q, k, v, mesh, seq_axis=None):
+    """Run fn(q, k, v) -> o on each rank's blocks of DTensors q [B,S,H,D]
+    and k/v [B,S,H_kv,D] (the `shard_map` of the JAX wrappers). The
+    operands are first redistributed to `_attention_placements` (a no-op
+    where they are already so; an all-gather of S where `seq_axis` is None
+    and S was split); where H splits over tp and H_kv does not, the KV
+    heads are repeated first. -> o as a DTensor in q's placements."""
+    from torch.distributed.tensor.experimental import local_map
+
+    b, _, h, _ = q.shape
+    h_kv = k.shape[2]
+    spec, heads = _attention_placements(mesh, b, h, seq_axis)
+    if heads and h_kv % mesh.size(mesh.mesh_dim_names.index("tp")):
+        k, v = (_repeat_kv_heads(t, h // h_kv, mesh) for t in (k, v))
+    back = q.placements
+    q, k, v = (t.redistribute(mesh, spec) for t in (q, k, v))
+    out = local_map(fn, out_placements=(spec,),
+                    in_placements=(spec, spec, spec), device_mesh=mesh)(q, k, v)
+    return out.redistribute(mesh, back)
+
+
+def flash_attention_sharded(q, k, v, mesh, causal: bool = True,
+                            scale: Optional[float] = None):
+    """`local_map`-wrapped flash attention over DTensors [B, S, H, D] on
+    `mesh` (k/v may have fewer heads). The custom operators have no DTensor
+    sharding rule, so, as GSPMD needs a shard_map around the Pallas call,
+    each rank runs the kernel on its block: B over (dcn, dp, fsdp) where it
+    divides, H over tp where it divides, S whole (split S is gathered
+    first; the output goes back to q's placements). KV heads split over tp
+    too where H_kv divides, and the kernels sum each GQA group; else they
+    are repeated to H first, as the JAX wrapper always repeats them."""
+    fn = functools.partial(flash_attention, causal=causal, scale=scale)
+    return _local_map_attention(fn, q, k, v, mesh)

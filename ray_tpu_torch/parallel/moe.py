@@ -18,8 +18,9 @@ dropped choice points at one spare row (zeros on the combine side), so the
 shapes stay static and the layer traces with
 `torch.compile(fullgraph=True, dynamic=False)`.
 
-The expert-parallel form (`moe_shard_map`: experts sharded across devices,
-token buffers exchanged by all_to_all) waits for the multi-GPU slice.
+The expert-parallel form, `moe_shard_map`, splits the experts over a mesh
+dim and exchanges the token buffers with `all_to_all_single` around the
+same routing.
 """
 
 from __future__ import annotations
@@ -88,17 +89,12 @@ def top_k_gating(logits: torch.Tensor, k: int, capacity: int
             combine[:, :-1].view(t, e, capacity), r.aux)
 
 
-def moe_layer(x: torch.Tensor, gate_w: torch.Tensor, expert_fn: Callable,
-              expert_params: Any, k: int = 2, capacity_factor: float = 1.25
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [T, D], gate_w [D, E] -> ([T, D] in x's dtype, aux). expert_fn(
-    expert_params, [E, C, D]) -> [E, C, D] computes every expert on its
-    buffer at once (the JAX package's `jax.vmap(expert_fn)`); the leaves of
-    expert_params lead with E. The gate logits are fp32, the experts see x's
-    dtype, the combine is fp32 and cast at the end, as in the JAX layer."""
+def _dispatch(x, gate_w, k: int, cap: int):
+    """Route x [T, D] over gate_w [D, E] with `cap` slots an expert ->
+    (expert_in [E, C, D] in x's dtype, flat [T*k] each choice's buffer row
+    (E*C for a dropped one), the Route)."""
     t, d = x.shape
     e = gate_w.shape[1]
-    cap = capacity(t, e, k, capacity_factor)
     xf = x.float()
     r = route(xf @ gate_w.float(), k, cap)
     # (expert, slot) of each choice as a row of the E*C buffer; a dropped
@@ -111,8 +107,132 @@ def moe_layer(x: torch.Tensor, gate_w: torch.Tensor, expert_fn: Callable,
     owner = owner.scatter(0, flat, tokens)[:-1]
     rows = torch.cat([xf, xf.new_zeros(1, d)])
     expert_in = rows.index_select(0, owner).view(e, cap, d).to(x.dtype)
-    expert_out = expert_fn(expert_params, expert_in).reshape(e * cap, d)
-    out_rows = torch.cat([expert_out, expert_out.new_zeros(1, d)])
-    picked = out_rows.index_select(0, flat).view(t, k, d).float()
-    out = (picked * r.gate[..., None]).sum(1)
+    return expert_in, flat, r
+
+
+def _combine(expert_out, flat, r, k: int):
+    """Each token's k expert outputs (rows `flat` of expert_out [E, C, D];
+    the spare row is zeros) weighted by their gates, summed in fp32."""
+    e, cap, d = expert_out.shape
+    rows = expert_out.reshape(e * cap, d)
+    out_rows = torch.cat([rows, rows.new_zeros(1, d)])
+    picked = out_rows.index_select(0, flat).view(-1, k, d).float()
+    return (picked * r.gate[..., None]).sum(1)
+
+
+def moe_layer(x: torch.Tensor, gate_w: torch.Tensor, expert_fn: Callable,
+              expert_params: Any, k: int = 2, capacity_factor: float = 1.25
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [T, D], gate_w [D, E] -> ([T, D] in x's dtype, aux). expert_fn(
+    expert_params, [E, C, D]) -> [E, C, D] computes every expert on its
+    buffer at once (the JAX package's `jax.vmap(expert_fn)`); the leaves of
+    expert_params lead with E. The gate logits are fp32, the experts see x's
+    dtype, the combine is fp32 and cast at the end, as in the JAX layer."""
+    t = x.shape[0]
+    cap = capacity(t, gate_w.shape[1], k, capacity_factor)
+    expert_in, flat, r = _dispatch(x, gate_w, k, cap)
+    out = _combine(expert_fn(expert_params, expert_in), flat, r, k)
     return out.to(x.dtype), r.aux
+
+
+class _AllToAll(torch.autograd.Function):
+    """Split x's leading dim into one part per rank of `group`, send part i
+    to rank i and stack what each rank sent here, in rank order; the
+    backward sends the gradients back the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        torch.distributed.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllToAll.apply(grad, ctx.group), None
+
+
+class _Mean(torch.autograd.Function):
+    """The mean over the ranks of `group` of each one's x, on each; the
+    objective that uses it is the same on every rank and counts once, so
+    each rank's x gets 1/n of its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = torch.distributed.get_world_size(group)
+        out = x.clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out / ctx.n
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """x as it is, its gradient summed over the ranks of `group`: the
+    gradient of an input replicated over the group that each rank uses on
+    its own tokens (JAX's transpose of a replicated shard_map input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        torch.distributed.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def moe_shard_map(x, gate_w, expert_fn, expert_params, mesh,
+                  axis_name: str = "ep", k: int = 2,
+                  capacity_factor: float = 1.25):
+    """Experts split over the mesh dim `axis_name`, token buffers exchanged
+    with `all_to_all_single`: the counterpart of the JAX function's
+    shard_map with `lax.all_to_all`. DTensors in: x [T, D] split on T over
+    `axis_name`, gate_w [D, E] replicated, expert_params' leaves [E, ...]
+    split on E. Each rank routes its own tokens with a capacity from its T
+    (as the JAX shard does), by index (no [T, E, C] tensor); its [E, C, D]
+    buffer goes out as n parts of E/n experts each, every rank runs its
+    experts on the n * C tokens it received, and the outputs go back the
+    same way. -> (out [T, D] split like x, aux: the mean over the ranks of
+    their aux, replicated). gate_w's gradient is summed over the ranks,
+    each of which routed only its own tokens with it."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ray_tpu_torch.parallel.pipeline import _flatten
+
+    names = tuple(mesh.mesh_dim_names)
+    split = tuple(Shard(0) if n == axis_name else Replicate() for n in names)
+    replicated = tuple(Replicate() for _ in names)
+    group = mesh.get_group(axis_name)
+    n = mesh.size(names.index(axis_name))
+    n_exp = gate_w.shape[1]
+    if n_exp % n:
+        raise ValueError(f"{n_exp} experts do not split over {n} ranks")
+    leaves, rebuild = _flatten(expert_params)
+
+    def local(x_loc, gate_full, *param_leaves):
+        t, d = x_loc.shape
+        cap = capacity(t, n_exp, k, capacity_factor)
+        gate_full = _SumGrad.apply(gate_full, group)
+        buf, flat, r = _dispatch(x_loc, gate_full, k, cap)
+        e_loc = n_exp // n
+        # [E, C, D] -> [n(dst), E_loc, C, D] out; in: [n(src), E_loc, C, D]
+        got = _AllToAll.apply(buf.view(n, e_loc, cap, d), group)
+        got = got.transpose(0, 1).reshape(e_loc, n * cap, d)
+        out = expert_fn(rebuild(list(param_leaves)), got)
+        out = out.reshape(e_loc, n, cap, d).transpose(0, 1)
+        back = _AllToAll.apply(out, group).reshape(n_exp, cap, d)
+        y = _combine(back, flat, r, k).to(x_loc.dtype)
+        aux = _Mean.apply(r.aux, group)
+        return y, aux
+
+    fn = local_map(local, out_placements=(split, replicated),
+                   in_placements=(split, replicated) + (split,) * len(leaves),
+                   device_mesh=mesh)
+    return fn(x, gate_w, *leaves)

@@ -10,6 +10,8 @@ update. The moments are kept in the parameter's dtype, as optax keeps them.
 Where the JAX package returns new arrays (and donates the old ones), this
 updates parameters and moments in place, with PyTorch's multi-tensor
 (`_foreach`) operations, eagerly or as one compiled program (`updater`).
+Over DTensor parameters (the sharded step) each rank updates its local
+blocks eagerly and the global norm counts every block once.
 """
 
 from __future__ import annotations
@@ -40,12 +42,63 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def local_leaves(tree) -> List[torch.Tensor]:
+    """The leaves, each DTensor as its rank's local block (the tensor
+    itself, so an in-place update of it updates the DTensor)."""
+    with torch.no_grad():
+        return [x.to_local() if _is_dtensor(x) else x
+                for x in tree_leaves(tree)]
+
+
+def _first_replica(x) -> bool:
+    """Whether this rank holds the first copy of a DTensor's block:
+    coordinate 0 on every mesh dim (of size > 1) it is replicated on."""
+    from torch.distributed.tensor import Replicate
+
+    coord = x.device_mesh.get_coordinate()
+    return all(c == 0 for i, (c, p) in enumerate(zip(coord, x.placements))
+               if p == Replicate() and x.device_mesh.size(i) > 1)
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt(sum of squares) over every leaf, accumulated in fp32 on the
-    leaves' device: the counterpart of `optax.global_norm`."""
-    norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
-             for g in tree_leaves(grads)]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    leaves' device: the counterpart of `optax.global_norm`. Over DTensors
+    each block counts once: the first replica of a block adds its squares,
+    and one all-reduce over the gang sums them, so a replicated parameter
+    is not counted once per copy."""
+    leaves = tree_leaves(grads)
+    if not any(_is_dtensor(g) for g in leaves):
+        norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
+                 for g in leaves]
+        return torch.linalg.vector_norm(torch.stack(norms))
+    import torch.distributed as dist
+
+    local = local_leaves(grads)
+    squares = torch.stack([
+        torch.linalg.vector_norm(x, dtype=torch.float32) ** 2
+        if not _is_dtensor(g) or _first_replica(g) else
+        torch.zeros((), dtype=torch.float32, device=x.device)
+        for g, x in zip(leaves, local)]).sum()
+    dist.all_reduce(squares)
+    return torch.sqrt(squares)
+
+
+def _zeros_like(x):
+    """torch.zeros_like, for a DTensor made from its local block (no
+    sharding propagation, no communication)."""
+    if not _is_dtensor(x):
+        return torch.zeros_like(x)
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(torch.zeros_like(x.to_local()), x.device_mesh,
+                              x.placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 @dataclasses.dataclass
@@ -96,8 +149,10 @@ class AdamW:
     weight_decay: float = 1e-4
 
     def init(self, params) -> AdamWState:
-        return AdamWState(0, tree_map(torch.zeros_like, params),
-                          tree_map(torch.zeros_like, params))
+        """Zero moments in the parameters' structure; a DTensor
+        parameter's moments are DTensors in its placements."""
+        return AdamWState(0, tree_map(_zeros_like, params),
+                          tree_map(_zeros_like, params))
 
     def updater(self, backend: Optional[str] = None
                 ) -> Callable[[Any, AdamWState, Any], torch.Tensor]:
@@ -120,6 +175,20 @@ class AdamW:
         def update(grads, state: AdamWState, params) -> torch.Tensor:
             p, g = tree_leaves(params), tree_leaves(grads)
             state.count += 1
+            if any(_is_dtensor(x) for x in p):
+                if backend is not None:
+                    raise NotImplementedError(
+                        "the update of DTensor parameters runs eagerly: "
+                        "updater(None)")
+                # The update of each block is the update of the whole
+                # tensor's elements; only the norm needs the gang.
+                norm = global_norm(g)
+                p = local_leaves(p)
+                count = torch.full((), state.count, dtype=torch.float32,
+                                   device=p[0].device)
+                _adamw_(p, local_leaves(g), local_leaves(state.mu),
+                        local_leaves(state.nu), count, *hyper)
+                return norm
             count = torch.full((), state.count, dtype=torch.float32,
                                device=p[0].device)
             return fn(p, g, tree_leaves(state.mu), tree_leaves(state.nu),

@@ -1,7 +1,7 @@
-"""One-device training step: parameters, optimizer state and an AdamW step.
+"""Training step: parameters, optimizer state and an AdamW step.
 
-Counterpart of `ray_tpu/train/step.py` on one device (the mesh shardings
-of the JAX package are a later slice). The JAX step is one jitted program
+Counterpart of `ray_tpu/train/step.py`. On one device the JAX step is one
+jitted program
 that donates the state's buffers; here the step is two programs that
 `torch.compile` builds, with eager glue between them: the loss with its
 backward (AOTAutograd compiles the backward; the flash kernels are custom
@@ -20,7 +20,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.train.optim import AdamW, tree_leaves
+from ray_tpu_torch.train.optim import AdamW, _is_dtensor, tree_leaves
 
 
 @dataclasses.dataclass
@@ -31,16 +31,28 @@ class TrainState:
 
 
 def init_train_state(init_fn: Callable[[torch.device], Any],
-                     optimizer: AdamW, device=None) -> TrainState:
+                     optimizer: AdamW, device=None, *,
+                     param_logical_axes=None, mesh=None,
+                     rules=None) -> TrainState:
     """init_fn(device) -> params (e.g. functools.partial(llama.init, config,
     generator)); returns the state with fresh optimizer moments and step 0.
-    The device defaults to cuda and raises without it."""
+    The device defaults to cuda and raises without it.
+
+    With a mesh the parameters become DTensors in the shardings that
+    `param_logical_axes` and `rules` give them (init_fn must give every
+    rank the same values, as one seed does), and so do the moments."""
     dev = resolve_device(device)
     params = init_fn(dev)
     for leaf in tree_leaves(params):
         if leaf.device.type != dev.type:
             raise ValueError(f"init_fn put a parameter on {leaf.device}, "
                              f"not {dev}")
+    if mesh is not None:
+        if param_logical_axes is None:
+            raise ValueError("a sharded state needs param_logical_axes")
+        from ray_tpu_torch.parallel.sharding import shard_params
+
+        params = shard_params(params, param_logical_axes, mesh, rules)
     return TrainState(params, optimizer.init(params),
                       torch.zeros((), dtype=torch.int32, device=dev))
 
@@ -55,7 +67,8 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     its backward, and the norm and update, each one torch.compile program
     (fullgraph, static shapes) built by `backend` on the first step; a
     failure to compile raises. compiled=False runs the same functions
-    eagerly."""
+    eagerly, and is what a state of DTensors takes (the first step raises
+    otherwise)."""
     if compiled:
         loss_fn = torch.compile(loss_fn, backend=backend, fullgraph=True,
                                 dynamic=False)
@@ -63,6 +76,10 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         leaves = tree_leaves(state.params)
+        if compiled and any(_is_dtensor(p) for p in leaves):
+            raise NotImplementedError(
+                "the sharded step runs eagerly: make_train_step(..., "
+                "compiled=False)")
         for p in leaves:
             p.requires_grad_(True)
         try:

@@ -1,0 +1,182 @@
+"""The port's GPU glue on the CPU: the NVIDIA detector and per-rank
+binding (torch.cuda stubbed), the backend probe, the gang launcher's
+failure handling, and a rehearsal of chip_smoke.py's phase (l).
+
+Phase (l) runs here as the one-card branch does on the chip: (l-1) a
+world-1 gang (gloo in this process, where the card has NCCL) through the
+sharded code on a 1 x ... x 1 mesh against the unsharded step, and (l-2)
+`graft_entry.dryrun_multichip(4, device="cpu")` on 4 spawned gloo ranks.
+"""
+
+import multiprocessing
+import operator
+import time
+import types
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from ray_tpu_torch._private import backend_probe
+from ray_tpu_torch._private.accelerators import nvidia
+from ray_tpu_torch.train import backend
+
+
+def _stub_cards(monkeypatch, n, name="NVIDIA H100 80GB HBM3"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: n > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: types.SimpleNamespace(
+                            name=name, total_memory=85_000_000_000 + i))
+
+
+def test_detect_gpu_reads_every_card(monkeypatch):
+    _stub_cards(monkeypatch, 2)
+    info = nvidia.detect_gpu()
+    assert info == nvidia.GpuInfo(2, ("NVIDIA H100 80GB HBM3",) * 2,
+                                  (85_000_000_000, 85_000_000_001))
+    assert info.accelerator_type == "H100 SXM"
+    _stub_cards(monkeypatch, 0)
+    assert nvidia.detect_gpu() is None
+
+
+def test_apply_gpu_detection_merges_and_keeps_what_was_set(monkeypatch):
+    _stub_cards(monkeypatch, 4, "NVIDIA H100 PCIe")
+    resources, labels = {"CPU": 8.0}, {}
+    info = nvidia.apply_gpu_detection(resources, labels)
+    assert info.count == 4
+    assert resources == {"CPU": 8.0, "GPU": 4.0}
+    assert labels == {nvidia.ACCELERATOR_TYPE_LABEL: "H100 PCIe"}
+    resources, labels = {"GPU": 2.0}, {nvidia.ACCELERATOR_TYPE_LABEL: "x"}
+    nvidia.apply_gpu_detection(resources, labels)
+    assert resources == {"GPU": 2.0}
+    assert labels == {nvidia.ACCELERATOR_TYPE_LABEL: "x"}
+    # a card the peak table does not know keeps its own name
+    _stub_cards(monkeypatch, 1, "Some Other GPU")
+    labels = {}
+    nvidia.apply_gpu_detection({}, labels)
+    assert labels[nvidia.ACCELERATOR_TYPE_LABEL] == "Some Other GPU"
+    _stub_cards(monkeypatch, 0)
+    resources = {}
+    assert nvidia.apply_gpu_detection(resources, {}) is None
+    assert resources == {}
+
+
+def test_visible_devices_env_binds_a_rank_to_its_cards():
+    env = nvidia.visible_devices_env([3], {"PATH": "/bin"})
+    assert env == {"PATH": "/bin", "CUDA_VISIBLE_DEVICES": "3"}
+    assert nvidia.visible_devices_env([0, 2], {})["CUDA_VISIBLE_DEVICES"] \
+        == "0,2"
+    assert nvidia.visible_devices_env([], {})["CUDA_VISIBLE_DEVICES"] == ""
+
+
+def test_a_rank_binds_within_the_cards_its_parent_was_given(monkeypatch):
+    given = {"CUDA_VISIBLE_DEVICES": "4,5,6,7"}
+    assert nvidia.visible_devices_env([1], given)["CUDA_VISIBLE_DEVICES"] \
+        == "5"
+    assert nvidia.visible_devices_env([0, 3], given)[
+        "CUDA_VISIBLE_DEVICES"] == "4,7"
+    uuids = {"CUDA_VISIBLE_DEVICES": "GPU-a, GPU-b"}
+    assert nvidia.visible_devices_env([1], uuids)["CUDA_VISIBLE_DEVICES"] \
+        == "GPU-b"
+    with pytest.raises(RuntimeError, match="allotment of 4"):
+        nvidia.visible_devices_env([4], given)
+    # the launcher's per-rank environment, from its own process's
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "4,5,6,7")
+    assert backend._rank_env(1, "cuda") == {"CUDA_VISIBLE_DEVICES": "5"}
+    assert backend._rank_env(1, "cpu")["CUDA_VISIBLE_DEVICES"] == ""
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES")
+    assert backend._rank_env(1, "cuda") == {"CUDA_VISIBLE_DEVICES": "1"}
+
+
+def test_backend_probe_sees_no_card_here_and_cpu_env_hides_them(
+        monkeypatch):
+    assert backend_probe.cuda_device_count() == 0
+    monkeypatch.setattr(backend_probe, "cuda_device_count", lambda t: 3)
+    assert backend_probe.backend_alive(3) and not backend_probe.backend_alive(4)
+    env = backend_probe.force_cpu_env({"CUDA_VISIBLE_DEVICES": "0,1"})
+    assert env["CUDA_VISIBLE_DEVICES"] == "" and env["OMP_NUM_THREADS"] == "1"
+
+
+def test_torch_config_picks_nccl_for_cuda_and_gloo_for_cpu():
+    assert backend.TorchConfig().backend_for("cuda") == "nccl"
+    assert backend.TorchConfig().backend_for("cpu") == "gloo"
+    assert backend.TorchConfig(backend="gloo").backend_for("cuda") == "gloo"
+    with pytest.raises(ValueError):
+        backend.TorchConfig().backend_for("mps")
+
+
+def test_launch_gang_returns_in_rank_order_and_fails_fast():
+    assert backend.launch_gang(dist.get_rank, 3, "cpu", 120) == [0, 1, 2]
+    with pytest.raises(RuntimeError, match="ZeroDivisionError"):
+        backend.launch_gang(operator.truediv, 2, "cpu", 120, args=(1, 0))
+    assert not multiprocessing.active_children()
+
+
+def test_a_hung_gang_fails_its_call_within_the_timeout():
+    t0 = time.perf_counter()
+    with pytest.raises(TimeoutError, match="did not finish"):
+        backend.launch_gang(time.sleep, 2, "cpu", timeout_s=10, args=(600,))
+    assert time.perf_counter() - t0 < 60
+    assert not multiprocessing.active_children()
+
+
+def test_launch_gang_on_cuda_needs_a_card_per_rank():
+    with pytest.raises(RuntimeError, match="needs 2 CUDA cards"):
+        backend.launch_gang(dist.get_rank, 2, "cuda", 30)
+
+
+def test_initialize_distributed_is_idempotent_for_one_binding(tmp_path):
+    from ray_tpu_torch.parallel.mesh import initialize_distributed
+
+    method = f"file://{tmp_path}/store"
+    try:
+        assert initialize_distributed(method, 1, 0, "cpu").type == "cpu"
+        assert initialize_distributed(method, 1, 0, "cpu").type == "cpu"
+        assert dist.get_world_size() == 1
+        with pytest.raises(RuntimeError, match="already in"):
+            backend.init_process_group(0, 1, method, "cpu")
+    finally:
+        backend.destroy_process_group()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="NCCL rank needs a CUDA card"):
+        backend.init_process_group(0, 1, method, "cuda")
+
+
+def test_chip_smoke_phase_l_rehearsed_on_the_cpu(monkeypatch, capsys,
+                                                 tmp_path, request):
+    """chip_smoke.py's phase (l) on a one-card machine, at tiny sizes on the
+    CPU with the card stubbed and the kernels counted (as
+    tests/test_torch_flash_sm90.py rehearses main()): (l-1)'s checks (the
+    world-1 sharded step equal to the unsharded one, 2L / L / L launches a
+    step) and (l-2)'s 4-rank CPU dry run, which says so."""
+    from test_torch_flash_sm90 import rehearse_on_the_cpu
+
+    t0 = time.perf_counter()
+    smoke = rehearse_on_the_cpu(monkeypatch, tmp_path, request)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(smoke, "bench_config", smoke.tiny_train_config)
+    monkeypatch.setattr(smoke, "TRAIN_ATTN", (2, 64, 64, 4, 2, 32, True))
+    counts = smoke.phase_spmd()
+    assert not dist.is_initialized()
+    lines = capsys.readouterr().out.strip().splitlines()
+    for text in ("[l] 1 GPU(s) visible: (l-1), then (l-2)",
+                 "[l-1] tiny fp32, world-1 mesh, 3 steps",
+                 "[l-1] bench config (B=2 S=64",
+                 "[l-2] this machine has 1 GPU(s); the 4-rank dry run runs "
+                 "on CPU ranks", "[l] launches on the SPMD path"):
+        assert any(line.startswith(text) for line in lines), text
+    dry = [line for line in lines if line.startswith("[dryrun")]
+    assert len(dry) == 8 and all(
+        line.startswith("[dryrun cpu-ranks: 4 gloo CPU ranks, no GPU]")
+        for line in dry)
+    assert "ring over sp=2" in "".join(dry)
+    assert "tp=2 paged decode OK" in dry[-2]
+    layers = smoke.tiny_train_config().n_layers
+    # (l-1)'s sharded steps: 3 of the tiny config and 3 of the bench
+    # config (tiny here), 2L / L / L each; the unsharded steps they are
+    # held to do not count.
+    assert counts == {"flash_fwd": 6 * 2 * layers,
+                      "flash_bwd_dq": 6 * layers,
+                      "flash_bwd_dkv": 6 * layers}
+    assert time.perf_counter() - t0 < 60

@@ -333,6 +333,25 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
         return smoke.kernel_counts()
 
     monkeypatch.setattr(smoke, "phase_zoo", zoo)
+
+    def spmd(eager_first=None):
+        smoke.reset_kernel_counts()
+        cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=64),
+                                  dtype=torch.float32)
+        params = llama.init(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = llama.loss_fn(params, {"tokens": torch.arange(34).view(
+            2, 17)}, cfg)
+        torch.autograd.grad(loss, leaves)
+        smoke.log("[l] one tiny Llama step in place of phase (l)")
+        return smoke.kernel_counts()
+
+    # (l), the SPMD path, is rehearsed on its own by
+    # tests/test_torch_accelerators.py.
+    monkeypatch.setattr(smoke, "phase_spmd", spmd)
     # The bench at (h-2)'s batch, as on the card.
     from ray_tpu_torch import bench
     monkeypatch.setattr(bench, "CPU_BATCH", 2)
@@ -397,7 +416,7 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     lines = capsys.readouterr().out.strip().splitlines()
     for tag in ("[a]", "[b]", "[c]", "[f]", "[g]", "[d]", "[d+e]", "[h]",
                 "[i-1]", "[i-2]", "[i-3]", "[i-4]", "[i]", "[h-2]",
-                "[bench]", "[j]", "[k]"):
+                "[bench]", "[j]", "[k]", "[l]"):
         assert any(line.startswith(tag) for line in lines), tag
     for text in ("[e] _decode_attention", "[e] _cached_attention",
                  "token blocks identical True", "[e] decode step, former",
@@ -442,8 +461,9 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert by_path[name] == {"serve": 0, "train": 13 * layers,
                                  "train_compiled": 30 * layers,
-                                 "mixtral": 2}
+                                 "mixtral": 2, "spmd": 2}
     assert by_path["flash_fwd"]["mixtral"] == 4  # 2 layers under "dots"
+    assert by_path["flash_fwd"]["spmd"] == 4
     assert by_path["flash_fwd"]["serve"] >= 2 * layers
     assert [k["launches"] for k in kernels] == [
         sum(by_path[k["name"]].values()) for k in kernels]

@@ -67,7 +67,13 @@ def test_importing_the_port_loads_no_jax():
             "ray_tpu_torch._private.device_profiler, ray_tpu_torch.bench, "
             "ray_tpu_torch.graft_entry, ray_tpu_torch.parallel.moe, "
             "ray_tpu_torch.models.mixtral, ray_tpu_torch.models.vit, "
-            "ray_tpu_torch.models.t5, ray_tpu_torch.models.mlp; "
+            "ray_tpu_torch.models.t5, ray_tpu_torch.models.mlp, "
+            "ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding, "
+            "ray_tpu_torch.parallel.ring_attention, "
+            "ray_tpu_torch.parallel.pipeline, "
+            "ray_tpu_torch.parallel.gang_cases, ray_tpu_torch.train.backend, "
+            "ray_tpu_torch.train.spmd, ray_tpu_torch.train.spmd_bench, "
+            "ray_tpu_torch._private.backend_probe; "
             "print(sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
