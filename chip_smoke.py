@@ -115,7 +115,22 @@ Phases, in order; any failure raises and the script exits non-zero:
       1e-2), and Llama-3-8B at its full 32
       layers over fsdp=4 (B=8 S=2048, 3 steps). `--only l` runs (l) alone
       after (a); `python3 chip_smoke.py --only l` on a host with four
-      cards is the four-card run.
+      cards is the four-card run;
+  (m) RLlib's one-process path (`ray_tpu_torch.rllib`), fp32 with TF32
+      off: (m-1) the Nature-CNN actor-critic at full width on a seeded
+      [128, 84, 84, 4] uint8 minibatch, `forward_train` and one PPO update
+      (PPO's defaults) on the card against the same state on the CPU
+      (loss, metrics, gradients, parameters after the step), and the
+      update's time against its bound; (m-2) one update of every ported
+      learner (PPO, DQN, CQL, MARWIL, SAC with the same noise, the V-trace
+      update) on the card against the CPU; (m-3) PPO on the port's
+      CartPole under tests/test_rllib.py's settings (best return above 60
+      within 15 iterations), two iterations at PPO's defaults on the 84x84
+      synthetic image env with the Nature CNN (env-steps/s, updates/s,
+      seconds sampling and learning, peak memory) and
+      `benchmark_env_steps` (8 envs, 256 steps). Its numbers are printed
+      beside the card's name and power limit. `--only m` runs (m) alone
+      after (a). It launches none of the flash kernels.
 
 The launch counts are set to 0 just before each main path (serving: (d)
 and (e); paged serving: (i), which runs no flash kernel; training: (h);
@@ -2332,6 +2347,381 @@ def phase_spmd(eager_first=None):
     return launches
 
 
+# -- (m) RLlib's one-process path ---------------------------------------------
+
+# (m-1): the Nature CNN (ConvActorCriticModule's defaults) on
+# make_atari_env's frames, one minibatch of PPO's defaults
+# (minibatch_size 128, lr 5e-5).
+RL_OBS_SHAPE = (84, 84, 4)
+RL_NUM_ACTIONS = 6
+RL_MINIBATCH = 128
+RL_TIMED_UPDATES = 20
+# The card against the CPU in fp32 with TF32 off (main() turns it off for
+# cuBLAS and cuDNN; the port flips no flag itself): losses, metrics and
+# outputs |a - b| <= RL_ATOL + RL_RTOL * |b|; gradients within RL_GRAD_TOL
+# of their tensor's largest; parameters after an update within
+# RL_PARAM_TOL of their tensor's largest, except where the CPU's gradient
+# is under RL_TINY_GRAD of its tensor's largest: Adam's first step there
+# is lr * g / (|g| + 1e-8), whose sign is rounding.
+RL_ATOL, RL_RTOL = 1e-5, 1e-4
+RL_GRAD_TOL = 1e-4
+RL_PARAM_TOL = 1e-5
+RL_TINY_GRAD = 1e-6
+# (m-3): PPO on CartPole under tests/test_rllib.py's settings, its best
+# return over `iterations` above `target`; PPO at its defaults on the
+# synthetic image env at 84x84 with `num_envs` envs (`training` overrides
+# only in a rehearsal); benchmark_env_steps with the Nature CNN.
+RL_CARTPOLE = dict(iterations=15, target=60.0)
+RL_IMAGE = dict(size=84, num_envs=8, iterations=2, training={})
+RL_BENCH = dict(num_envs=8, steps=256)
+
+
+def rl_close(tag, got, want):
+    """Metrics or outputs (dicts of floats, arrays or tensors) of the card
+    against the CPU's; -> the largest absolute difference."""
+    worst = 0.0
+    for k, w in want.items():
+        a = np.asarray(got[k].detach().cpu() if torch.is_tensor(got[k])
+                       else got[k], np.float64)
+        b = np.asarray(w.detach().cpu() if torch.is_tensor(w) else w,
+                       np.float64)
+        err = float(np.max(np.abs(a - b))) if a.size else 0.0
+        check(a.shape == b.shape and bool(np.all(
+            np.abs(a - b) <= RL_ATOL + RL_RTOL * np.abs(b))),
+            f"{tag} {k}: card {a.ravel()[:4]} vs cpu {b.ravel()[:4]}")
+        worst = max(worst, err)
+    return worst
+
+
+def rl_pair(make):
+    """The learner built on the card and on the CPU from one seed: the same
+    weights (drawn on the CPU) on both."""
+    pair = {"card": make(DEVICE), "cpu": make("cpu")}
+    for (n, p), (_, q) in zip(pair["card"].module.named_parameters(),
+                              pair["cpu"].module.named_parameters()):
+        check(torch.equal(p.detach().cpu(), q.detach()), f"init of {n}")
+    return pair
+
+
+def rl_loss(learner, batch, noise=None):
+    """(loss, metrics) of the learner on a numpy batch (SAC: with its
+    noise)."""
+    if noise is None:
+        return learner.compute_metrics(batch)
+    from ray_tpu_torch.rllib.learner import batch_to_device
+
+    eps = [torch.from_numpy(n).to(learner.device) for n in noise]
+    loss, metrics = learner.losses(batch_to_device(batch, learner.device),
+                                   *eps)
+    return loss, dict(metrics, total_loss=loss)
+
+
+def rl_update_check(tag, make, batch, noise=None):
+    """One update on the card against the CPU from the same state and
+    batch: loss, metrics and gradients first, then the update's metrics
+    and the parameters after it. -> largest difference of the outputs."""
+    pair = rl_pair(make)
+    grads, first = {}, {}
+    for side, learner in pair.items():
+        params = list(learner.module.parameters())
+        loss, first[side] = rl_loss(learner, batch, noise)
+        g = torch.autograd.grad(loss, params, allow_unused=True)
+        grads[side] = [torch.zeros_like(p) if x is None else x.detach()
+                       for p, x in zip(params, g)]
+    worst = rl_close(f"{tag} loss", first["card"], first["cpu"])
+    names = [n for n, _ in pair["cpu"].module.named_parameters()]
+    for n, a, b in zip(names, grads["card"], grads["cpu"]):
+        scale = float(b.abs().max()) or 1.0
+        check(float((a.cpu() - b).abs().max()) <= RL_GRAD_TOL * scale,
+              f"{tag} gradient of {n}")
+    kw = {} if noise is None else {"noise": noise}
+    out = {side: l.update_from_batch(batch, **kw) for side, l in pair.items()}
+    worst = max(worst, rl_close(f"{tag} update", out["card"], out["cpu"]))
+    signs = {}
+    for (n, p), (_, q), g in zip(pair["card"].module.named_parameters(),
+                                 pair["cpu"].module.named_parameters(),
+                                 grads["cpu"]):
+        diff = (p.detach().cpu() - q.detach()).abs()
+        bad = diff > RL_PARAM_TOL * float(q.detach().abs().max())
+        tiny = g.abs() <= RL_TINY_GRAD * float(g.abs().max())
+        check(not bool((bad & ~tiny).any()),
+              f"{tag} parameter {n} after the update: "
+              f"{float(diff.max()):.3e}")
+        if bool((bad & tiny).any()):
+            signs[n] = f"{int((bad & tiny).sum())} of {q.numel()}"
+    log(f"[m] {tag}: card vs cpu, largest difference {worst:.3e}; "
+        f"parameter entries off by Adam's sign step (gradient under "
+        f"{RL_TINY_GRAD:g} of its tensor's largest): {signs or 'none'}")
+    return worst
+
+
+def profile_rl(fn, n):
+    """fn() n times under torch.profiler -> (wall ms a call, device-busy ms
+    a call, [(CPU operator, device ms a call)] largest first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    ops = sorted(((e.key, e.self_device_time_total / 1e3 / n) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.self_device_time_total > 0), key=lambda o: -o[1])
+    return wall, busy, ops
+
+
+def log_profile(tag, what, wall, busy, ops, top=6):
+    log(f"{tag} {what} under torch.profiler: {wall:.4f} ms wall, "
+        f"{busy:.4f} ms device busy (idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}); device ms by operator: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ops[:top]))
+
+
+def conv_flops(module, batch):
+    """Forward FLOPs of the conv actor-critic on `batch` observations."""
+    h, w, c = module.obs_shape
+    flops = 0
+    for out_ch, k, s in module.conv_filters:
+        h, w = (h - k) // s + 1, (w - k) // s + 1
+        flops += 2 * h * w * out_ch * k * k * c
+        c = out_ch
+    for layer in [*module.torso, module.pi, module.vf]:
+        flops += 2 * layer.in_features * layer.out_features
+    return batch * flops
+
+
+def phase_rl_module(card):
+    """(m-1) The Nature CNN at full width: forward_train and one PPO update
+    on a seeded [RL_MINIBATCH, 84, 84, 4] uint8 minibatch, the card against
+    the CPU from the same state; then the update's time on the card
+    against its bound and the plain forward."""
+    from ray_tpu_torch._private.accelerators.nvidia import (
+        fp32_peak_flops_per_device)
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
+    from ray_tpu_torch.rllib.learner import batch_to_device
+
+    spec = {"module_class":
+            "ray_tpu_torch.rllib.rl_module:ConvActorCriticModule",
+            "obs_shape": RL_OBS_SHAPE, "num_actions": RL_NUM_ACTIONS}
+    config = {"lr": 5e-5, "seed": 0}  # PPO's defaults
+    rng = np.random.default_rng(11)
+    n = RL_MINIBATCH
+    batch = {"obs": rng.integers(0, 256, (n, *RL_OBS_SHAPE), dtype=np.uint8),
+             "actions": rng.integers(0, RL_NUM_ACTIONS, n).astype(np.int32),
+             "logp": (-np.log(RL_NUM_ACTIONS)
+                      + 0.1 * rng.standard_normal(n)).astype(np.float32),
+             "advantages": rng.standard_normal(n).astype(np.float32),
+             "value_targets": rng.standard_normal(n).astype(np.float32)}
+
+    def make(dev):
+        return PPOLearner(spec, dict(config, device=dev))
+
+    pair = rl_pair(make)
+    outs = {}
+    for side, learner in pair.items():
+        with torch.no_grad():
+            outs[side] = learner.module.forward_train(
+                batch_to_device(batch, learner.device))
+    err = rl_close("(m-1) forward_train", outs["card"], outs["cpu"])
+    err = max(err, rl_update_check("(m-1) PPO update, Nature CNN", make,
+                                   batch))
+
+    learner = make(DEVICE)
+    dev_batch = batch_to_device(batch, learner.device)
+
+    def forward():
+        with torch.no_grad():
+            learner.module.forward_train(dev_batch)
+
+    def update_device_batch():
+        loss, _ = learner.loss_fn(dev_batch)
+        learner.apply_gradients(loss)
+
+    fwd_ms = cuda_ms(forward, iters=RL_TIMED_UPDATES)
+    upd_ms = cuda_ms(update_device_batch, iters=RL_TIMED_UPDATES)
+    loop_ms = cuda_ms(lambda: learner.update_from_batch(batch),
+                      iters=RL_TIMED_UPDATES)
+    log_profile(f"[m-1] ({card})", "the PPO update on a device batch",
+                *profile_rl(update_device_batch, 5))
+    # What a process that keeps torch's default gets: cuDNN convolutions
+    # in TF32 (matrix products stay fp32).
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_ms = cuda_ms(update_device_batch, iters=RL_TIMED_UPDATES)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    params = sum(p.numel() for p in learner.module.parameters())
+    flops = 3 * conv_flops(learner.module, n)  # forward + backward
+    nbytes = sum(v.nbytes for v in batch.values()) + 8 * 4 * params
+    fp32 = fp32_peak_flops_per_device(torch.cuda.get_device_name(0))
+    bound_ms = max(flops / fp32, nbytes / PEAKS[1]) * 1e3
+    log(f"[m-1] ({card}) Nature CNN {RL_OBS_SHAPE} uint8, {params / 1e6:.3f}"
+        f" M params, B={n}, fp32 (TF32 off): forward_train {fwd_ms:.4f} ms;"
+        f" PPO update (loss, backward, Adam) on a device batch "
+        f"{upd_ms:.4f} ms, from the numpy minibatch as the loop calls it "
+        f"(copy in, metrics out) {loop_ms:.4f} ms, with torch's default "
+        f"TF32 convolutions {tf32_ms:.4f} ms; bound {bound_ms:.4f} ms "
+        f"({flops / 1e9:.2f} GFLOP at {fp32 / 1e12:.0f} TFLOP/s fp32); "
+        f"largest card-vs-cpu difference {err:.3e}")
+    return {"forward_ms": fwd_ms, "update_ms": upd_ms,
+            "update_from_numpy_ms": loop_ms, "update_tf32_conv_ms": tf32_ms,
+            "bound_ms": bound_ms,
+            "max_abs_err": err}
+
+
+def phase_rl_learners(card):
+    """(m-2) One update of every ported learner on the card against the
+    CPU, from the same state and batch, at its algorithm's default batch
+    and widths (CartPole's and Pendulum's spaces)."""
+    from ray_tpu_torch.rllib.algorithms import cql, dqn, impala, marwil, ppo
+    from ray_tpu_torch.rllib.algorithms import sac
+
+    rng = np.random.default_rng(12)
+
+    def f32(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    mlp = {"obs_dim": 4, "num_actions": 2, "hiddens": (64, 64)}
+    q = {"obs_dim": 4, "num_actions": 2, "hiddens": (64, 64)}
+
+    def q_batch(n):
+        return {"obs": f32(n, 4), "next_obs": f32(n, 4),
+                "actions": rng.integers(0, 2, n).astype(np.int32),
+                "rewards": f32(n),
+                "terminateds": (rng.random(n) < 0.1).astype(np.float32)}
+
+    b, t = 4, 50
+    mask = np.ones((b, t), np.float32)
+    mask[-1, 20:] = 0
+    terms = (rng.random((b, t)) < 0.05).astype(np.float32)
+    terms[:, -1] = 1
+    cases = {
+        "PPO (grad_clip 0.5)": (
+            lambda d: ppo.PPOLearner(mlp, {"lr": 5e-5, "grad_clip": 0.5,
+                                           "seed": 1, "device": d}),
+            {"obs": f32(128, 4), "actions": rng.integers(0, 2, 128),
+             "logp": np.full(128, -0.69, np.float32), "advantages": f32(128),
+             "value_targets": f32(128)}, None),
+        "DQN": (lambda d: dqn.DQNLearner(q, {"lr": 5e-4, "seed": 2,
+                                             "device": d}), q_batch(32), None),
+        "CQL": (lambda d: cql.CQLLearner(q, {"lr": 5e-4, "seed": 3,
+                                             "device": d}),
+                q_batch(256), None),
+        "MARWIL": (lambda d: marwil.MARWILLearner(mlp, {
+            "lr": 1e-3, "seed": 4, "device": d}),
+            {"obs": f32(256, 4), "actions": rng.integers(0, 2, 256),
+             "returns": 10 * rng.random(256).astype(np.float32)}, None),
+        "SAC": (lambda d: sac.SACLearner(3, 1, (256, 256), {
+            "lr": 3e-4, "seed": 5, "device": d}),
+            {"obs": f32(256, 3), "next_obs": f32(256, 3),
+             "actions": np.tanh(f32(256, 1)), "rewards": f32(256),
+             "terminateds": np.zeros(256, np.float32)},
+            (f32(256, 1), f32(256, 1))),
+        "V-trace": (lambda d: impala.VTraceLearner(mlp, {
+            "lr": 5e-4, "seed": 6, "device": d}),
+            {"obs": f32(b, t, 4), "actions": rng.integers(0, 2, (b, t)),
+             "rewards": f32(b, t), "logp": np.full((b, t), -0.69,
+                                                   np.float32),
+             "terminateds": terms, "mask": mask,
+             "bootstrap_value": f32(b)}, None),
+    }
+    errs = {}
+    for name, (make, batch, noise) in cases.items():
+        errs[name] = rl_update_check(f"(m-2) {name}", make, batch, noise)
+    log(f"[m-2] ({card}) every learner's update on the card matches the "
+        f"CPU's: {errs}")
+    return errs
+
+
+def phase_rl_loop(card):
+    """(m-3) PPO end to end on the card: CartPole under the JAX test's
+    settings (best return above the target), two iterations at PPO's
+    defaults on the 84x84 synthetic image env with the Nature CNN, and
+    benchmark_env_steps."""
+    from ray_tpu_torch.rllib.algorithms import PPOConfig
+    from ray_tpu_torch.rllib.benchmarks import benchmark_env_steps
+    from ray_tpu_torch.rllib.envs import SYNTHETIC_ENV_ID
+
+    t0 = time.perf_counter()
+    algo = (PPOConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=0, num_envs_per_env_runner=4,
+                         rollout_fragment_length=128)
+            .training(lr=1e-3, train_batch_size=1024, minibatch_size=256,
+                      num_epochs=8, entropy_coeff=0.01)
+            .debugging(seed=0).resources(device=DEVICE)).build()
+    returns = []
+    for _ in range(RL_CARTPOLE["iterations"]):
+        returns.append(algo.train().get("episode_return_mean", 0.0))
+    algo.stop()
+    first = next((r for r in returns if r > 0), 0.0)
+    log(f"[m-3] ({card}) PPO CartPole-v1 on the card: episode_return_mean "
+        f"by iteration {[round(r, 1) for r in returns]}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(max(returns) > RL_CARTPOLE["target"] and max(returns) > first,
+          f"PPO did not learn CartPole: best {max(returns):.1f}")
+
+    torch.cuda.reset_peak_memory_stats()
+    algo = (PPOConfig().environment(SYNTHETIC_ENV_ID,
+                                    env_config={"size": RL_IMAGE["size"]})
+            .env_runners(num_env_runners=0,
+                         num_envs_per_env_runner=RL_IMAGE["num_envs"])
+            .training(**RL_IMAGE["training"])
+            .debugging(seed=0).resources(device=DEVICE)).build()
+    image = []
+    for i in range(RL_IMAGE["iterations"]):
+        r = algo.train()
+        check(all(np.isfinite(r[k]) for k in ("total_loss", "policy_loss",
+                                              "vf_loss", "entropy")),
+              f"PPO image iteration {i}: {r}")
+        row = {"env_steps_per_s": r["num_env_steps_sampled"]
+               / r["sample_seconds"],
+               "updates_per_s": r["num_learner_updates"] / r["learn_seconds"],
+               "sample_s": r["sample_seconds"], "learn_s": r["learn_seconds"],
+               "episode_return_mean": r.get("episode_return_mean")}
+        image.append(row)
+        log(f"[m-3] ({card}) PPO synthetic {RL_IMAGE['size']}x"
+            f"{RL_IMAGE['size']} image env, Nature CNN, PPO defaults, "
+            f"{RL_IMAGE['num_envs']} envs, iteration {i + 1}: "
+            f"{r['num_env_steps_sampled']} env steps in "
+            f"{r['sample_seconds']:.3f} s sampling "
+            f"({row['env_steps_per_s']:.1f} env-steps/s), "
+            f"{r['num_learner_updates']} updates in {r['learn_seconds']:.3f} s"
+            f" learning ({row['updates_per_s']:.1f} updates/s), return "
+            f"{row['episode_return_mean']}")
+    runner = algo.env_runner_group.local
+    wall, busy, ops = profile_rl(lambda: runner.sample(num_steps=16), 2)
+    log_profile(f"[m-3] ({card})", "16 vector steps of the image run's "
+                f"runner ({RL_IMAGE['num_envs']} envs)", wall, busy, ops)
+    algo.stop()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[m-3] ({card}) peak device memory of the image run {peak:.3f} GiB")
+    bench = benchmark_env_steps(
+        SYNTHETIC_ENV_ID, env_config={"size": RL_IMAGE["size"]},
+        conv_filters=((32, 8, 4), (64, 4, 2), (64, 3, 1)), hiddens=(512,),
+        device=DEVICE, **RL_BENCH)
+    log(f"[m-3] ({card}) benchmark_env_steps: {json.dumps(bench)}")
+    return {"cartpole_returns": returns, "image": image,
+            "image_peak_gib": peak, "env_steps_per_s": bench["value"]}
+
+
+def phase_rl(card):
+    """(m) RLlib's one-process path: (m-1), (m-2), (m-3)."""
+    t0 = time.perf_counter()
+    out = {"module": phase_rl_module(card),
+           "learners": phase_rl_learners(card),
+           "loop": phase_rl_loop(card)}
+    log(f"[m] RLlib's one-process path: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2345,9 +2735,10 @@ def main(argv=()) -> int:
 
     parser = argparse.ArgumentParser(description="Drive ray_tpu_torch on the "
                                      "card(s); see the module docstring.")
-    parser.add_argument("--only", choices=("l",), default=None,
-                        help="run phase (l), the SPMD path, alone (after the "
-                        "kernel build); with 4 cards its 4-card part")
+    parser.add_argument("--only", choices=("l", "m"), default=None,
+                        help="run phase (l), the SPMD path (with 4 cards its "
+                        "4-card part), or (m), RLlib's one-process path, "
+                        "alone after the kernel build")
     args = parser.parse_args(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2376,6 +2767,18 @@ def main(argv=()) -> int:
         log(f"[l] {time.perf_counter() - t_start:.1f} s in all")
         print(card)
         print(json.dumps({"spmd_launches": spmd}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": info["platform"], "kind": info["kind"],
+            "count": info["count"]}}))
+        return 0
+    if args.only == "m":
+        reset_kernel_counts()
+        rl = phase_rl(card)
+        log(f"[m] launches of the flash kernels on the RL path: "
+            f"{kernel_counts()} (it runs none); "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        print(card)
+        print(json.dumps({"rl": rl}))
         print(json.dumps({"ok": True, "device": {
             "platform": info["platform"], "kind": info["kind"],
             "count": info["count"]}}))
@@ -2446,7 +2849,14 @@ def main(argv=()) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     spmd = phase_spmd(eager["first"])
-    log(f"[l] {time.perf_counter() - t_start:.1f} s in all")
+    log(f"[l] {time.perf_counter() - t_start:.1f} s so far")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_kernel_counts()
+    phase_rl(card)
+    log(f"[m] launches of the flash kernels on the RL path: "
+        f"{kernel_counts()} (it runs none); "
+        f"{time.perf_counter() - t_start:.1f} s in all")
 
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu", 45),
                "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu", 151),

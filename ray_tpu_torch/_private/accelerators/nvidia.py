@@ -45,6 +45,16 @@ def peaks(name: str) -> Tuple[float, float]:
     return _PEAKS[_part(name)]
 
 
+# part -> dense fp32 FLOP/s outside the tensor cores (no TF32)
+_FP32_PEAKS = {"H100 SXM": 67e12, "H100 PCIe": 51e12, "H100 NVL": 60e12}
+
+
+def fp32_peak_flops_per_device(name: str) -> float:
+    """fp32 peak of the named card without the tensor cores, for work that
+    runs in full fp32 (TF32 off): H100 SXM 67e12, PCIe 51e12, NVL 60e12."""
+    return _FP32_PEAKS[_part(name)]
+
+
 def bf16_peak_flops_per_device(name: str) -> float:
     """Dense bf16 peak of the card named `name`
     (`torch.cuda.get_device_name`): H100 SXM 989e12, PCIe 756e12, NVL

@@ -352,6 +352,10 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     # (l), the SPMD path, is rehearsed on its own by
     # tests/test_torch_accelerators.py.
     monkeypatch.setattr(smoke, "phase_spmd", spmd)
+    # (m), RLlib's path, is rehearsed on its own by
+    # tests/test_torch_rl_algorithms.py.
+    monkeypatch.setattr(smoke, "phase_rl", lambda card: smoke.log(
+        "[m] rehearsed by tests/test_torch_rl_algorithms.py"))
     # The bench at (h-2)'s batch, as on the card.
     from ray_tpu_torch import bench
     monkeypatch.setattr(bench, "CPU_BATCH", 2)
@@ -416,7 +420,7 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     lines = capsys.readouterr().out.strip().splitlines()
     for tag in ("[a]", "[b]", "[c]", "[f]", "[g]", "[d]", "[d+e]", "[h]",
                 "[i-1]", "[i-2]", "[i-3]", "[i-4]", "[i]", "[h-2]",
-                "[bench]", "[j]", "[k]", "[l]"):
+                "[bench]", "[j]", "[k]", "[l]", "[m]"):
         assert any(line.startswith(tag) for line in lines), tag
     for text in ("[e] _decode_attention", "[e] _cached_attention",
                  "token blocks identical True", "[e] decode step, former",

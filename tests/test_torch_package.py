@@ -73,7 +73,14 @@ def test_importing_the_port_loads_no_jax():
             "ray_tpu_torch.parallel.pipeline, "
             "ray_tpu_torch.parallel.gang_cases, ray_tpu_torch.train.backend, "
             "ray_tpu_torch.train.spmd, ray_tpu_torch.train.spmd_bench, "
-            "ray_tpu_torch._private.backend_probe; "
+            "ray_tpu_torch._private.backend_probe, ray_tpu_torch.rllib, "
+            "ray_tpu_torch.rllib.rl_module, ray_tpu_torch.rllib.convert, "
+            "ray_tpu_torch.rllib.envs, ray_tpu_torch.rllib.learner, "
+            "ray_tpu_torch.rllib.env_runner, ray_tpu_torch.rllib.catalog, "
+            "ray_tpu_torch.rllib.exploration, ray_tpu_torch.rllib.callbacks, "
+            "ray_tpu_torch.rllib.offline, ray_tpu_torch.rllib.algorithms, "
+            "ray_tpu_torch.rllib.algorithms.registry, "
+            "ray_tpu_torch.rllib.benchmarks; "
             "print(sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
