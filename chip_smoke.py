@@ -130,15 +130,38 @@ Phases, in order; any failure raises and the script exits non-zero:
       seconds sampling and learning, peak memory) and
       `benchmark_env_steps` (8 envs, 256 steps). Its numbers are printed
       beside the card's name and power limit. `--only m` runs (m) alone
-      after (a). It launches none of the flash kernels.
+      after (a). It launches none of the flash kernels;
+  (n) the data plane (`ray_tpu_torch.data`, `_private.serialization`):
+      (n-1) (h-2)'s compiled step at the bench configuration (B=4, S=2048,
+      "dots") fed 12 seeded numpy token batches by `iter_device_batches`,
+      in turns with resident device batches of the same tokens: at prefetch
+      1 and 0, every yielded batch equal to its source bit for bit (read
+      back after the step consumed it), the first step's loss identical
+      to the resident runs' and the rest within 1e-4 (the compiled step's
+      own run-to-run drift is ~1e-5), 2L / L / L launches a step, step ms
+      fed against resident and overlap_frac; (n-2) ViT-B/16 (B=32, bf16,
+      eager) fed uint8 [32, 224, 224, 3] random crops and flips of a seeded
+      image pool made on the host, cast on the card inside the step: 10
+      steps at prefetch 1 and 0 in which the loss falls, step ms against
+      resident batches,
+      overlap_frac, produce_s, wait_s and the feed's host-to-device GB/s
+      from a profiled run; then 200 batches whose bytes are their index,
+      each checked on the card after a long kernel on the consumer's
+      stream (a stream race shows as a wrong byte); (n-3) serialize / deserialize round trips of
+      CUDA tensors (fp32, bf16, int64, bool, 0-d, empty, non-contiguous)
+      exact on cuda:0 with one typed put and get each, the host buffer
+      overwritten and freed after the get, and `dataplane_bench`'s JSON
+      line. Its numbers are printed beside the card's name and power
+      limit. `--only n` runs (n) alone after (a).
 
 The launch counts are set to 0 just before each main path (serving: (d)
 and (e); paged serving: (i), which runs no flash kernel; training: (h);
-compiled training: (h-2); Mixtral: (k-1) and (k-2); the SPMD path: (l))
-and read just after it. The last three lines of
-stdout are the card's `nvidia-smi` name and power limit, one JSON object on
-the kernels, and `{"ok": true, "device": ...}`. Without CUDA, or without
-the repository beside it, it exits non-zero and prints no result.
+compiled training: (h-2); Mixtral: (k-1) and (k-2); the SPMD path: (l);
+the fed training path: (n-1)'s fed runs) and read just after it. The last
+three lines of stdout are the card's `nvidia-smi` name and power limit, one
+JSON object on the kernels, and `{"ok": true, "device": ...}`. Without
+CUDA, or without the repository beside it, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -2722,6 +2745,367 @@ def phase_rl(card):
     return out
 
 
+# -- (n) ---------------------------------------------------------------------
+
+# (n-1): the compiled Llama step at the bench configuration fed by the feed.
+FEED_STEPS = 12
+FEED_PREFETCH = 1
+# The compiled step is not bit-for-bit repeatable from the same state and
+# batches: two runs drift apart from the fourth step on (~1e-5 relative by
+# the twelfth; scatter-adds of the gradient accumulate in no fixed order).
+# The first step's loss is compared exactly, the rest to this.
+FEED_LOSS_REL_TOL = 1e-4
+# (n-2): ViT-B/16 fed uint8 crops of a pool of source images (labels from 10
+# classes, so the loss falls as the head learns them), and the stream race.
+VIT_FEED_STEPS = 10
+VIT_FEED_POOL = 64
+VIT_FEED_SOURCE = 256
+VIT_FEED_CLASSES = 10
+RACE_BATCHES = 200
+RACE_PREFETCH = (1, 2)
+RACE_SLEEP_CYCLES = 2_000_000  # about 1 ms of the card's clock
+
+
+def long_kernel():
+    """A kernel that keeps the consumer's stream busy for about 1 ms."""
+    torch.cuda._sleep(RACE_SLEEP_CYCLES)
+
+
+def profile_feed(fn):
+    """fn() under torch.profiler -> (wall ms, device-busy ms, ms of
+    host-to-device copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    h2d = sum(e.self_device_time_total for e in events
+              if "HtoD" in e.key) / 1e3
+    return wall, busy, h2d
+
+
+def phase_feed_llama(card, seed=13):
+    """(n-1) The compiled Llama step at the bench configuration, B and S of
+    TRAIN_ATTN, FEED_STEPS steps from one seeded state, in turns: resident
+    device batches, the feed at prefetch FEED_PREFETCH and 0, resident
+    again. The batches the feed yielded equal their numpy source bit for
+    bit (read back after the step consumed them); every run's losses are
+    identical; 2L / L / L launches a step. -> the launch counts of the fed
+    runs."""
+    from ray_tpu_torch._private.dataplane_bench import token_batches
+    from ray_tpu_torch._private.device_profiler import DeviceStepProfiler
+    from ray_tpu_torch.data import iter_device_batches
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+
+    cfg = bench_config()
+    batch, seq = TRAIN_ATTN[0], TRAIN_ATTN[1]
+    source = list(token_batches(cfg.vocab_size, batch, seq, FEED_STEPS, seed))
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    nbytes = sum(v.nbytes for v in source[0].values())
+
+    def run(form):
+        opt = adamw(3e-4, weight_decay=0.0)  # as bench.py:210
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        state = init_train_state(functools.partial(llama.init, cfg, gen), opt,
+                                 device=DEVICE)
+        step = make_train_step(functools.partial(llama.loss_fn, config=cfg),
+                               opt, backend=COMPILE_BACKEND)
+        stats, scope = {}, [None]
+        prof = DeviceStepProfiler("feed", device=DEVICE)
+        if form == "resident":
+            feed = iter([{k: torch.as_tensor(v, device=DEVICE)
+                          for k, v in b.items()} for b in source])
+        else:
+            feed = iter_device_batches(iter(source), device=DEVICE,
+                                       prefetch=form, stats=stats,
+                                       scope=lambda: scope[0])
+        losses, got, per_step = [], [], []
+        torch.cuda.synchronize()
+        for i in range(FEED_STEPS):
+            if i == 1:  # the first step may compile: timed from the second
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            with prof.step(tokens=batch * seq) as scope[0]:
+                b = next(feed)
+                before = kernel_counts()
+                state, m = step(state, b)
+                after = kernel_counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+            losses.append(m["loss"])
+            got.append(b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (FEED_STEPS - 1) * 1e3
+        check(next(feed, None) is None, f"{form}: the feed outlived its "
+              "source")
+        exact = all(np.array_equal(g[k].cpu().numpy(), s[k])
+                    for g, s in zip(got, source) for k in s)
+        losses = torch.stack(losses).float().cpu()
+        check(exact, f"feed {form}: a batch differs from its numpy source")
+        check(all(p == want for p in per_step),
+              f"feed {form}: launches per step {per_step}, not {want}")
+        check(bool(torch.isfinite(losses).all()), f"feed {form}: non-finite "
+              "loss")
+        waits = prof.report(recent=0)["phase_seconds"].get("input_wait", 0.0)
+        return {"losses": losses, "ms": ms, "stats": stats,
+                "input_wait_s": waits}
+
+    runs = {"resident": run("resident")}
+    reset_kernel_counts()
+    runs["prefetch1"] = run(FEED_PREFETCH)
+    runs["prefetch0"] = run(0)
+    counts = kernel_counts()
+    runs["resident again"] = run("resident")
+    want_losses = runs["resident"]["losses"]
+    rel = {form: float(((r["losses"] - want_losses).abs()
+                        / want_losses.abs()).max())
+           for form, r in runs.items()}
+    for form, r in runs.items():
+        log(f"[n-1] ({card}) {form}: losses "
+            f"{[round(x, 6) for x in r['losses'].tolist()]}, largest "
+            f"relative difference from the first resident run's "
+            f"{rel[form]:.3e}")
+    for form, r in runs.items():
+        check(bool(r["losses"][0] == want_losses[0])
+              and rel[form] <= FEED_LOSS_REL_TOL,
+              f"(n-1) losses fed by {form} differ from the resident "
+              f"batch's: first step {float(r['losses'][0])} against "
+              f"{float(want_losses[0])}, relative {rel[form]:.3e}")
+        extra = ""
+        if r["stats"]:
+            s = r["stats"]
+            extra = (f"; overlap_frac {s['overlap_frac']:.4f}, produce_s "
+                     f"{s['produce_s']:.6f}, wait_s {s['wait_s']:.6f}, "
+                     f"input_wait in the step scopes "
+                     f"{r['input_wait_s']:.6f} s")
+        log(f"[n-1] ({card}) {form}: {r['ms']:.2f} ms a step over "
+            f"{FEED_STEPS - 1} steps{extra}")
+    resident = (runs["resident"]["ms"] + runs["resident again"]["ms"]) / 2
+    log(f"[n-1] ({card}) bench config B={batch} S={seq}, {nbytes} bytes of "
+        f"tokens a step: fed at prefetch {FEED_PREFETCH} / resident "
+        f"{runs['prefetch1']['ms'] / resident:.4f}, at prefetch 0 / resident"
+        f" {runs['prefetch0']['ms'] / resident:.4f}; the first step's loss "
+        f"identical in all four runs, the rest within {FEED_LOSS_REL_TOL:g} "
+        f"(resident against resident {rel['resident again']:.3e}); every "
+        f"yielded batch equals its source; launches a step {want}; "
+        f"launches of the fed runs {counts}")
+    return counts
+
+
+def vit_feed_batches(pool, labels, crop, steps, batch, seed):
+    """`steps` batches of uint8 [batch, crop, crop, 3] random crops of the
+    pool, each flipped left-right with probability 1/2, and their labels:
+    the host-side map of the ViT feed."""
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        idx = rng.integers(0, len(pool), batch)
+        ys = rng.integers(0, pool.shape[1] - crop + 1, batch)
+        xs = rng.integers(0, pool.shape[2] - crop + 1, batch)
+        flips = rng.random(batch) < 0.5
+        images = np.empty((batch, crop, crop, pool.shape[3]), np.uint8)
+        for j in range(batch):
+            im = pool[idx[j], ys[j]:ys[j] + crop, xs[j]:xs[j] + crop]
+            images[j] = im[:, ::-1] if flips[j] else im
+        yield {"images": images, "labels": labels[idx]}
+
+
+def phase_feed_vit(card, seed=14):
+    """(n-2) ViT-B/16 at B=VIT_BATCH, bf16, eager, fed uint8 crops (cast on
+    the card inside the step): VIT_FEED_STEPS steps in which the loss falls,
+    fed at prefetch FEED_PREFETCH and 0 in turns with resident batches of
+    the same crops, overlap, and the feed's host-to-device rate from the
+    profiler's copies; then the stream race:
+    RACE_BATCHES batches whose every byte is their index, each checked on
+    the card after a long kernel on the consumer's stream."""
+    import dataclasses
+
+    from ray_tpu_torch.data import iter_device_batches
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+
+    cfg = dataclasses.replace(vit.ViTConfig.base_16(), **VIT_CUT)
+    rng = np.random.default_rng(seed)
+    size = cfg.image_size * VIT_FEED_SOURCE // 224
+    pool = rng.integers(0, 256, (VIT_FEED_POOL, size, size, cfg.num_channels),
+                        dtype=np.uint8)
+    labels = rng.integers(0, min(VIT_FEED_CLASSES, cfg.num_classes),
+                          VIT_FEED_POOL)
+
+    def loss_fn(params, b):
+        images = b["images"].to(torch.float32) / 127.5 - 1.0
+        return vit.loss_fn(params, {"images": images,
+                                    "labels": b["labels"]}, cfg)
+
+    def batches():
+        return vit_feed_batches(pool, labels, cfg.image_size, VIT_FEED_STEPS,
+                                VIT_BATCH, seed)
+
+    nbytes = sum(v.nbytes for v in next(batches()).values())
+    runs = {}
+    forms = {"resident": None, "prefetch1": FEED_PREFETCH, "prefetch0": 0,
+             "resident again": None, "profiled": FEED_PREFETCH}
+    for form, prefetch in forms.items():
+        opt = adamw(1e-3, weight_decay=0.0)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        state = init_train_state(functools.partial(vit.init, cfg, gen), opt,
+                                 device=DEVICE)
+        step = make_train_step(loss_fn, opt, compiled=False)
+        stats = {}
+        if prefetch is None:
+            feed = iter([{k: torch.as_tensor(v, device=DEVICE) for k, v in
+                          b.items()} for b in batches()])
+        else:
+            feed = iter_device_batches(batches(), device=DEVICE,
+                                       prefetch=prefetch, stats=stats)
+        losses = []
+
+        def steps(n):
+            nonlocal state
+            for _ in range(n):
+                state, m = step(state, next(feed))
+                losses.append(m["loss"])
+
+        if form == "profiled":  # every batch's copy inside the window
+            wall, busy, h2d = profile_feed(lambda: steps(VIT_FEED_STEPS))
+            runs[form] = {"ms": wall / VIT_FEED_STEPS, "busy": busy,
+                          "h2d": h2d}
+            continue
+        steps(1)  # the first step: cuBLAS and cuDNN set up, not timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(VIT_FEED_STEPS - 1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (VIT_FEED_STEPS - 1) * 1e3
+        check(next(feed, None) is None, f"(n-2) {form}: the feed outlived "
+              "its source")
+        losses = torch.stack(losses).float().cpu().tolist()
+        runs[form] = {"ms": ms, "losses": losses, "stats": stats}
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"(n-2) ViT {form}: the loss did not fall ({losses})")
+        del state, step
+    s, p = runs["prefetch1"]["stats"], runs["profiled"]
+    diff = max(abs(a - b) for form in ("prefetch1", "prefetch0")
+               for a, b in zip(runs[form]["losses"],
+                               runs["resident"]["losses"]))
+    resident = (runs["resident"]["ms"] + runs["resident again"]["ms"]) / 2
+    copied = nbytes * VIT_FEED_STEPS
+    h2d_gbps = copied / (p["h2d"] / 1e3) / 1e9 if p["h2d"] > 0 else \
+        float("nan")
+    log(f"[n-2] ({card}) ViT-B/16 B={VIT_BATCH} bf16 eager, fed uint8 crops "
+        f"({nbytes} bytes a batch): {runs['prefetch1']['ms']:.2f} ms a step "
+        f"at prefetch {FEED_PREFETCH} and {runs['prefetch0']['ms']:.2f} at "
+        f"prefetch 0, against resident {runs['resident']['ms']:.2f} and "
+        f"{runs['resident again']['ms']:.2f} "
+        f"({runs['prefetch1']['ms'] / resident:.4f}, "
+        f"{runs['prefetch0']['ms'] / resident:.4f}); at prefetch "
+        f"{FEED_PREFETCH} overlap_frac {s['overlap_frac']:.4f}, produce_s "
+        f"{s['produce_s']:.6f}, wait_s {s['wait_s']:.6f} over "
+        f"{VIT_FEED_STEPS} batches; losses "
+        f"{[round(x, 4) for x in runs['prefetch1']['losses']]} (largest "
+        f"difference of a fed run from the resident run's {diff:.3e})")
+    log(f"[n-2] ({card}) profiled fed run, {VIT_FEED_STEPS} steps: "
+        f"{p['ms']:.2f} ms a step wall, device busy "
+        f"{p['busy'] / VIT_FEED_STEPS:.2f} ms a step (idle share "
+        f"{max(0.0, 1 - p['busy'] / (p['ms'] * VIT_FEED_STEPS)):.3f}), "
+        f"host-to-device copies {p['h2d']:.3f} ms for {copied} bytes: "
+        f"{h2d_gbps:.2f} GB/s")
+
+    shape = (VIT_BATCH, cfg.image_size, cfg.image_size, cfg.num_channels)
+
+    def race_batches():
+        for i in range(RACE_BATCHES):
+            yield {"x": np.full(shape, i % 256, np.uint8)}
+
+    for prefetch in RACE_PREFETCH:
+        bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        n = 0
+        t0 = time.perf_counter()
+        for i, b in enumerate(iter_device_batches(
+                race_batches(), device=DEVICE, prefetch=prefetch)):
+            long_kernel()
+            bad += (b["x"] != i % 256).sum()
+            del b  # the memory returns to the allocator at once
+            n += 1
+        torch.cuda.synchronize()
+        check(n == RACE_BATCHES and int(bad) == 0,
+              f"(n-2) stream race at prefetch {prefetch}: {int(bad)} wrong "
+              f"bytes in {n} batches")
+        log(f"[n-2] ({card}) stream race at prefetch {prefetch}: "
+            f"{RACE_BATCHES} batches of {int(np.prod(shape))} bytes, each "
+            f"checked on the card after a long kernel: 0 wrong bytes "
+            f"({time.perf_counter() - t0:.2f} s)")
+    return {"fed_ms": runs["prefetch1"]["ms"], "resident_ms": resident,
+            "overlap_frac": s["overlap_frac"], "h2d_gbps": h2d_gbps}
+
+
+def phase_wire(card):
+    """(n-3) The typed tensor wire on the card: serialize / deserialize
+    round trips of CUDA tensors come back exact on cuda:0, one typed put and
+    one typed get each, the host buffer freed (and its memory reused) right
+    after the get; then `dataplane_bench`, its JSON line printed."""
+    from ray_tpu_torch._private import dataplane_bench
+    from ray_tpu_torch._private import serialization as ser
+
+    g = torch.Generator(device=DEVICE).manual_seed(15)
+    cases = {
+        "fp32": torch.randn((64, 128), generator=g, device=DEVICE),
+        "bf16": torch.randn((64, 128), generator=g, device=DEVICE).to(
+            torch.bfloat16),
+        "int64": torch.arange(4096, device=DEVICE),
+        "bool": torch.randn((33,), generator=g, device=DEVICE) > 0,
+        "0-d": torch.tensor(3.5, device=DEVICE),
+        "empty": torch.empty((0, 7), device=DEVICE),
+        "non-contiguous": torch.randn((64, 128), generator=g,
+                                      device=DEVICE)[:, ::3],
+    }
+    want_dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else \
+        torch.device(DEVICE)
+    for name, t in cases.items():
+        puts, gets = (ser.COPY_STATS["typed_tensor_put"],
+                      ser.COPY_STATS["typed_tensor_get"])
+        host = bytearray(ser.serialize(t).to_bytes())
+        out = ser.deserialize(ser.SerializedObject.from_bytes(host))
+        if out.is_cuda:  # the copy has landed: the host buffer may change
+            host[:] = b"\xff" * len(host)
+        del host  # a CPU tensor is a view of it and keeps it alive
+        junk = [bytearray(b"\xee" * 4096) for _ in range(16)]
+        del junk
+        torch.cuda.synchronize()
+        check(out.device == want_dev and out.dtype == t.dtype
+              and out.shape == t.shape and torch.equal(out, t),
+              f"(n-3) {name}: the round trip changed the tensor")
+        check(ser.COPY_STATS["typed_tensor_put"] == puts + 1
+              and ser.COPY_STATS["typed_tensor_get"] == gets + 1,
+              f"(n-3) {name}: not one typed put and one typed get")
+    log(f"[n-3] ({card}) serialize/deserialize of {', '.join(cases)} "
+        f"{DEVICE} tensors: exact, on {want_dev}, one typed put and get each")
+    log(f"[n-3] ({card}) dataplane_bench:")
+    dataplane_bench.main(["--device", DEVICE])
+
+
+def phase_dataplane(card):
+    """(n) The data plane on the card: (n-1), (n-2), (n-3). -> the launch
+    counts of (n-1)'s fed runs."""
+    t0 = time.perf_counter()
+    counts = phase_feed_llama(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_feed_vit(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_wire(card)
+    log(f"[n] the data plane: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2735,10 +3119,10 @@ def main(argv=()) -> int:
 
     parser = argparse.ArgumentParser(description="Drive ray_tpu_torch on the "
                                      "card(s); see the module docstring.")
-    parser.add_argument("--only", choices=("l", "m"), default=None,
+    parser.add_argument("--only", choices=("l", "m", "n"), default=None,
                         help="run phase (l), the SPMD path (with 4 cards its "
-                        "4-card part), or (m), RLlib's one-process path, "
-                        "alone after the kernel build")
+                        "4-card part), (m), RLlib's one-process path, or "
+                        "(n), the data plane, alone after the kernel build")
     args = parser.parse_args(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2779,6 +3163,16 @@ def main(argv=()) -> int:
             f"{time.perf_counter() - t_start:.1f} s in all")
         print(card)
         print(json.dumps({"rl": rl}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": info["platform"], "kind": info["kind"],
+            "count": info["count"]}}))
+        return 0
+    if args.only == "n":
+        feed = phase_dataplane(card)
+        log(f"[n] launches on the fed training path: {feed}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        print(card)
+        print(json.dumps({"feed_launches": feed}))
         print(json.dumps({"ok": True, "device": {
             "platform": info["platform"], "kind": info["kind"],
             "count": info["count"]}}))
@@ -2856,6 +3250,11 @@ def main(argv=()) -> int:
     phase_rl(card)
     log(f"[m] launches of the flash kernels on the RL path: "
         f"{kernel_counts()} (it runs none); "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    gc.collect()
+    torch.cuda.empty_cache()
+    feed = phase_dataplane(card)
+    log(f"[n] launches on the fed training path: {feed}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
 
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu", 45),
@@ -2865,9 +3264,10 @@ def main(argv=()) -> int:
     for name, (source, line) in sources.items():
         by_path = {"serve": serve[name], "train": train[name],
                    "train_compiled": compiled[name], "mixtral": zoo[name],
-                   "spmd": spmd[name]}
+                   "spmd": spmd[name], "feed": feed[name]}
         check(by_path["train"] > 0 and by_path["train_compiled"] > 0
-              and by_path["mixtral"] > 0 and by_path["spmd"] > 0,
+              and by_path["mixtral"] > 0 and by_path["spmd"] > 0
+              and by_path["feed"] > 0,
               f"a training path never launched {name}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,

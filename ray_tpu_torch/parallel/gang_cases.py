@@ -117,6 +117,34 @@ def batch_blocks(mesh_kw, slices, batch_np) -> Dict[str, Any]:
             "full": got.full_tensor().numpy()}
 
 
+def feed_blocks(mesh_kw, slices, batches_np, prefetch) -> Dict[str, Any]:
+    """The sharded device feed over global batches ({name: numpy}): per
+    batch and column, the local block of the DTensor it yields, the block
+    shard_local_batch gives the same batch, and the global shape; whether
+    the feed ended with its source, its batch count and this rank's mesh
+    coordinate."""
+    from ray_tpu_torch.data import iter_device_batches
+    from ray_tpu_torch.train.spmd import batch_sharding, shard_local_batch
+
+    mesh = _mesh(mesh_kw, slices)
+    sharding = batch_sharding(mesh)
+    stats: Dict[str, Any] = {}
+    out = []
+    fed = iter_device_batches(iter(batches_np), device="cpu",
+                              sharding=sharding, mesh=mesh,
+                              prefetch=prefetch, stats=stats)
+    for got, src in zip(fed, batches_np):
+        want = shard_local_batch(src, sharding, mesh, torch.device("cpu"))
+        out.append({k: {"local": got[k].to_local().numpy(),
+                        "want": want[k].to_local().numpy(),
+                        "shape": tuple(got[k].shape),
+                        "placements":
+                            got[k].placements == want[k].placements}
+                    for k in src})
+    return {"batches": out, "exhausted": next(fed, None) is None,
+            "fed": stats["batches"], "coord": list(mesh.get_coordinate())}
+
+
 # -- ring and sharded flash attention -------------------------------------------
 
 def attention_cases(cases: List[Dict[str, Any]]) -> List[Dict[str, Any]]:

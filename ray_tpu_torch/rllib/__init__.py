@@ -8,7 +8,7 @@ the policy's forward on the device (`env_runner`); the algorithms
 (`algorithms`) are PPO, DQN, CQL, MARWIL/BC, SAC and IMPALA's V-trace
 update. `convert` carries the JAX modules' parameters and Adam state
 across. Remote env runners and learners wait for the actor runtime and
-raise (ROADMAP.md queue 1, item 8).
+raise (ROADMAP.md queue 1, item 5).
 """
 
 from ray_tpu_torch.rllib.algorithm import Algorithm  # noqa: F401

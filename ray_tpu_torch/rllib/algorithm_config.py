@@ -3,10 +3,11 @@ rllib/algorithms/algorithm_config.py — AlgorithmConfig with chained
 .environment()/.env_runners()/.training()/.evaluation() setters and
 .build()).
 
-The port's copy of `ray_tpu/rllib/algorithm_config.py` (which imports no JAX; the
-port imports nothing of `ray_tpu`), without what only the actor runtime
-reads (runner resources, fault tolerance, the decoupled dataflow) and with
-the port's `device`.
+The port's copy of `ray_tpu/rllib/algorithm_config.py` (which imports no
+JAX; the port imports nothing of `ray_tpu`), without the runner resources
+and with the port's `device`. `fault_tolerance()` and `dataflow()` store
+what the JAX config stores, so a config written for the JAX package builds
+here; both act only with remote env runners, which `check_local` refuses.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Any, Dict, Optional, Type
 
 # What the port's one-process path cannot run yet: remote env runners and
 # learners are actors of the runtime, which the port has not ported.
-RUNTIME_ITEM = ("ROADMAP.md queue 1, item 8: remote env runners and "
+RUNTIME_ITEM = ("ROADMAP.md queue 1, item 5: remote env runners and "
                 "learners wait for the port of the actor runtime")
 
 
@@ -40,6 +41,16 @@ class AlgorithmConfig:
         self.num_env_runners: int = 0  # 0 = sample in this process
         self.num_envs_per_env_runner: int = 1
         self.rollout_fragment_length: int = 200
+        # the decoupled dataflow and the crashable fleet, as the JAX config
+        # stores them (read only by remote env runners)
+        self.decoupled: bool = False
+        self.sample_queue_size: Optional[int] = None
+        self.sample_queue_resources: Optional[Dict[str, float]] = None
+        self.max_sample_staleness: int = 2
+        self.restart_failed_env_runners: bool = True
+        self.max_env_runner_restarts: int = 20
+        self.elastic_min_env_runners: Optional[int] = None
+        self.elastic_max_env_runners: Optional[int] = None
         # training
         self.lr: float = 3e-4
         self.gamma: float = 0.99
@@ -96,6 +107,41 @@ class AlgorithmConfig:
             self.num_envs_per_env_runner = num_envs_per_env_runner
         if rollout_fragment_length is not None:
             self.rollout_fragment_length = rollout_fragment_length
+        return self
+
+    def fault_tolerance(
+            self, *, restart_failed_env_runners: Optional[bool] = None,
+            max_env_runner_restarts: Optional[int] = None,
+            **_kw) -> "AlgorithmConfig":
+        """Crashable-fleet policy (reference: algorithm_config.py
+        fault_tolerance()); stored for remote env runners."""
+        if restart_failed_env_runners is not None:
+            self.restart_failed_env_runners = restart_failed_env_runners
+        if max_env_runner_restarts is not None:
+            self.max_env_runner_restarts = max_env_runner_restarts
+        return self
+
+    def dataflow(self, *, decoupled: Optional[bool] = None,
+                 sample_queue_size: Optional[int] = None,
+                 sample_queue_resources: Optional[dict] = None,
+                 max_sample_staleness: Optional[int] = None,
+                 elastic_min_env_runners: Optional[int] = None,
+                 elastic_max_env_runners: Optional[int] = None,
+                 **_kw) -> "AlgorithmConfig":
+        """The decoupled rollout/learner dataflow's settings (JAX:
+        rllib/dataflow.py); stored for remote env runners."""
+        if decoupled is not None:
+            self.decoupled = decoupled
+        if sample_queue_size is not None:
+            self.sample_queue_size = sample_queue_size
+        if sample_queue_resources is not None:
+            self.sample_queue_resources = dict(sample_queue_resources)
+        if max_sample_staleness is not None:
+            self.max_sample_staleness = max_sample_staleness
+        if elastic_min_env_runners is not None:
+            self.elastic_min_env_runners = elastic_min_env_runners
+        if elastic_max_env_runners is not None:
+            self.elastic_max_env_runners = elastic_max_env_runners
         return self
 
     def training(self, **kwargs) -> "AlgorithmConfig":

@@ -1,6 +1,6 @@
 """The port's algorithms: PPO, DQN, CQL, MARWIL/BC, SAC and IMPALA's
 synchronous V-trace path. APPO and DreamerV3 wait (ROADMAP.md queue 1,
-item 8)."""
+item 3)."""
 
 from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig  # noqa: F401

@@ -5,9 +5,9 @@ of `ray_tpu/rllib/algorithms/impala.py` (`make_vtrace_update` :39-123 and
 V-trace (Espeholt et al. 2018): JAX runs the recursion as a `lax.scan`
 over the reversed time axis; here it is a reversed loop over T computing
 the same recursion, vs_t - V(x_t) = delta_t + gamma_t c_t (vs_{t+1} -
-V(x_{t+1})). The asynchronous in-flight pipeline, the decoupled dataflow
-and APPO need the actor runtime and are not ported (ROADMAP.md queue 1,
-item 8); neither is the `rl.learner_step` event, which waits for the port
+V(x_{t+1})). The asynchronous in-flight pipeline and the decoupled
+dataflow need the actor runtime and are not ported (ROADMAP.md queue 1,
+item 5); APPO's clipped surrogate waits (item 3); neither is the `rl.learner_step` event, which waits for the port
 of the event log.
 """
 

@@ -21,7 +21,7 @@ def _table():
     }
 
 
-# APPO and DreamerV3 are not ported yet (ROADMAP.md queue 1, item 8).
+# APPO and DreamerV3 are not ported yet (ROADMAP.md queue 1, item 3).
 ALGORITHMS = ("PPO", "IMPALA", "DQN", "SAC", "BC", "MARWIL", "CQL")
 
 

@@ -356,6 +356,15 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     # tests/test_torch_rl_algorithms.py.
     monkeypatch.setattr(smoke, "phase_rl", lambda card: smoke.log(
         "[m] rehearsed by tests/test_torch_rl_algorithms.py"))
+
+    # (n), the data plane, is rehearsed on its own by
+    # tests/test_torch_data_feed.py; here one tiny Llama step stands in.
+    def dataplane(card):
+        counts = spmd()
+        smoke.log("[n] one tiny Llama step in place of phase (n)")
+        return counts
+
+    monkeypatch.setattr(smoke, "phase_dataplane", dataplane)
     # The bench at (h-2)'s batch, as on the card.
     from ray_tpu_torch import bench
     monkeypatch.setattr(bench, "CPU_BATCH", 2)
@@ -420,7 +429,7 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     lines = capsys.readouterr().out.strip().splitlines()
     for tag in ("[a]", "[b]", "[c]", "[f]", "[g]", "[d]", "[d+e]", "[h]",
                 "[i-1]", "[i-2]", "[i-3]", "[i-4]", "[i]", "[h-2]",
-                "[bench]", "[j]", "[k]", "[l]", "[m]"):
+                "[bench]", "[j]", "[k]", "[l]", "[m]", "[n]"):
         assert any(line.startswith(tag) for line in lines), tag
     for text in ("[e] _decode_attention", "[e] _cached_attention",
                  "token blocks identical True", "[e] decode step, former",
@@ -465,9 +474,10 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert by_path[name] == {"serve": 0, "train": 13 * layers,
                                  "train_compiled": 30 * layers,
-                                 "mixtral": 2, "spmd": 2}
+                                 "mixtral": 2, "spmd": 2, "feed": 2}
     assert by_path["flash_fwd"]["mixtral"] == 4  # 2 layers under "dots"
     assert by_path["flash_fwd"]["spmd"] == 4
+    assert by_path["flash_fwd"]["feed"] == 4
     assert by_path["flash_fwd"]["serve"] >= 2 * layers
     assert [k["launches"] for k in kernels] == [
         sum(by_path[k["name"]].values()) for k in kernels]

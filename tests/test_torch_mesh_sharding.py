@@ -53,6 +53,15 @@ GANG_MESHES = [
 ]
 BATCH_MESHES = [(dict(dp=2, fsdp=2), 1), (dict(sp=2, fsdp=2), 1),
                 (dict(tp=2), 2), (dict(sp=4), 1)]
+# (mesh config, slices, prefetch) of the sharded device feed.
+FEED_MESHES = [(dict(dp=2, fsdp=2), 1, 1), (dict(sp=2, fsdp=2), 1, 0)]
+
+
+def _feed_batches():
+    rng = np.random.default_rng(7)
+    return [{"inputs": rng.integers(0, 100, (8, 16)),
+             "mask": rng.random((8, 16)).astype(np.float32)}
+            for _ in range(3)]
 
 
 def _cases():
@@ -60,6 +69,8 @@ def _cases():
     cases = [("mesh_cases", ([dict(mesh=m, slices=n, shape=s, logical=ax)
                               for m, n, s, ax in GANG_MESHES],))]
     cases += [("batch_blocks", (m, n, batch)) for m, n in BATCH_MESHES]
+    cases += [("feed_blocks", (m, n, _feed_batches(), p))
+              for m, n, p in FEED_MESHES]
     return cases
 
 
@@ -189,7 +200,7 @@ def test_gang_meshes_cut_tensors_as_the_rules_say(gang):
 def test_gang_batch_blocks_match_jax_named_sharding(gang):
     batch = np.arange(8 * 16).reshape(8, 16)
     for rank, res in enumerate(gang):
-        for (cfg, n), got in zip(BATCH_MESHES, res[1:]):
+        for (cfg, n), got in zip(BATCH_MESHES, res[1:1 + len(BATCH_MESHES)]):
             sizes = ({"dcn": n} if n > 1 else {}) | tmesh.MeshConfig(
                 **cfg).resolved(WORLD // n).axis_sizes()
             devs = np.asarray(jax.devices()[:WORLD]).reshape(
@@ -202,6 +213,34 @@ def test_gang_batch_blocks_match_jax_named_sharding(gang):
                         if s.device == dev)
             np.testing.assert_array_equal(got["local"], np.asarray(want))
             np.testing.assert_array_equal(got["full"], batch)
+
+
+def test_gang_sharded_feed_yields_shard_local_batch_blocks(gang):
+    """iter_device_batches with the batch sharding, at prefetch 1 and 0:
+    each rank's DTensor blocks equal shard_local_batch's of the same global
+    batch, and the block JAX's NamedSharding gives its mesh position."""
+    batches = _feed_batches()
+    for i, (cfg, n, _) in enumerate(FEED_MESHES):
+        sizes = ({"dcn": n} if n > 1 else {}) | tmesh.MeshConfig(
+            **cfg).resolved(WORLD // n).axis_sizes()
+        devs = np.asarray(jax.devices()[:WORLD]).reshape(
+            tuple(sizes.values()))
+        sharding = jsharding.logical_sharding(Mesh(devs, tuple(sizes)),
+                                              ("batch", "seq"))
+        for res in gang:
+            got = res[1 + len(BATCH_MESHES) + i]
+            assert got["fed"] == len(batches) and got["exhausted"]
+            dev = devs[tuple(got["coord"])]
+            for b, src in zip(got["batches"], batches):
+                for k, v in src.items():
+                    assert b[k]["shape"] == v.shape and b[k]["placements"]
+                    np.testing.assert_array_equal(b[k]["local"],
+                                                  b[k]["want"])
+                    placed = jax.device_put(v, sharding)
+                    want = next(s.data for s in placed.addressable_shards
+                                if s.device == dev)
+                    np.testing.assert_array_equal(b[k]["local"],
+                                                  np.asarray(want))
 
 
 def test_mesh_needs_a_gang():

@@ -80,7 +80,10 @@ def test_importing_the_port_loads_no_jax():
             "ray_tpu_torch.rllib.exploration, ray_tpu_torch.rllib.callbacks, "
             "ray_tpu_torch.rllib.offline, ray_tpu_torch.rllib.algorithms, "
             "ray_tpu_torch.rllib.algorithms.registry, "
-            "ray_tpu_torch.rllib.benchmarks; "
+            "ray_tpu_torch.rllib.benchmarks, "
+            "ray_tpu_torch._private.serialization, "
+            "ray_tpu_torch._private.dataplane_bench, ray_tpu_torch.data, "
+            "ray_tpu_torch.data.dataset; "
             "print(sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

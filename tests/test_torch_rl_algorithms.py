@@ -297,8 +297,42 @@ def test_runtime_options_raise(name, option):
     cfg = (getattr(talgos, f"{name}Config")().environment("CartPole-v1")
            .resources(device="cpu"))
     setattr(cfg, option, 2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         cfg.build()
+
+
+FLEET_KEYS = ("restart_failed_env_runners", "max_env_runner_restarts",
+              "decoupled", "sample_queue_size", "sample_queue_resources",
+              "max_sample_staleness", "elastic_min_env_runners",
+              "elastic_max_env_runners")
+
+
+def test_fault_tolerance_and_dataflow_chain_as_on_jax():
+    """A config written for the JAX package, with its fleet options, builds
+    on the port with the same stored values (defaults included), and with
+    0 runners it trains."""
+    def chain(config_cls):
+        return (config_cls().environment("CartPole-v1")
+                .fault_tolerance(restart_failed_env_runners=False,
+                                 max_env_runner_restarts=3, unknown=1)
+                .dataflow(decoupled=True, sample_queue_size=8,
+                          sample_queue_resources={"head": 0.01},
+                          max_sample_staleness=1, elastic_min_env_runners=1,
+                          elastic_max_env_runners=4)
+                .training(train_batch_size=64, minibatch_size=32,
+                          num_epochs=1))
+
+    jdef, tdef = jalgos.PPOConfig(), talgos.PPOConfig()
+    assert ({k: getattr(jdef, k) for k in FLEET_KEYS}
+            == {k: getattr(tdef, k) for k in FLEET_KEYS})
+    jcfg, tcfg = chain(jalgos.PPOConfig), chain(talgos.PPOConfig)
+    want = {k: getattr(jcfg, k) for k in FLEET_KEYS}
+    assert {k: getattr(tcfg, k) for k in FLEET_KEYS} == want
+    assert want["max_env_runner_restarts"] == 3 and want["decoupled"]
+    algo = tcfg.resources(device="cpu").build()
+    result = algo.train()
+    assert result["num_env_steps_sampled_lifetime"] >= 64
+    algo.stop()
 
 
 def test_registry_names_the_ported_algorithms():
