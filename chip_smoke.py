@@ -102,20 +102,43 @@ Phases, in order; any failure raises and the script exits non-zero:
       kernels) against the unsharded step from the same state (fp32 1e-5
       relative; bf16 loss 1e-3, grad norm 1e-2; for the bench config the
       unsharded steps are (h)'s first), with (h)'s 2L / L / L launches a
-      step; (l-2) with fewer than 4 cards, `graft_entry.dryrun_multichip(4,
+      step; then the same compiled (the sharded step one program over the
+      DTensor parameters) against the compiled unsharded step, the tiny
+      config (fp32 1e-4) and the bench widths at 1 layer (bf16 loss 1e-3,
+      grad norm 1e-2; 2L / L / L), with the seconds it adds; the tiny
+      Mixtral (compiled, 1e-4), ViT and T5 (eager, 1e-5) sharded steps
+      against their unsharded ones; and the dense engine with mesh= at
+      tp=1 against the engine without it (the same greedy tokens); (l-2)
+      with fewer than 4 cards, `graft_entry.dryrun_multichip(4,
       device="cpu")` on 4 gloo CPU ranks (NCCL takes one rank a card), as
-      its lines say; (l-3) with 4 cards or more, one rank a card over NCCL:
-      the dry run, `spmd_bench` (fsdp=2 x tp=2 against the 1-GPU step on
-      one global batch, B=16 S=2048: tok/s and MFU per GPU, scaling
-      efficiency, peak memory per GPU, the collectives' device time, the
-      trajectories within 1e-2), the ring step at sp=2 x fsdp=2 (the
-      bench widths, B=4 S=2048) with each rank's flash launches (2L(c+1)
-      / L(c+1) / L(c+1) at sp coordinate c) and its losses and grad norms
-      against the same mesh without the ring (bf16 loss 1e-3, grad norm
-      1e-2), and Llama-3-8B at its full 32
-      layers over fsdp=4 (B=8 S=2048, 3 steps). `--only l` runs (l) alone
-      after (a); `python3 chip_smoke.py --only l` on a host with four
-      cards is the four-card run;
+      its lines say; (l-3) with 4 cards or more, one rank a card over NCCL,
+      each part logged and the next one run if it fails (the phase then
+      fails at its end): the dry run, `spmd_bench` (fsdp=2 x tp=2 against
+      the 1-GPU compiled step on one global batch, B=16 S=2048, the
+      compiled and the eager sharded step side by side: step ms, tok/s and
+      MFU per GPU, scaling efficiency, peak memory per GPU, NCCL ms against
+      compute ms, the trajectories within 1e-2, the compiled step's first
+      step within bf16 loss 1e-3 and grad norm 1e-2 of the eager one's),
+      the ring step at sp=2 x fsdp=2 (the bench widths, B=4 S=2048) with
+      each rank's flash launches (2L(c+1) / L(c+1) / L(c+1) at sp
+      coordinate c) and its losses and grad norms against the same mesh
+      without the ring (bf16 loss 1e-3, grad norm 1e-2), then compiled
+      (its first step against the eager ring's, the same launches),
+      Mixtral at 8x7B widths and 2 layers over ep=4 (B=4 S=2048, eager and
+      compiled from the same state within 1e-3, MFU, peak memory and the
+      all-to-all's device ms), ViT-B/16 over dp=4 and T5-base over dp=2 x
+      tp=2 against the one-card step on the same global batch (three
+      steps, losses within 1e-3), a pp=4 pipeline of Llama-width SwiGLU
+      stages (fp32: output and gradients within 1e-4 of the sequential
+      composition on one card), the Llama-3-8B dense engine at tp=4
+      against the one-card engine (prefill logits within 2e-2, the first
+      token of every request equal, the tokens that agree before the first
+      divergence), and Llama-3-8B at its full 32 layers over fsdp=4 (B=8
+      S=2048, 3 steps), eager and then compiled from the same state.
+      `--only l` runs (l) alone after (a); `python3 chip_smoke.py --only l`
+      on a host with four cards is the four-card run, and `--only l
+      --part NAME` runs one of its parts (bench, ring, mixtral, vit, t5,
+      pipeline, engine, llama8b) alone;
   (m) RLlib's one-process path (`ray_tpu_torch.rllib`), fp32 with TF32
       off: (m-1) the Nature-CNN actor-critic at full width on a seeded
       [128, 84, 84, 4] uint8 minibatch, `forward_train` and one PPO update
@@ -156,8 +179,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The launch counts are set to 0 just before each main path (serving: (d)
 and (e); paged serving: (i), which runs no flash kernel; training: (h);
-compiled training: (h-2); Mixtral: (k-1) and (k-2); the SPMD path: (l);
-the fed training path: (n-1)'s fed runs) and read just after it. The last
+compiled training: (h-2); Mixtral: (k-1) and (k-2); the SPMD path's
+eager sharded steps, its compiled sharded steps and the zoo on the mesh:
+(l), each on its own; the fed training path: (n-1)'s fed runs) and read
+just after it. The last
 three lines of stdout are the card's `nvidia-smi` name and power limit, one
 JSON object on the kernels, and `{"ok": true, "device": ...}`. Without
 CUDA, or without the repository beside it, it exits non-zero and prints no
@@ -2132,16 +2157,52 @@ SPMD_BENCH_LOSS_REL_TOL = 1e-2    # the 1-GPU and 4-GPU trajectories
 SPMD_RING = dict(plan={"sp": 2, "fsdp": 2}, batch=4, seq=2048)
 SPMD_FULL = dict(plan={"fsdp": 4}, batch=8, seq=2048, steps=3)
 SPMD_TIMEOUT_S = 900
+# (l-1), the compiled sharded step: against the compiled unsharded step
+# from the same state; the compiled step is not bit-repeatable (~2e-5), so
+# fp32 is held to 1e-4 (bf16 to SPMD_LOSS_REL_TOL / SPMD_NORM_REL_TOL). At
+# the bench widths the depth is cut to SPMD_COMPILED_LAYERS to keep the
+# compiles short.
+SPMD_COMPILED_TINY_REL_TOL = 1e-4
+SPMD_COMPILED_LAYERS = 1
+# (l-1), the zoo on a world-1 mesh: Mixtral compiled (1e-4, fp32), ViT and
+# T5 eager (SPMD_TINY_REL_TOL).
+ZOO_MESH_COMPILED_REL_TOL = 1e-4
+# (l-1), the dense engine with mesh= at tp=1 against the engine without.
+ENGINE_MESH = dict(max_batch=2, max_len=64, new_tokens=8,
+                   prompts=([1, 2, 3, 4], [5, 6, 7, 8, 9, 10, 11]))
+# (l-3): Mixtral at 8x7B widths over ep=4, ViT-B/16 over dp=4, T5-base over
+# dp=2 x tp=2 against the one-card step, a pp=4 pipeline of Llama-width MLP
+# stages, and the Llama-3-8B dense engine at tp=4 against one card.
+SPMD_MIXTRAL = dict(plan={"ep": 4}, batch=4, seq=2048, layers=2, steps=2)
+SPMD_MIXTRAL_REL_TOL = 1e-3       # eager and compiled, from the same state
+SPMD_ZOO_STEPS = 2                # after the warm-up: three steps each
+SPMD_ZOO_REL_TOL = 1e-3           # the sharded and the one-card losses
+SPMD_VIT = dict(plan={"dp": 4}, batch=32)
+SPMD_T5 = dict(plan={"dp": 2, "tp": 2})
+SPMD_PIPE = dict(m=8, mb=(2, 256), rel_tol=1e-4)   # fp32
+SPMD_ENGINE = dict(prompts=4, prompt_len=(96, 400), new_tokens=32,
+                   max_len=512, logits_rel_tol=2e-2)
 
 
-def spmd_world1_runs(cfg, batch, seq, seed, plain_first=None):
-    """SPMD_STEPS eager steps of cfg from the seeded state on train_batch's
+def _recompiles(limit: int = 64):
+    """Room for more compiled configurations of one function than
+    torch.compile's default allows in one process (this script compiles
+    llama.loss_fn at many configurations; fullgraph raises at the limit)."""
+    cfg = torch._dynamo.config
+    name = ("recompile_limit" if hasattr(cfg, "recompile_limit")
+            else "cache_size_limit")
+    return cfg.patch(**{name: limit})
+
+
+def spmd_world1_runs(cfg, batch, seq, seed, plain_first=None,
+                     compiled=False):
+    """SPMD_STEPS steps of cfg from the seeded state on train_batch's
     batch through the sharded code on a 1 x ... x 1 mesh (the gang this
     process has joined) and, unless `plain_first` holds them already,
-    through the unsharded step. -> (sharded [(loss, grad norm)], plain
-    [(loss, grad norm)], launches per sharded step, the sharded run's
-    launches: the counts are set to 0 just before it and read just
-    after)."""
+    through the unsharded step; eagerly, or both compiled with
+    COMPILE_BACKEND. -> (sharded [(loss, grad norm)], plain [(loss, grad
+    norm)], launches per sharded step, the sharded run's launches: the
+    counts are set to 0 just before it and read just after)."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
@@ -2164,7 +2225,8 @@ def spmd_world1_runs(cfg, batch, seq, seed, plain_first=None):
                 {k: v.cpu().numpy() for k, v in data.items()},
                 batch_sharding(mesh), mesh, torch.device(DEVICE))
         step = make_train_step(functools.partial(
-            llama.loss_fn, config=cfg, mesh=mesh), opt, compiled=False)
+            llama.loss_fn, config=cfg, mesh=mesh), opt, compiled=compiled,
+            backend=COMPILE_BACKEND)
         out, launches = [], []
         reset_kernel_counts()
         for _ in range(SPMD_STEPS):
@@ -2189,10 +2251,13 @@ def phase_spmd_world1(eager_first=None):
     """(l-1): a world-1 gang on the card (NCCL; gloo in a CPU rehearsal):
     the tiny fp32 config and the bench configuration through the sharded
     code on a 1 x ... x 1 mesh against the unsharded step from the same
-    state, with (h)'s launches a step. eager_first: (h)'s first
-    SPMD_STEPS (loss, grad norm), from the same seed and batch. -> the
-    kernel launches of the sharded steps (the unsharded ones they are
-    held to do not count)."""
+    state, with (h)'s launches a step, eagerly and then compiled
+    (`phase_spmd_world1_compiled`); the tiny Mixtral, ViT and T5 sharded
+    steps against their unsharded ones; the dense engine with mesh= at tp=1
+    against the engine without. eager_first: (h)'s first SPMD_STEPS (loss,
+    grad norm), from the same seed and batch. -> the kernel launches of the
+    sharded steps by path ("spmd": eager, "spmd_compiled", "zoo_mesh"; the
+    unsharded ones they are held to do not count)."""
     import tempfile
 
     from ray_tpu_torch.train import backend
@@ -2228,9 +2293,179 @@ def phase_spmd_world1(eager_first=None):
               "unsharded one")
         check(all(x == want_launch for x in launches),
               f"sharded launches a step {launches}, not {want_launch}")
+        compiled = phase_spmd_world1_compiled()
+        zoo = phase_spmd_world1_zoo(seed=21)
+        phase_spmd_world1_engine(seed=22)
     finally:
         backend.destroy_process_group()
+    return {"spmd": {k: tiny_total[k] + total[k] for k in total},
+            "spmd_compiled": compiled, "zoo_mesh": zoo}
+
+
+def phase_spmd_world1_compiled():
+    """(l-1), compiled: the sharded step compiled (one program over the
+    DTensor parameters, one for the norm and the update) against the
+    compiled unsharded step from the same state, the tiny fp32 config and
+    the bench widths at SPMD_COMPILED_LAYERS layers, with 2L / L / L
+    launches a step. -> the compiled sharded runs' launches."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    with _recompiles():
+        cfg = tiny_train_config()
+        got, want, _, tiny_total = spmd_world1_runs(cfg, 2, 64, seed=5,
+                                                    compiled=True)
+        rel = max(abs(a - b) / abs(b) for x, y in zip(got, want)
+                  for a, b in zip(x, y))
+        log(f"[l-1] compiled ({COMPILE_BACKEND}) tiny fp32, world-1 mesh, "
+            f"{SPMD_STEPS} steps: (loss, grad norm) {got} vs the compiled "
+            f"unsharded step {want}: rel {rel:.3e}")
+        check(rel <= SPMD_COMPILED_TINY_REL_TOL, "the compiled sharded tiny "
+              "step on a world-1 mesh differs from the compiled unsharded one")
+        cfg = dataclasses.replace(bench_config(),
+                                  n_layers=SPMD_COMPILED_LAYERS)
+        got, want, launches, total = spmd_world1_runs(
+            cfg, TRAIN_ATTN[0], TRAIN_ATTN[1], seed=3, compiled=True)
+    secs = time.perf_counter() - t0
+    rel_loss = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, want))
+    rel_norm = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, want))
+    want_launch = {"flash_fwd": 2 * cfg.n_layers,
+                   "flash_bwd_dq": cfg.n_layers,
+                   "flash_bwd_dkv": cfg.n_layers}
+    log(f"[l-1] compiled ({COMPILE_BACKEND}) bench widths cut to {cfg.n_layers} "
+        f"layer(s) (B={TRAIN_ATTN[0]} S={TRAIN_ATTN[1]}, bf16, "
+        f"{cfg.remat_policy}), world-1 mesh, {SPMD_STEPS} steps: {got} vs "
+        f"the compiled unsharded step {want}: rel loss {rel_loss:.3e}, grad "
+        f"norm {rel_norm:.3e}; launches a step {launches}")
+    log(f"[l-1] the compiled sharded checks (four compiles) added "
+        f"{secs:.1f} s")
+    check(rel_loss <= SPMD_LOSS_REL_TOL and rel_norm <= SPMD_NORM_REL_TOL,
+          "the compiled sharded bench step on a world-1 mesh differs from "
+          "the compiled unsharded one")
+    check(all(x == want_launch for x in launches),
+          f"compiled sharded launches a step {launches}, not {want_launch}")
     return {k: tiny_total[k] + total[k] for k in total}
+
+
+def world1_zoo_runs(family, cfg, batch_np, logical, compiled, seed):
+    """SPMD_STEPS steps of the port's `family` model from the seeded state
+    through its sharded code on a 1 x ... x 1 mesh and through the
+    unsharded step (both compiled with COMPILE_BACKEND, or both eager).
+    -> (sharded [(loss, grad norm)], plain [...], the sharded run's
+    launches: set to 0 just before it and read just after)."""
+    import importlib
+
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ray_tpu_torch.parallel.sharding import LogicalAxisRules
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+    from ray_tpu_torch.train.spmd import shard_local_batch
+
+    mod = importlib.import_module(f"ray_tpu_torch.models.{family}")
+    mesh = build_mesh(MeshConfig())
+    rules = LogicalAxisRules()
+    runs, total = {}, None
+    for m in (mesh, None):
+        opt = adamw(TINY_LR, weight_decay=0.0)
+        init = functools.partial(mod.init, cfg, torch.Generator(
+            device=DEVICE).manual_seed(seed))
+        if m is None:
+            state = init_train_state(init, opt, device=DEVICE)
+            batch = {k: torch.as_tensor(v, device=DEVICE)
+                     for k, v in batch_np.items()}
+        else:
+            state = init_train_state(
+                init, opt, device=DEVICE, mesh=m,
+                param_logical_axes=mod.param_logical_axes(cfg))
+            batch = {k: shard_local_batch({k: v}, rules.to_physical(
+                logical[k], m), m, torch.device(DEVICE))[k]
+                for k, v in batch_np.items()}
+        step = make_train_step(functools.partial(mod.loss_fn, config=cfg,
+                                                 mesh=m), opt,
+                               compiled=compiled, backend=COMPILE_BACKEND)
+        reset_kernel_counts()
+        out = []
+        for _ in range(SPMD_STEPS):
+            state, metrics = step(state, batch)
+            out.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+        if m is not None:
+            total = kernel_counts()
+        runs[m is not None] = out
+        del state, step
+    return runs[True], runs[False], total
+
+
+def phase_spmd_world1_zoo(seed):
+    """(l-1), the zoo on the mesh: the tiny fp32 Mixtral (compiled, its MoE
+    on JAX's token partition), ViT and T5 (eager, as their one-device
+    steps run) through their sharded code on a 1 x ... x 1 mesh against
+    their unsharded steps from the same state. -> Mixtral's sharded
+    launches."""
+    import dataclasses
+
+    from ray_tpu_torch.models import mixtral, t5, vit
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, 512, (2, 65))
+    cases = [
+        ("Mixtral", "mixtral", dataclasses.replace(
+            mixtral.MixtralConfig.tiny(), dtype=torch.float32),
+         {"inputs": toks[:, :-1], "targets": toks[:, 1:]},
+         {"inputs": ("batch", "seq"), "targets": ("batch", "seq")}, True),
+        ("ViT", "vit", vit.ViTConfig.tiny(),
+         {"images": rng.standard_normal((4, 32, 32, 3)).astype(np.float32),
+          "labels": rng.integers(0, 10, 4)},
+         {"images": ("batch", None, None, None), "labels": ("batch",)},
+         False),
+        ("T5", "t5", t5.T5Config.tiny(vocab_size=128), _tiny_t5(),
+         {"src": ("batch", None), "tgt": ("batch", None)}, False),
+    ]
+    counts = None
+    with _recompiles():
+        for tag, family, cfg, batch, logical, compiled in cases:
+            got, want, total = world1_zoo_runs(family, cfg, batch, logical,
+                                               compiled, seed)
+            rel = max(abs(a - b) / abs(b) for x, y in zip(got, want)
+                      for a, b in zip(x, y))
+            tol = ZOO_MESH_COMPILED_REL_TOL if compiled else SPMD_TINY_REL_TOL
+            form = f"compiled ({COMPILE_BACKEND})" if compiled else "eager"
+            log(f"[l-1] tiny {tag} fp32 {form}, world-1 mesh, {SPMD_STEPS} "
+                f"steps: (loss, grad norm) {got} vs unsharded {want}: rel "
+                f"{rel:.3e}")
+            check(rel <= tol, f"the sharded tiny {tag} step on a world-1 "
+                  "mesh differs from the unsharded one")
+            if family == "mixtral":
+                counts = total
+    return counts
+
+
+def phase_spmd_world1_engine(seed):
+    """(l-1), the dense engine with mesh= (tp=1, no CUDA graph by rule)
+    against the engine without it (its decode a CUDA graph on the card),
+    the tiny fp32 config: the same greedy tokens."""
+    import dataclasses
+
+    from ray_tpu_torch.inference import GenerationConfig, InferenceEngine
+    from ray_tpu_torch.inference.engine import shard_params_for_inference
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+    params = llama.init(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                        device=DEVICE)
+    e = ENGINE_MESH
+    prompts = [list(p) for p in e["prompts"]]
+    gen = GenerationConfig(max_new_tokens=e["new_tokens"])
+    kw = dict(max_batch=e["max_batch"], max_len=e["max_len"], device=DEVICE)
+    plain = InferenceEngine(params, cfg, **kw).generate(prompts, gen)
+    mesh = build_mesh(MeshConfig())
+    eng = InferenceEngine(shard_params_for_inference(params, cfg, mesh), cfg,
+                          mesh=mesh, **kw)
+    sharded = eng.generate(prompts, gen)
+    log(f"[l-1] dense engine, tiny fp32, mesh= at tp=1 (CUDA graph "
+        f"{eng._decoder.use_graph}): streams {sharded} vs without mesh "
+        f"{plain}: identical {sharded == plain}")
+    check(sharded == plain, "the dense engine with mesh= differs from the "
+          "engine without it")
 
 
 def phase_spmd_cpu_ranks(n_cards):
@@ -2253,53 +2488,105 @@ def spmd_tokens(cfg, batch, seq, seed):
                                                 (batch, seq + 1))
 
 
-def log_mesh_run(tag, cfg, res, batch, seq):
-    """Step ms, tok/s a GPU, MFU and peak memory per rank of a mesh run."""
+def log_mesh_run(tag, cfg, res, batch, seq, flops_per_token=None):
+    """Step ms, tok/s a GPU, MFU and peak memory per rank of a mesh run
+    (flops_per_token: the model's, Llama's by default)."""
     step_s = max(r["step_s"] for r in res)
     tok_s = batch * seq / step_s / len(res)
     from ray_tpu_torch.models import llama
 
-    mfu = llama.flops_per_token(cfg, seq) * tok_s / PEAKS[0]
+    flops = (flops_per_token or llama.flops_per_token)(cfg, seq)
+    mfu = flops * tok_s / PEAKS[0]
     peaks = [r["peak_gib"] and round(r["peak_gib"], 2) for r in res]
     log(f"[{tag}] {len(res)} GPUs: {step_s * 1e3:.2f} ms a step, {tok_s:.1f} "
         f"tok/s per GPU, MFU {mfu:.4f}; peak GiB per GPU {peaks}; losses "
         f"{[round(x, 4) for x in res[0]['losses']]}; collectives ms (rank 0, "
-        f"one step) {res[0].get('collectives_ms')}")
+        f"one step) {res[0].get('collectives_ms')}; warm-up step (with any "
+        f"compile) {max(r.get('compile_s', 0.0) for r in res):.1f} s")
     check(all(np.isfinite(r["losses"]).all() for r in res),
           f"{tag}: a non-finite loss")
     return {"ms": step_s * 1e3, "tok_s_per_gpu": tok_s, "mfu": mfu,
             "peak_gib": [r["peak_gib"] for r in res]}
 
 
-def phase_spmd_cards():
-    """(l-3): on SPMD_CARDS cards, one rank a card over NCCL: the dry run,
-    spmd_bench (fsdp=2 x tp=2 against the 1-GPU step), the ring step
-    (sp=2 x fsdp=2) with its launches per rank, against the same mesh
-    without the ring, and Llama-3-8B at full depth over fsdp=4. -> the
-    ranks' kernel launches (the run without the ring, a reference, does
-    not count)."""
-    import dataclasses
+def first_step_rel(a, b):
+    """(relative loss, relative grad norm) of two runs' first steps, which
+    start from the same state."""
+    return (abs(a["losses"][0] - b["losses"][0]) / abs(b["losses"][0]),
+            abs(a["grad_norms"][0] - b["grad_norms"][0])
+            / abs(b["grad_norms"][0]))
 
-    from ray_tpu_torch import graft_entry
-    from ray_tpu_torch.models import llama
+
+def add_launches(total, ranks):
+    """Add the ranks' per-step launches to `total` in place."""
+    for x in ranks:
+        for k in total:
+            total[k] += sum(s[k] for s in x["launches"])
+
+
+def check_ring_launches(tag, cfg, ranks, sp):
+    """Each rank's flash launches a step: rank r sits at sp coordinate
+    r % sp; under causal it visits its own block and every earlier one,
+    under remat "dots" twice."""
+    for rank, x in enumerate(ranks):
+        c = rank % sp + 1
+        want = {"flash_fwd": 2 * cfg.n_layers * c,
+                "flash_bwd_dq": cfg.n_layers * c,
+                "flash_bwd_dkv": cfg.n_layers * c}
+        log(f"[l-3] {tag} rank {rank} (sp {rank % sp}): launches a step "
+            f"{x['launches'][0]}, want {want}")
+        check(all(s == want for s in x["launches"]),
+              f"{tag} rank {rank} launched {x['launches']}, not {want}")
+
+
+def cards_bench(n, launches):
+    """(l-3) spmd_bench at fsdp=2 x tp=2: the 1-GPU compiled step, and the
+    compiled and eager sharded steps from the same state side by side."""
     from ray_tpu_torch.train import spmd_bench
-    from ray_tpu_torch.train.backend import launch_gang
 
-    n = SPMD_CARDS
-    t0 = time.perf_counter()
-    lines = graft_entry.dryrun_multichip(n, device=DEVICE)
-    check(lines[-1].endswith("all multichip checks passed"),
-          "the NCCL dry run did not pass")
-    log(f"[l-3] the NCCL dry run on {n} cards took "
-        f"{time.perf_counter() - t0:.1f} s")
-
-    res = spmd_bench.run(n, steps=SPMD_BENCH_STEPS, device=DEVICE)
+    res = spmd_bench.run(n, steps=SPMD_BENCH_STEPS, device=DEVICE,
+                         compiled=True)
     log(f"[l-3] spmd_bench {json.dumps(res)}")
     det = res["detail"]
     check(det["loss_max_rel_diff"] <= SPMD_BENCH_LOSS_REL_TOL,
           f"the {n}-GPU trajectory left the 1-GPU one: "
           f"{det['loss_1dev']} vs {det['loss_ndev']}")
-    launches = {k: 0 for k in kernel_counts()}
+    def num(x, spec=".2f"):
+        return "-" if x is None else format(x, spec)
+
+    rows = [f"1 GPU compiled {num(det['step_time_ms_1dev'])}, "
+            f"{num(det['tokens_per_sec_per_gpu_1dev'], '.1f')}, "
+            f"{num(det.get('mfu_1dev'), '.4f')}, 1, "
+            f"{num(det.get('peak_gib_1dev'))}, -, "
+            f"{num(det['compile_s_1dev'], '.1f')}"]
+    for form, r in det["sharded"].items():
+        peaks = [g and round(g, 2) for g in r["peak_gib_per_gpu"]]
+        rows.append(f"{n} GPUs {form} {num(r['step_time_ms'])}, "
+                    f"{num(r['tokens_per_sec_per_gpu'], '.1f')}, "
+                    f"{num(r['mfu'], '.4f')}, "
+                    f"{num(r['scaling_efficiency'], '.4f')}, {peaks}, "
+                    f"{num(r['nccl_ms_rank0'])} / "
+                    f"{num(r['compute_ms_rank0'])}, "
+                    f"{num(r['compile_s'], '.1f')}")
+    log(f"[l-3] table, {det['mesh_axes']} B={det['global_batch']} "
+        f"S={det['seq_len']} (form: ms a step, tok/s per GPU, MFU, scaling, "
+        f"peak GiB per GPU, NCCL ms / compute ms on rank 0, warm-up s): "
+        + "; ".join(rows))
+    rel_loss, rel_norm = first_step_rel(det["sharded"]["compiled"],
+                                        det["sharded"]["eager"])
+    log(f"[l-3] compiled vs eager sharded step, first step from the same "
+        f"state: rel loss {rel_loss:.3e}, grad norm {rel_norm:.3e}")
+    check(rel_loss <= SPMD_LOSS_REL_TOL and rel_norm <= SPMD_NORM_REL_TOL,
+          "the compiled sharded bench step differs from the eager one")
+
+
+def cards_ring(n, launches):
+    """(l-3) the ring at sp=2 x fsdp=2: eager, the same mesh without the
+    ring, and compiled, from the same state."""
+    import dataclasses
+
+    from ray_tpu_torch.train import spmd_bench
+    from ray_tpu_torch.train.backend import launch_gang
 
     cfg = dataclasses.replace(bench_config(), use_ring_attention=True)
     r = SPMD_RING
@@ -2326,47 +2613,272 @@ def phase_spmd_cards():
         f"{rel_loss:.3e}, grad norm {rel_norm:.3e}")
     check(rel_loss <= SPMD_LOSS_REL_TOL and rel_norm <= SPMD_NORM_REL_TOL,
           "the ring step differs from the same mesh without the ring")
-    sp = r["plan"]["sp"]
-    for rank, x in enumerate(res):
-        # rank r sits at sp coordinate r % sp: under causal it visits its
-        # own block and every earlier one, under remat "dots" twice.
-        c = rank % sp + 1
-        want = {"flash_fwd": 2 * cfg.n_layers * c,
-                "flash_bwd_dq": cfg.n_layers * c,
-                "flash_bwd_dkv": cfg.n_layers * c}
-        log(f"[l-3] ring rank {rank} (sp {rank % sp}): launches a step "
-            f"{x['launches'][0]}, want {want}")
-        check(all(s == want for s in x["launches"]),
-              f"ring rank {rank} launched {x['launches']}, not {want}")
-        for k in launches:
-            launches[k] += sum(s[k] for s in x["launches"])
+    check_ring_launches("ring", cfg, res, r["plan"]["sp"])
+    add_launches(launches["spmd"], res)
+    comp = launch_gang(spmd_bench.train_run, n, DEVICE, SPMD_TIMEOUT_S, args=(
+        cfg, r["plan"], tokens, SPMD_STEPS, 0, 3e-4, 1, True))
+    log_mesh_run(f"l-3 ring compiled {r['plan']} B={r['batch']} "
+                 f"S={r['seq']}", cfg, comp, r["batch"], r["seq"])
+    rel_loss, rel_norm = first_step_rel(comp[0], res[0])
+    log(f"[l-3] compiled ring vs eager ring, first step from the same "
+        f"state: rel loss {rel_loss:.3e}, grad norm {rel_norm:.3e}; losses "
+        f"{comp[0]['losses']} vs {res[0]['losses']}")
+    check(rel_loss <= SPMD_LOSS_REL_TOL and rel_norm <= SPMD_NORM_REL_TOL,
+          "the compiled ring step differs from the eager one")
+    check_ring_launches("compiled ring", cfg, comp, r["plan"]["sp"])
+    add_launches(launches["spmd_compiled"], comp)
+
+
+def cards_mixtral(n, launches):
+    """(l-3) Mixtral at 8x7B widths over ep=4: eager and compiled steps
+    from the same state, MFU, peak memory and the all-to-all's device
+    ms."""
+    import dataclasses
+
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.train import spmd_bench
+    from ray_tpu_torch.train.backend import launch_gang
+
+    x = SPMD_MIXTRAL
+    cfg = dataclasses.replace(mixtral_config(), n_layers=x["layers"])
+    tokens = spmd_tokens(cfg, x["batch"], x["seq"], 17)
+    res = launch_gang(spmd_bench.model_forms, n, DEVICE, SPMD_TIMEOUT_S,
+                      args=("mixtral", cfg, x["plan"], {
+                          "inputs": tokens[:, :-1], "targets": tokens[:, 1:]},
+                          spmd_bench.TOKENS, x["steps"]))
+    forms = {}
+    for form in ("eager", "compiled"):
+        ranks = [r[form] for r in res]
+        forms[form] = ranks
+        log_mesh_run(f"l-3 Mixtral {form} {cfg.n_layers} layers {x['plan']} "
+                     f"B={x['batch']} S={x['seq']}", cfg, ranks, x["batch"],
+                     x["seq"], mixtral.flops_per_token)
+        a2a = {k: v for k, v in (ranks[0].get("collectives_ms") or {}).items()
+               if "sendrecv" in k.lower() or "alltoall" in k.lower()}
+        log(f"[l-3] Mixtral {form}: the all-to-all's device ms (rank 0, one "
+            f"step) {a2a}")
+        add_launches(launches["zoo_mesh"], ranks)
+    rel = abs(forms["compiled"][0]["losses"][0]
+              - forms["eager"][0]["losses"][0]) / abs(
+        forms["eager"][0]["losses"][0])
+    log(f"[l-3] Mixtral compiled vs eager, first step from the same state: "
+        f"rel loss {rel:.3e}")
+    check(rel <= SPMD_MIXTRAL_REL_TOL, "the compiled Mixtral ep step differs "
+          "from the eager one")
+
+
+def cards_versus_one(tag, family, cfg, plan, batch_np, logical, items):
+    """(l-3) `family`'s sharded eager step on the mesh `plan` against the
+    one-card step on the same global batch: three steps each."""
+    from ray_tpu_torch.train import spmd_bench
+    from ray_tpu_torch.train.backend import launch_gang
+
+    n = SPMD_CARDS
+    res = launch_gang(spmd_bench.versus_one, n, DEVICE, SPMD_TIMEOUT_S,
+                      args=(family, cfg, plan, batch_np, logical,
+                            SPMD_ZOO_STEPS))
+    one, ranks = res[0]["one"], [r["mesh"] for r in res]
+    step_n = max(r["step_s"] for r in ranks)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                  one["losses"]))
+    log(f"[l-3] {tag} {plan}, eager, {len(one['losses'])} steps: "
+        f"{step_n * 1e3:.2f} ms a step on {n} GPUs ({items / step_n / n:.1f} "
+        f"per GPU a second) vs {one['step_s'] * 1e3:.2f} ms on one "
+        f"({items / one['step_s']:.1f}); peak GiB per GPU "
+        f"{[r['peak_gib'] and round(r['peak_gib'], 2) for r in ranks]} vs "
+        f"{one['peak_gib'] and round(one['peak_gib'], 2)}; losses "
+        f"{ranks[0]['losses']} vs "
+        f"{one['losses']}: rel {rel:.3e}; grad norms "
+        f"{ranks[0]['grad_norms']} vs {one['grad_norms']}; collectives ms "
+        f"(rank 0, one step) {ranks[0].get('collectives_ms')}")
+    check(rel <= SPMD_ZOO_REL_TOL, f"{tag} on the mesh differs from the "
+          "one-card step")
+
+
+def cards_vit(n, launches):
+    """(l-3) ViT-B/16 over dp=4 against the one-card step."""
+    import dataclasses
+
+    from ray_tpu_torch.models import vit
+
+    rng = np.random.default_rng(19)
+    cfg = dataclasses.replace(vit.ViTConfig.base_16(), **VIT_CUT)
+    b = SPMD_VIT["batch"]
+    batch = {"images": rng.standard_normal(
+        (b, cfg.image_size, cfg.image_size, cfg.num_channels)).astype(
+            np.float32), "labels": rng.integers(0, cfg.num_classes, b)}
+    cards_versus_one("ViT-B/16", "vit", cfg, SPMD_VIT["plan"], batch,
+                     {"images": ("batch", None, None, None),
+                      "labels": ("batch",)}, b)
+
+
+def cards_t5(n, launches):
+    """(l-3) T5-base over dp=2 x tp=2 against the one-card step."""
+    import dataclasses
+
+    from ray_tpu_torch.models import t5
+
+    rng = np.random.default_rng(19)
+    cfg = dataclasses.replace(t5.T5Config.base(), **T5_CUT)
+    m, s_src, s_tgt = T5_SHAPE
+    src = rng.integers(3, cfg.vocab_size, (m, s_src))
+    src[::2, s_src * 3 // 4:] = cfg.pad_id
+    tgt = rng.integers(3, cfg.vocab_size, (m, s_tgt))
+    tgt[:, 0] = 1
+    cards_versus_one("T5-base", "t5", cfg, SPMD_T5["plan"],
+                     {"src": src, "tgt": tgt},
+                     {"src": ("batch", None), "tgt": ("batch", None)},
+                     m * (s_tgt - 1))
+
+
+def cards_pipeline(n, launches):
+    """(l-3) a pp=4 pipeline of Llama-width MLP stages (fp32): its output
+    and gradients against the one-card sequential composition."""
+    from ray_tpu_torch.parallel import gang_cases
+    from ray_tpu_torch.train.backend import launch_gang
+
+    cfg = bench_config()
+    p = SPMD_PIPE
+    res = launch_gang(gang_cases.pipeline_mlp_case, n, DEVICE,
+                      SPMD_TIMEOUT_S, args=(cfg.d_model, cfg.d_ff, p["m"],
+                                            p["mb"][0] * p["mb"][1], 23))[0]
+    log(f"[l-3] pipeline pp={n} of SwiGLU stages {cfg.d_model} x "
+        f"{cfg.d_ff} (fp32), {p['m']} microbatches of {p['mb']} tokens: "
+        f"forward and backward {res['seconds']:.3f} s; relative L2 error "
+        f"against the stages in sequence on one card {res['rel_err']}")
+    check(max(res["rel_err"].values()) <= p["rel_tol"],
+          "the pipeline's output or gradients differ from the sequential "
+          "composition")
+
+
+def cards_engine(n, launches):
+    """(l-3) the Llama-3-8B dense engine at tp=4 against the one-card dense
+    engine on the same weights and prompts."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import gang_cases
+    from ray_tpu_torch.train.backend import launch_gang
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    e = SPMD_ENGINE
+    rng = np.random.default_rng(29)
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(
+        *e["prompt_len"]))).tolist() for _ in range(e["prompts"])]
+    t0 = time.perf_counter()
+    res = launch_gang(gang_cases.dense_engine_versus_one, n, DEVICE,
+                      SPMD_TIMEOUT_S, args=(cfg, prompts, e["new_tokens"],
+                                            e["max_len"], 31))[0]
+    log(f"[l-3] Llama-3-8B dense engine tp={n} vs one card, "
+        f"{len(prompts)} prompts of {[len(p) for p in prompts]} tokens, "
+        f"{e['new_tokens']} new ({time.perf_counter() - t0:.1f} s): prefill "
+        f"logits rel L2 {res['logits_rel']:.3e}; first tokens equal "
+        f"{res['first_equal']}; tokens that agree before the first "
+        f"divergence {res['agree_before_divergence']} of {e['new_tokens']}")
+    check(res["first_equal"] and res["logits_rel"] <= e["logits_rel_tol"],
+          "the tp=4 dense engine differs from the one-card engine")
+
+
+def cards_llama8b(n, launches):
+    """(l-3) Llama-3-8B at its full 32 layers over fsdp=4: the eager step,
+    then the compiled step from the same state."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import spmd_bench
+    from ray_tpu_torch.train.backend import launch_gang
 
     cfg = llama.LlamaConfig.llama3_8b()
     f = SPMD_FULL
-    res = launch_gang(spmd_bench.train_run, n, DEVICE, SPMD_TIMEOUT_S, args=(
-        cfg, f["plan"], spmd_tokens(cfg, f["batch"], f["seq"], 13),
-        f["steps"]))
-    log_mesh_run(f"l-3 Llama-3-8B {cfg.n_layers} layers {f['plan']} "
-                 f"B={f['batch']} S={f['seq']}", cfg, res, f["batch"],
-                 f["seq"])
-    for x in res:
-        for k in launches:
-            launches[k] += sum(s[k] for s in x["launches"])
+    tokens = spmd_tokens(cfg, f["batch"], f["seq"], 13)
+    res = launch_gang(spmd_bench.model_forms, n, DEVICE, 2 * SPMD_TIMEOUT_S,
+                      args=("llama", cfg, f["plan"], {
+                          "inputs": tokens[:, :-1], "targets": tokens[:, 1:]},
+                          spmd_bench.TOKENS, f["steps"]))
+    for form, path, tag in (("eager", "spmd", ""),
+                            ("compiled", "spmd_compiled", " compiled")):
+        ranks = [r[form] for r in res]
+        log_mesh_run(f"l-3 Llama-3-8B{tag} {cfg.n_layers} layers "
+                     f"{f['plan']} B={f['batch']} S={f['seq']}", cfg, ranks,
+                     f["batch"], f["seq"])
+        add_launches(launches[path], ranks)
+    rel_loss, rel_norm = first_step_rel(res[0]["compiled"], res[0]["eager"])
+    log(f"[l-3] Llama-3-8B compiled vs eager, first step from the same "
+        f"state: rel loss {rel_loss:.3e}, grad norm {rel_norm:.3e}")
+    check(rel_loss <= SPMD_LOSS_REL_TOL and rel_norm <= SPMD_NORM_REL_TOL,
+          "the compiled Llama-3-8B step differs from the eager one")
+
+
+def phase_spmd_cards():
+    """(l-3): on SPMD_CARDS cards, one rank a card over NCCL: the dry run,
+    then each part in turn (a part that fails is logged and the next one
+    runs; the phase fails at its end): spmd_bench (fsdp=2 x tp=2, the
+    compiled and the eager sharded step against the 1-GPU compiled step),
+    the ring (sp=2 x fsdp=2) eager, without the ring and compiled with
+    launches per rank, Mixtral over ep=4, ViT-B/16 over dp=4 and T5-base
+    over dp=2 x tp=2 against one card, the pp=4 pipeline's gradients, the
+    Llama-3-8B dense engine at tp=4 against one card, and Llama-3-8B at
+    full depth over fsdp=4, eager and compiled. -> the ranks' kernel
+    launches by path (reference runs do not count)."""
+    import traceback
+
+    from ray_tpu_torch import graft_entry
+
+    n = SPMD_CARDS
+    t0 = time.perf_counter()
+    lines = graft_entry.dryrun_multichip(n, device=DEVICE)
+    check(lines[-1].endswith("all multichip checks passed"),
+          "the NCCL dry run did not pass")
+    log(f"[l-3] the NCCL dry run on {n} cards took "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = spmd_launches()
+    failed = []
+    for part in CARDS_PARTS:
+        t0 = time.perf_counter()
+        try:
+            part(n, launches)
+        except Exception as e:  # noqa: BLE001 - logged, and fails the phase
+            failed.append(part.__name__)
+            log(f"[l-3] {part.__name__} FAILED: {e!r}\n"
+                + traceback.format_exc())
+        log(f"[l-3] {part.__name__}: {time.perf_counter() - t0:.1f} s")
+    check(not failed, f"(l-3) parts failed: {failed}")
+    return launches
+
+
+CARDS_PARTS = (cards_bench, cards_ring, cards_mixtral, cards_vit, cards_t5,
+               cards_pipeline, cards_engine, cards_llama8b)
+
+
+def spmd_launches():
+    """Zero launch counts for each of (l)'s paths."""
+    return {path: {k: 0 for k in kernel_counts()}
+            for path in ("spmd", "spmd_compiled", "zoo_mesh")}
+
+
+def phase_spmd_part(name):
+    """One (l-3) part alone (`--only l --part NAME`, e.g. to measure it
+    again): cards_NAME on SPMD_CARDS cards. -> its launches by path."""
+    part = {p.__name__: p for p in CARDS_PARTS}[f"cards_{name}"]
+    n_cards = torch.cuda.device_count()
+    check(n_cards >= SPMD_CARDS, f"(l-3) part {name} needs {SPMD_CARDS} "
+          f"cards; {n_cards} visible")
+    launches = spmd_launches()
+    t0 = time.perf_counter()
+    part(SPMD_CARDS, launches)
+    log(f"[l-3] {part.__name__}: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
 def phase_spmd(eager_first=None):
-    """(l): the SPMD path. -> the kernel launches of its main path."""
+    """(l): the SPMD path. -> the kernel launches of its main paths."""
     n_cards = torch.cuda.device_count()
     branch = "(l-3)" if n_cards >= SPMD_CARDS else "(l-2)"
     log(f"[l] {n_cards} GPU(s) visible: (l-1), then {branch}")
     launches = phase_spmd_world1(eager_first)
     if n_cards >= SPMD_CARDS:
-        for k, v in phase_spmd_cards().items():
-            launches[k] += v
+        for path, counts in phase_spmd_cards().items():
+            for k, v in counts.items():
+                launches[path][k] += v
     else:
         phase_spmd_cpu_ranks(n_cards)
-    log(f"[l] launches on the SPMD path: {launches}")
+    log(f"[l] launches on the SPMD paths: {launches}")
     return launches
 
 
@@ -3123,7 +3635,12 @@ def main(argv=()) -> int:
                         help="run phase (l), the SPMD path (with 4 cards its "
                         "4-card part), (m), RLlib's one-process path, or "
                         "(n), the data plane, alone after the kernel build")
+    parser.add_argument("--part", default=None, choices=[
+        p.__name__[len("cards_"):] for p in CARDS_PARTS],
+        help="with --only l on 4 cards: this (l-3) part alone")
     args = parser.parse_args(list(argv))
+    if args.part is not None and args.only != "l":
+        parser.error("--part needs --only l")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on an NVIDIA card", file=sys.stderr)
@@ -3147,7 +3664,8 @@ def main(argv=()) -> int:
 
     phase_build()
     if args.only == "l":
-        spmd = phase_spmd()
+        spmd = (phase_spmd_part(args.part) if args.part is not None
+                else phase_spmd())
         log(f"[l] {time.perf_counter() - t_start:.1f} s in all")
         print(card)
         print(json.dumps({"spmd_launches": spmd}))
@@ -3264,11 +3782,11 @@ def main(argv=()) -> int:
     for name, (source, line) in sources.items():
         by_path = {"serve": serve[name], "train": train[name],
                    "train_compiled": compiled[name], "mixtral": zoo[name],
-                   "spmd": spmd[name], "feed": feed[name]}
-        check(by_path["train"] > 0 and by_path["train_compiled"] > 0
-              and by_path["mixtral"] > 0 and by_path["spmd"] > 0
-              and by_path["feed"] > 0,
-              f"a training path never launched {name}")
+                   "spmd": spmd["spmd"][name],
+                   "spmd_compiled": spmd["spmd_compiled"][name],
+                   "zoo_mesh": spmd["zoo_mesh"][name], "feed": feed[name]}
+        check(all(v > 0 for path, v in by_path.items() if path != "serve"),
+              f"a training path never launched {name}: {by_path}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": f"ray_tpu/ops/flash_attention.py:{line}",

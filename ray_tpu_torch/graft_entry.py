@@ -77,14 +77,25 @@ def _axis_plan(n: int):
 
 # The ring's loss against the same step without it (fp32, tiny).
 RING_REL_TOL = 1e-5
+# The compiled sharded step against the eager one from the same state
+# (fp32, tiny; the compiled step is not bit-repeatable).
+COMPILED_REL_TOL = 1e-4
 # The split pipeline and MoE against their one-rank arithmetic (fp32).
 SPLIT_ATOL = 1e-5
 
 
-def _tiny_step(mesh, cfg, tokens, seed):
-    """One sharded eager AdamW step of the tiny config on `mesh`; ->
-    (loss, grad norm, the loss of the state the step started from with the
-    ring turned off)."""
+def _compile_backend() -> str:
+    """inductor on the card; aot_eager on CPU ranks (no Triton there)."""
+    from ray_tpu_torch.train.backend import rank_device
+
+    return "inductor" if rank_device().type == "cuda" else "aot_eager"
+
+
+def _tiny_step(mesh, cfg, tokens, seed, compiled=False):
+    """One sharded AdamW step (eager, or compiled as one program over the
+    DTensor parameters) of the tiny config on `mesh`; -> (loss, grad norm,
+    the loss of the state the step started from with the ring turned
+    off)."""
     import dataclasses
     import functools
 
@@ -111,9 +122,40 @@ def _tiny_step(mesh, cfg, tokens, seed):
                                       rules=rules))
     step = make_train_step(functools.partial(
         llama.loss_fn, config=cfg, mesh=mesh, rules=rules), opt,
-        compiled=False)
+        compiled=compiled, backend=_compile_backend())
     state, m = step(state, batch)
     return float(m["loss"]), float(m["grad_norm"]), no_ring
+
+
+def _mixtral_ep_step(mesh, seed):
+    """One sharded eager AdamW step of the tiny fp32 Mixtral on `mesh` (its
+    MoE through moe_shard_map over ep); -> (loss, grad norm)."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+    from ray_tpu_torch.train.backend import rank_device
+    from ray_tpu_torch.train.spmd import batch_sharding, shard_local_batch
+
+    dev = rank_device()
+    cfg = dataclasses.replace(mixtral.MixtralConfig.tiny(),
+                              dtype=torch.float32)
+    opt = adamw(1e-3)
+    state = init_train_state(
+        functools.partial(mixtral.init, cfg, torch.Generator(
+            device=dev).manual_seed(seed)), opt, device=dev,
+        param_logical_axes=mixtral.param_logical_axes(cfg), mesh=mesh)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (4, 65))
+    batch = shard_local_batch({"inputs": toks[:, :-1],
+                               "targets": toks[:, 1:]},
+                              batch_sharding(mesh), mesh, dev)
+    step = make_train_step(functools.partial(mixtral.loss_fn, config=cfg,
+                                             mesh=mesh), opt, compiled=False)
+    state, m = step(state, batch)
+    return float(m["loss"]), float(m["grad_norm"])
 
 
 def _dryrun_body(n_devices: int, tag: str):
@@ -158,6 +200,13 @@ def _dryrun_body(n_devices: int, tag: str):
         check(rel <= RING_REL_TOL, f"ring loss {loss} vs {no_ring}: {rel}")
         say(f"ring over sp={plan['sp']} against the gathered-sequence flash "
             f"attention: loss {loss:.6f} vs {no_ring:.6f} (rel {rel:.2e})")
+    c_loss, c_norm, _ = _tiny_step(mesh, cfg, toks, seed=0, compiled=True)
+    rel = max(abs(c_loss - loss) / abs(loss), abs(c_norm - norm) / abs(norm))
+    check(rel <= COMPILED_REL_TOL, f"compiled step (loss {c_loss}, grad norm "
+          f"{c_norm}) vs eager ({loss}, {norm}): {rel}")
+    say(f"compiled sharded step ({_compile_backend()}) OK: loss="
+        f"{c_loss:.6f} grad_norm={c_norm:.6f}, rel {rel:.2e} against the "
+        "eager step")
 
     if n_devices % 2 == 0:
         from torch.distributed.tensor import DTensor
@@ -214,6 +263,11 @@ def _dryrun_body(n_devices: int, tag: str):
               f"MoE: shape {tuple(out.shape)}, err {err}")
         say(f"MoE dispatch (ep={ep}) OK: max |err| {err:.2e} against the "
             "one-rank layer on this rank's tokens")
+        mx_loss, mx_norm = _mixtral_ep_step(mesh3, seed=4)
+        check(np.isfinite([mx_loss, mx_norm]).all() and mx_loss > 0,
+              f"Mixtral ep step: loss {mx_loss}, grad norm {mx_norm}")
+        say(f"Mixtral step (dp={n_devices // ep} x ep={ep}) OK: "
+            f"loss={mx_loss:.6f} grad_norm={mx_norm:.6f}")
 
         per_slice = n_devices // 2
         ms_plan = _axis_plan(per_slice)

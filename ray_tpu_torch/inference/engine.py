@@ -75,27 +75,59 @@ class InferenceEngine:
         max_batch: int = 8,
         max_len: int = 1024,
         prefill_buckets: Optional[Tuple[int, ...]] = None,
+        mesh: Any = None,
         decode_chunk: int = 16,
         device=None,
     ):
-        """`params` must already be on `device` (cuda unless "cpu")."""
+        """`params` must already be on `device` (cuda unless "cpu").
+
+        With `mesh`, decode runs tensor-parallel over its tp dim, as the
+        paged engine's does: `params` are DTensors in their tp layout
+        (`shard_params_for_inference`), every rank of the gang runs the
+        same engine on the same requests, each on its block of the weights
+        (heads and MLP hidden units, the config's head counts divided by
+        tp) and of the cache (`cache_placements`: the KV-head dim over tp),
+        and the row-parallel products end in a sum over tp. The host
+        bookkeeping is the same on every rank. As a rule, an engine on a
+        mesh decodes without a CUDA graph: no collective is captured."""
         if forward_with_cache is None or init_kv_cache is None:
             from ray_tpu_torch.models import llama
 
             forward_with_cache = forward_with_cache or llama.forward_with_cache
             init_kv_cache = init_kv_cache or llama.init_kv_cache
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.cache_placements = None
+        model_config = config
+        if mesh is not None:
+            import functools
+
+            from ray_tpu_torch.parallel.sharding import ShardingContext
+            from ray_tpu_torch.train.optim import tree_map
+
+            ctx = ShardingContext(mesh)
+            model_config = dataclasses.replace(
+                config, n_heads=config.n_heads // ctx.tp,
+                n_kv_heads=config.n_kv_heads // ctx.tp)
+            with torch.no_grad():
+                params = tree_map(ctx.local, params)
+            forward_with_cache = functools.partial(forward_with_cache,
+                                                   tp_sum=ctx.tp_sum)
+            self.cache_placements = ctx.placements(
+                (None, None, None, "act_heads", None))
         for w in _tensors(params):
             if w.device.type != self.device.type:
                 raise ValueError(f"a parameter is on {w.device}; the engine "
                                  f"runs on {self.device}")
         self.params = params
         self.config = config
+        # What the model computes on this rank: its tp block's head counts.
+        self._model_config = model_config
         self.max_batch = max_batch
         self.max_len = max_len
         self.buckets = prefill_buckets or _default_buckets(max_len)
         self._fwd = forward_with_cache
-        self.cache = init_kv_cache(config, max_batch, max_len,
+        self.cache = init_kv_cache(model_config, max_batch, max_len,
                                    device=self.device)
         # slot state (host side)
         self.lengths = np.zeros(max_batch, dtype=np.int64)
@@ -104,8 +136,10 @@ class InferenceEngine:
         self.decode_chunk = max(1, decode_chunk)
         self._decoder = FusedDecode(
             lambda tok, lens, _table: self._fwd(
-                self.params, tok, self.cache, lens, self.config)[0],
+                self.params, tok, self.cache, lens, self._model_config)[0],
             max_batch, max_len, self._gen, stop_at_len=max_len)
+        if mesh is not None:
+            self._decoder.use_graph = False
 
     # -- device side --------------------------------------------------------
 
@@ -127,7 +161,7 @@ class InferenceEngine:
         logits, row_cache = self._fwd(
             self.params, tokens, row_cache,
             torch.zeros(n, dtype=torch.int64, device=self.device),
-            self.config)
+            self._model_config)
         valid = (torch.arange(t, device=self.device)[None, :]
                  < true_lens[:, None])[None, :, :, None, None]
         for name, c in self.cache.items():

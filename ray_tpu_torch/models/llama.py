@@ -40,6 +40,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.ops.flash_attention import (NEG_INF, flash_attention,
                                                flash_attention_sharded)
+from ray_tpu_torch.parallel import ring_attention  # noqa: F401 ring_fwd
 from ray_tpu_torch.parallel.sharding import ShardingContext
 
 
@@ -305,28 +306,33 @@ def _maybe(fn, x):
     return x if fn is None else fn(x)
 
 
+_ATTENTION_FORWARDS = (torch.ops.ray_tpu_torch.flash_fwd.default,
+                       torch.ops.ray_tpu_torch.ring_fwd.default)
+
+
 def _save_dots(ctx, op, *args, **kwargs):
     """`dots_with_no_batch_dims_saveable`: keep what an un-batched matrix
     product (aten.mm, which every projection here lowers to) returns;
     recompute the rest, batched products (aten.bmm) and the flash-attention
     forward included, as the JAX policy recomputes its pallas_call. The
-    forward is marked must-recompute, so a compiled step reruns it as the
-    eager one does whatever the partitioner's cost model would choose."""
+    forward (or the ring's, which runs it block by block) is marked
+    must-recompute, so a compiled step reruns it as the eager one does
+    whatever the partitioner's cost model would choose."""
     if op == torch.ops.aten.mm.default:
         return CheckpointPolicy.MUST_SAVE
-    if op == torch.ops.ray_tpu_torch.flash_fwd.default:
+    if op in _ATTENTION_FORWARDS:
         return CheckpointPolicy.MUST_RECOMPUTE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _save_dots_attn(ctx, op, *args, **kwargs):
-    """"dots" and the flash-attention forward's outputs, O and lse, so the
-    backward reruns no attention forward. The JAX policy saves O by name
-    ("attn_out") but not the custom_vjp's lse residual, so its backward
-    still reruns the kernel (4 pallas_calls a layer, as under "dots"); this
-    keeps the policy's stated purpose: one forward launch a layer."""
-    if op in (torch.ops.aten.mm.default,
-              torch.ops.ray_tpu_torch.flash_fwd.default):
+    """"dots" and the flash-attention forward's outputs, O and lse (the
+    ring's too), so the backward reruns no attention forward. The JAX
+    policy saves O by name ("attn_out") but not the custom_vjp's lse
+    residual, so its backward still reruns the kernel (4 pallas_calls a
+    layer, as under "dots"); this keeps the policy's stated purpose: one
+    forward launch a layer."""
+    if op == torch.ops.aten.mm.default or op in _ATTENTION_FORWARDS:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -548,9 +554,9 @@ def _embed_sharded(table, tokens, ctx, vocab_tp: bool):
     return ctx.tp_sum(torch.where(inside[..., None], rows, 0))
 
 
-def _forward_hidden_sharded(params, tokens, config: LlamaConfig, ctx):
-    """This rank's block of the final-norm hidden states [B_loc,S_loc,D]."""
-    c = config
+def _embed_local(params, tokens, config, ctx):
+    """This rank's token block [B_loc,S_loc] embedded (vocab-parallel where
+    the table's vocab splits over tp), and the tokens' global positions."""
     tokens = ctx.local(tokens)
     b, s = tokens.shape
     start = ctx.block_start("seq", s)
@@ -558,26 +564,43 @@ def _forward_hidden_sharded(params, tokens, config: LlamaConfig, ctx):
                              device=tokens.device).expand(b, s)
     table = params["embed"]
     x = _embed_sharded(ctx.gather(ctx.local(table), table.placements),
-                       tokens, ctx, ctx.on_tp(table.placements, 0)).to(c.dtype)
-    stacked = params["layers"]
-    placements = {n: _layer_placements(w.placements)
-                  for n, w in stacked.items()}
-    locals_ = {n: ctx.local(w) for n, w in stacked.items()}
+                       tokens, ctx, ctx.on_tp(table.placements, 0))
+    return x.to(config.dtype), positions
+
+
+def layers_local(stacked, n: int, ctx):
+    """DTensor parameters stacked on a leading L axis (nested
+    dictionaries) -> the n per-layer dictionaries of this rank's blocks,
+    and the placements of one layer's slice of each."""
+    from ray_tpu_torch.train.optim import tree_map
+
+    placements = tree_map(lambda w: _layer_placements(w.placements), stacked)
+    return unbind_layers(tree_map(ctx.local, stacked), n), placements
+
+
+def _norm_local(x, weight, eps, ctx):
+    """RMSNorm by a (replicated or gathered) DTensor weight."""
+    return _rms_norm(x, ctx.gather(ctx.local(weight), weight.placements),
+                     eps)
+
+
+def _forward_hidden_sharded(params, tokens, config: LlamaConfig, ctx):
+    """This rank's block of the final-norm hidden states [B_loc,S_loc,D]."""
+    c = config
+    x, positions = _embed_local(params, tokens, c, ctx)
+    layers, placements = layers_local(params["layers"], c.n_layers, ctx)
     call = layer_caller(c)
-    for lp in unbind_layers(locals_, c.n_layers):
+    for lp in layers:
         x = call(_layer_sharded, x, lp, positions, c, ctx, placements)
-    norm = params["final_norm"]
-    return _rms_norm(x, ctx.gather(ctx.local(norm), norm.placements),
-                     c.norm_eps)
+    return _norm_local(x, params["final_norm"], c.norm_eps, ctx)
 
 
-def _chunk_nll_vocab_parallel(h, lm_head, targets, mask, ctx):
-    """`_chunk_nll` with lm_head's vocab split over tp: each rank's logits
-    of its vocab block, the row max and sum of exponentials and the
-    target's logit assembled over tp."""
+def vocab_parallel_nll(logits, targets, ctx):
+    """Per-token NLL from each rank's fp32 logits of its vocab block [...,
+    V_loc] (the vocab split over tp): the row max, the sum of exponentials
+    and the target's logit assembled over tp."""
     import torch.distributed as dist
 
-    logits = (h @ lm_head).float()
     v_loc = logits.shape[-1]
     m = logits.detach().amax(-1, keepdim=True)
     dist.all_reduce(m, op=dist.ReduceOp.MAX, group=ctx.mesh.get_group("tp"))
@@ -586,26 +609,42 @@ def _chunk_nll_vocab_parallel(h, lm_head, targets, mask, ctx):
     inside = (idx >= 0) & (idx < v_loc)
     picked = logits.gather(-1, idx.clamp(0, v_loc - 1)[..., None])[..., 0]
     target = ctx.tp_sum(torch.where(inside, picked, 0.0))
-    nll = torch.log(sumexp) + m[..., 0] - target
+    return torch.log(sumexp) + m[..., 0] - target
+
+
+def _chunk_nll_vocab_parallel(h, lm_head, targets, mask, ctx):
+    """`_chunk_nll` with lm_head's vocab split over tp."""
+    nll = vocab_parallel_nll((h @ lm_head).float(), targets, ctx)
     return torch.sum(nll * mask)
 
 
-def _loss_sharded(params, batch, config: LlamaConfig, ctx):
-    """The global mean NLL from each rank's tokens: `chunked_ce` of the
-    rank's block over the global mask count, summed over the data dims."""
-    inputs, targets, mask = (ctx.local(t) if t is not None else None
-                             for t in _loss_inputs(batch))
-    hidden = _forward_hidden_sharded(params, inputs, config, ctx)
-    lm_dt = params["lm_head"]
+def ce_sharded(hidden, lm_dt, targets, mask, chunk: int, ctx):
+    """The global masked mean next-token NLL of hidden [B_loc,S_loc,D]
+    through the DTensor lm_head [D, V] (vocab-parallel where its vocab
+    splits over tp), from each rank's tokens: `chunked_ce` of the rank's
+    block over the global mask count, summed over the data dims."""
     lm = ctx.gather(ctx.local(lm_dt), lm_dt.placements)
     vocab_tp = ctx.on_tp(lm_dt.placements, 1)
     if vocab_tp:
         hidden = ctx.tp_copy(hidden)
     nll = (functools.partial(_chunk_nll_vocab_parallel, ctx=ctx) if vocab_tp
            else _chunk_nll)
-    return ctx.data_sum(chunked_ce(hidden, lm, targets, mask,
-                                   config.loss_chunk_size, nll=nll,
-                                   count_sum=ctx.data_sum))
+    return ctx.data_sum(chunked_ce(hidden, lm, targets, mask, chunk,
+                                   nll=nll, count_sum=ctx.data_sum))
+
+
+def loss_inputs_local(batch, ctx):
+    """(inputs, targets, mask) of a DTensor batch, as this rank's blocks."""
+    return tuple(ctx.local(t) if t is not None else None
+                 for t in _loss_inputs(batch))
+
+
+def _loss_sharded(params, batch, config: LlamaConfig, ctx):
+    """The global mean NLL from each rank's tokens."""
+    inputs, targets, mask = loss_inputs_local(batch, ctx)
+    hidden = _forward_hidden_sharded(params, inputs, config, ctx)
+    return ce_sharded(hidden, params["lm_head"], targets, mask,
+                      config.loss_chunk_size, ctx)
 
 
 def init_kv_cache(config: LlamaConfig, batch: int, max_len: int,
@@ -750,24 +789,28 @@ def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, lengths,
 
 
 def _attn_sublayer_decode(x, params, positions, config: LlamaConfig,
-                          k_cache, v_cache):
+                          k_cache, v_cache, tp_sum=None):
     """Decode-step (S=1) attention block: attends over the cache plus the
     new token's own K/V, returning (x, (k, v)) with the new K/V for the
     deferred cache scatter in forward_with_cache."""
     c = config
     q, k, v = _qkv(x, params, positions, c)
     attn = _decode_attention(q, k, v, k_cache, v_cache, positions[:, 0], c)
-    x = x + _proj_out(attn, params["wo"])
+    x = x + _maybe(tp_sum, _proj_out(attn, params["wo"]))
     return x, (k.to(k_cache.dtype), v.to(v_cache.dtype))
 
 
-def forward_with_cache(params, tokens, cache, lengths, config: LlamaConfig):
+def forward_with_cache(params, tokens, cache, lengths, config: LlamaConfig,
+                       tp_sum=None):
     """Incremental forward for generation (prefill when S>1, decode at S=1).
 
     tokens: [B, S] the NEW tokens, logically at positions lengths..lengths+S.
     cache:  dict from init_kv_cache, updated IN PLACE (the JAX package
             donates it and returns the new one; this returns the same dict).
     lengths: [B] integer — number of tokens already in the cache per row.
+    tp_sum: for a tensor-parallel engine (params this rank's tp blocks,
+            config its head counts, the cache its KV heads), the sum over
+            the tp ranks that ends each row-parallel product.
     -> (logits [B, S, vocab] fp32, cache)
     """
     c = config
@@ -782,8 +825,8 @@ def forward_with_cache(params, tokens, cache, lengths, config: LlamaConfig):
         for i in range(c.n_layers):
             lp = _layer_params(params, i)
             x, (k1, v1) = _attn_sublayer_decode(
-                x, lp, positions, c, cache["k"][i], cache["v"][i])
-            x = _mlp_sublayer(x, lp, c)
+                x, lp, positions, c, cache["k"][i], cache["v"][i], tp_sum)
+            x = _mlp_sublayer(x, lp, c, tp_sum=tp_sum)
             k_new.append(k1[:, 0])
             v_new.append(v1[:, 0])
         t = cache["k"].shape[2]
@@ -801,8 +844,8 @@ def forward_with_cache(params, tokens, cache, lengths, config: LlamaConfig):
             lp = _layer_params(params, i)
             x = _attn_sublayer(x, lp, positions, c,
                                kv_cache=(cache["k"][i], cache["v"][i]),
-                               lengths=lengths)
-            x = _mlp_sublayer(x, lp, c)
+                               lengths=lengths, tp_sum=tp_sum)
+            x = _mlp_sublayer(x, lp, c, tp_sum=tp_sum)
     x = _rms_norm(x, params["final_norm"], c.norm_eps)
     return (x @ params["lm_head"]).float(), cache
 

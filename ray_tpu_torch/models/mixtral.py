@@ -12,13 +12,23 @@ saved are the un-batched ones (aten.mm: the attention projections and the
 fp32 gate logits); the expert products are batched (aten.bmm), so the
 backward recomputes them, as JAX's `dots_with_no_batch_dims_saveable`
 recomputes the batched expert `dot_general`s; the routing, the dispatch
-gather and the combine are recomputed too. The expert-parallel branch
-(`moe_shard_map` over an `ep` mesh axis) waits for the multi-GPU slice.
+gather and the combine are recomputed too.
+
+With `mesh=`, `forward` and `loss_fn` take DTensor parameters in the
+shardings of `param_logical_axes` and a DTensor batch, and run each rank's
+blocks as Llama's sharded path does (`llama._layer_sharded`'s gathers, tp
+collectives and sharded flash attention). The MoE block routes the tokens
+as the JAX function partitions them: the whole flattened batch [B*S, D]
+split over `ep` alone (replicated over the data dims), each shard's
+capacity from its T / ep tokens, through `moe_shard_map` when `ep` > 1 and
+`moe_layer` on every token otherwise; which tokens share a shard decides
+the drops, so the port gathers the tokens and cuts them as JAX does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
@@ -26,7 +36,8 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.llama import LlamaConfig, _rms_norm
-from ray_tpu_torch.parallel.moe import moe_layer
+from ray_tpu_torch.parallel.moe import moe_layer, moe_shard_map
+from ray_tpu_torch.parallel.sharding import ShardingContext
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +79,23 @@ def param_shapes(config: MixtralConfig) -> Dict[str, Any]:
     layers["experts"] = {"w_gate": (L, E, D, F_), "w_up": (L, E, D, F_),
                          "w_down": (L, E, F_, D)}
     return shapes
+
+
+def param_logical_axes(config: MixtralConfig) -> Dict[str, Any]:
+    """Logical axis names per parameter: Llama's without the dense FFN,
+    the gate's experts and the experts' leading dim on 'expert'."""
+    axes = llama.param_logical_axes(config)
+    layer_axes = axes["layers"]
+    for k in ("w_gate", "w_up", "w_down"):
+        layer_axes.pop(k, None)
+    L = ("layers",)
+    layer_axes["moe_gate"] = L + ("embed", "expert")
+    layer_axes["experts"] = {
+        "w_gate": L + ("expert", "embed", "mlp"),
+        "w_up": L + ("expert", "embed", "mlp"),
+        "w_down": L + ("expert", "mlp", "embed"),
+    }
+    return axes
 
 
 def init(config: MixtralConfig, generator: torch.Generator,
@@ -121,11 +149,22 @@ def _layer(x, layer_p, positions, config: MixtralConfig):
     return x + out, aux
 
 
-def forward(params, tokens, config: MixtralConfig):
+def forward(params, tokens, config: MixtralConfig, mesh=None, rules=None):
     """tokens [B,S] -> (logits [B,S,V] fp32, aux_loss: the layers' mean).
 
     With config.remat and gradients enabled each layer is checkpointed
-    under config.remat_policy."""
+    under config.remat_policy. With a mesh, params and tokens are DTensors
+    and so are the logits (batch, seq, act_vocab) and aux (replicated)."""
+    if mesh is not None:
+        ctx = ShardingContext(mesh, rules)
+        x, aux = _forward_hidden_sharded(params, tokens, config, ctx)
+        lm_dt = params["lm_head"]
+        lm = ctx.gather(ctx.local(lm_dt), lm_dt.placements)
+        vocab_tp = ctx.on_tp(lm_dt.placements, 1)
+        logits = (ctx.tp_copy(x) @ lm).float()
+        return (llama._as_dtensor(logits, ctx, (
+            "batch", "seq", "act_vocab" if vocab_tp else None)),
+            llama._as_dtensor(aux, ctx, ()))
     c = config
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -139,18 +178,21 @@ def forward(params, tokens, config: MixtralConfig):
     return (x @ params["lm_head"]).float(), torch.stack(aux).mean()
 
 
-def loss_fn(params, batch, config: MixtralConfig):
+def loss_fn(params, batch, config: MixtralConfig, mesh=None, rules=None):
     """Next-token cross-entropy plus aux_loss_coef times the load-balancing
     loss. batch: {"tokens": [B, S]} (targets are the shifted tokens) or
     explicit {"inputs", "targets", "mask"}. The log-softmax runs over the
-    full fp32 [B, S, V] logits, as in the JAX function."""
-    if "inputs" in batch:
-        inputs, targets = batch["inputs"], batch["targets"]
-        mask = batch.get("mask")
-    else:
-        tokens = batch["tokens"]
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        mask = None
+    full fp32 [B, S, V] logits, as in the JAX function. With a mesh, params
+    and batch are DTensors in their shardings and the loss is on every
+    rank."""
+    if mesh is not None:
+        ctx = ShardingContext(mesh, rules)
+        inputs, targets, mask = llama.loss_inputs_local(batch, ctx)
+        hidden, aux = _forward_hidden_sharded(params, inputs, config, ctx)
+        ce = llama.ce_sharded(hidden, params["lm_head"], targets, mask, 0,
+                              ctx)
+        return ce + config.aux_loss_coef * aux
+    inputs, targets, mask = llama._loss_inputs(batch)
     logits, aux = forward(params, inputs, config)
     logp = torch.log_softmax(logits, dim=-1)
     ce = -logp.gather(-1, targets[..., None].long())[..., 0]
@@ -160,6 +202,86 @@ def loss_fn(params, batch, config: MixtralConfig):
     else:
         ce_mean = torch.mean(ce)
     return ce_mean + config.aux_loss_coef * aux
+
+
+# -- the sharded path ----------------------------------------------------------
+
+def _forward_hidden_sharded(params, tokens, config: MixtralConfig, ctx):
+    """This rank's block of the final-norm hidden states and the layers'
+    mean aux loss (the same on every rank)."""
+    c = config
+    x, positions = llama._embed_local(params, tokens, c, ctx)
+    layers, placements = llama.layers_local(params["layers"], c.n_layers,
+                                            ctx)
+    call = llama.layer_caller(c)
+    aux = []
+    for lp in layers:
+        x, a = call(_layer_sharded, x, lp, positions, c, ctx, placements)
+        aux.append(a)
+    x = llama._norm_local(x, params["final_norm"], c.norm_eps, ctx)
+    return x, torch.stack(aux).mean()
+
+
+def _layer_sharded(x, lp, positions, config: MixtralConfig, ctx, placements):
+    """`_layer` on this rank's blocks: Llama's sharded attention sublayer
+    (its weights gathered here, inside the checkpoint), then the MoE block
+    on JAX's token partition."""
+    attn = {n: ctx.gather(t, placements[n]) for n, t in lp.items()
+            if n not in ("moe_gate", "experts")}
+    heads_tp = ctx.on_tp(placements["wq"], 1)
+    attention = functools.partial(llama._attention_sharded, config=config,
+                                  ctx=ctx, heads_tp=heads_tp)
+    x = llama._attn_sublayer(x, attn, positions, config, attention=attention,
+                             **llama._tp_hooks(ctx, heads_tp))
+    h = _rms_norm(x, attn["mlp_norm"], config.norm_eps)
+    out, aux = _moe_block_sharded(h, lp, placements, config, ctx)
+    return x + out, aux
+
+
+def _moe_block_sharded(h, lp, placements, config: MixtralConfig, ctx):
+    """The MoE block of this rank's hidden block h [B_loc,S_loc,D] on the
+    JAX function's token partition: the whole batch's flattened tokens
+    (gathered), split over ep alone. Every rank of an ep shard computes
+    the same thing, so the gradients of the tokens and of the MoE weights
+    are the same on each and go back as its blocks (`ShardingContext.
+    whole`), with no sum over the data dims. -> (this rank's block of the
+    output, aux)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    c = config
+    tok_pl = ctx.placements(("batch", "seq", None))
+    tokens = ctx.whole(h, tok_pl)
+    b, s, d = tokens.shape
+    flat = tokens.reshape(b * s, d)
+    k, cf = c.experts_per_token, c.capacity_factor
+    ep = ctx.sizes.get("ep", 1)
+    if ep > 1:
+        mesh = ctx.mesh
+        split = tuple(Shard(0) if n == "ep" else Replicate()
+                      for n in ctx.names)
+
+        def dt(local, pl, want):
+            return DTensor.from_local(local, mesh, pl,
+                                      run_check=False).redistribute(mesh,
+                                                                    want)
+
+        x = dt(flat, ctx._replicate, split)
+        gate = dt(lp["moe_gate"], placements["moe_gate"], ctx._replicate)
+        experts = {n: dt(w, placements["experts"][n], split)
+                   for n, w in lp["experts"].items()}
+        out, aux = moe_shard_map(x, gate, _expert_ffn, experts, mesh,
+                                 k=k, capacity_factor=cf)
+        out, aux = out.redistribute(mesh, ctx._replicate).to_local(), \
+            aux.to_local()
+    else:
+        gate = ctx.whole(lp["moe_gate"], placements["moe_gate"])
+        experts = {n: ctx.whole(w, placements["experts"][n])
+                   for n, w in lp["experts"].items()}
+        out, aux = moe_layer(flat, gate, _expert_ffn, experts, k=k,
+                             capacity_factor=cf)
+    out = DTensor.from_local(out.reshape(b, s, d), ctx.mesh, ctx._replicate,
+                             run_check=False).redistribute(ctx.mesh, tok_pl)
+    return out.to_local(), aux
 
 
 def flops_per_token(config: MixtralConfig, seq_len: int) -> float:

@@ -8,6 +8,13 @@ in the compute dtype, then fp32, then the bias, then the softmax. Encoder
 and decoder layers are stacked on leading axes, each checkpointed under
 `llama._remat_context` when training. `greedy_decode` reruns the
 teacher-forced decoder at every position, as the JAX function does.
+
+With `mesh=`, `forward` and `loss_fn` take DTensor parameters in the
+shardings of `param_logical_axes` and a DTensor batch split on its batch
+dim, and compute on each rank's blocks as ViT's sharded path does: the
+embedding and the cross-entropy vocab-parallel over tp, the attention
+heads (self and cross) and the MLP's hidden units on their tp split, the
+loss's sums over the data dims. The JAX function leaves this to GSPMD.
 """
 
 from __future__ import annotations
@@ -19,7 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models import llama
-from ray_tpu_torch.models.llama import _proj_heads, _proj_out, _rms_norm, _rope
+from ray_tpu_torch.models.llama import (_maybe, _proj_heads, _proj_out,
+                                        _rms_norm, _rope)
+from ray_tpu_torch.parallel.sharding import ShardingContext
 
 NEG_BIAS = -1e9
 
@@ -89,6 +98,34 @@ def param_shapes(config: T5Config) -> Dict[str, Any]:
     }
 
 
+def param_logical_axes(config: T5Config) -> Dict[str, Any]:
+    """Logical axis names per parameter; no rule names 'enc_layers' or
+    'dec_layers', so the stacked layer dims stay whole."""
+    E, D = ("enc_layers",), ("dec_layers",)
+
+    def attn(L, prefix=""):
+        return {f"{prefix}wq": L + ("embed", "heads", "kv"),
+                f"{prefix}wk": L + ("embed", "heads", "kv"),
+                f"{prefix}wv": L + ("embed", "heads", "kv"),
+                f"{prefix}wo": L + ("heads", "kv", "embed")}
+
+    def mlp(L):
+        return {"w_gate": L + ("embed", "mlp"), "w_up": L + ("embed", "mlp"),
+                "w_down": L + ("mlp", "embed")}
+
+    return {
+        "embed": ("vocab", "embed"),
+        "enc_layers": {"ln1": E + (None,), **attn(E), "ln2": E + (None,),
+                       **mlp(E)},
+        "dec_layers": {"ln1": D + (None,), **attn(D, "self_"),
+                       "ln2": D + (None,), **attn(D, "cross_"),
+                       "ln3": D + (None,), **mlp(D)},
+        "enc_final_ln": (None,),
+        "dec_final_ln": (None,),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
 def init(config: T5Config, generator: torch.Generator,
          device=None) -> Dict[str, Any]:
     """Random parameters with the JAX `init`'s scales (normal * fan_in **
@@ -134,29 +171,42 @@ def _stack(layer_fn, x, layers, n, config: T5Config, *args):
     return x
 
 
-def _enc_layer(x, p, positions, bias, c: T5Config):
-    h = _rms_norm(x, p["ln1"], c.norm_eps)
+_NO_TP = (None, None)
+
+
+def _enc_layer(x, p, positions, bias, c: T5Config, attn_tp=_NO_TP,
+               mlp_tp=_NO_TP):
+    """attn_tp, mlp_tp: (tp_copy, tp_sum) where the heads or the hidden
+    units hold this rank's tp split."""
+    copy, total = attn_tp
+    h = _maybe(copy, _rms_norm(x, p["ln1"], c.norm_eps))
     q = _rope(_proj_heads(h, p["wq"]), positions, c.rope_theta)
     k = _rope(_proj_heads(h, p["wk"]), positions, c.rope_theta)
-    x = x + _attend(q, k, _proj_heads(h, p["wv"]), bias, p["wo"], c)
-    h = _rms_norm(x, p["ln2"], c.norm_eps)
-    return x + _gated_mlp(h, p)
+    x = x + _maybe(total, _attend(q, k, _proj_heads(h, p["wv"]), bias,
+                                  p["wo"], c))
+    copy, total = mlp_tp
+    h = _maybe(copy, _rms_norm(x, p["ln2"], c.norm_eps))
+    return x + _maybe(total, _gated_mlp(h, p))
 
 
 def _dec_layer(x, p, positions, causal, enc_hidden, cross_bias,
-               c: T5Config):
-    h = _rms_norm(x, p["ln1"], c.norm_eps)
+               c: T5Config, self_tp=_NO_TP, cross_tp=_NO_TP, mlp_tp=_NO_TP):
+    copy, total = self_tp
+    h = _maybe(copy, _rms_norm(x, p["ln1"], c.norm_eps))
     q = _rope(_proj_heads(h, p["self_wq"]), positions, c.rope_theta)
     k = _rope(_proj_heads(h, p["self_wk"]), positions, c.rope_theta)
-    x = x + _attend(q, k, _proj_heads(h, p["self_wv"]), causal,
-                    p["self_wo"], c)
-    h = _rms_norm(x, p["ln2"], c.norm_eps)
-    x = x + _attend(_proj_heads(h, p["cross_wq"]),
-                    _proj_heads(enc_hidden, p["cross_wk"]),
-                    _proj_heads(enc_hidden, p["cross_wv"]),
-                    cross_bias, p["cross_wo"], c)
-    h = _rms_norm(x, p["ln3"], c.norm_eps)
-    return x + _gated_mlp(h, p)
+    x = x + _maybe(total, _attend(q, k, _proj_heads(h, p["self_wv"]),
+                                  causal, p["self_wo"], c))
+    copy, total = cross_tp
+    h = _maybe(copy, _rms_norm(x, p["ln2"], c.norm_eps))
+    enc = _maybe(copy, enc_hidden)
+    x = x + _maybe(total, _attend(_proj_heads(h, p["cross_wq"]),
+                                  _proj_heads(enc, p["cross_wk"]),
+                                  _proj_heads(enc, p["cross_wv"]),
+                                  cross_bias, p["cross_wo"], c))
+    copy, total = mlp_tp
+    h = _maybe(copy, _rms_norm(x, p["ln3"], c.norm_eps))
+    return x + _maybe(total, _gated_mlp(h, p))
 
 
 def forward_encoder(params, src_tokens, config: T5Config):
@@ -173,6 +223,11 @@ def forward_encoder(params, src_tokens, config: T5Config):
     return _rms_norm(x, params["enc_final_ln"], c.norm_eps), mask
 
 
+def _causal_bias(t: int, device):
+    tril = torch.tril(torch.ones((t, t), dtype=torch.bool, device=device))
+    return torch.where(tril, 0.0, NEG_BIAS).to(torch.float32)[None, None]
+
+
 def forward_decoder(params, enc_hidden, src_mask, tgt_tokens,
                     config: T5Config):
     """Teacher-forced decoder: tgt_tokens [B, T] -> logits [B, T, V]
@@ -181,23 +236,44 @@ def forward_decoder(params, enc_hidden, src_mask, tgt_tokens,
     t = tgt_tokens.shape[1]
     dev = tgt_tokens.device
     positions = torch.arange(t, device=dev)[None, :]
-    tril = torch.tril(torch.ones((t, t), dtype=torch.bool, device=dev))
-    causal = torch.where(tril, 0.0, NEG_BIAS).to(torch.float32)[None, None]
     x = params["embed"].to(c.dtype)[tgt_tokens]
     x = _stack(_dec_layer, x, params["dec_layers"], c.n_dec_layers, c,
-               positions, causal, enc_hidden, _pad_bias(src_mask), c)
+               positions, _causal_bias(t, dev), enc_hidden,
+               _pad_bias(src_mask), c)
     x = _rms_norm(x, params["dec_final_ln"], c.norm_eps)
     return (x @ params["lm_head"]).float()
 
 
-def forward(params, src_tokens, tgt_tokens, config: T5Config):
+def forward(params, src_tokens, tgt_tokens, config: T5Config, mesh=None,
+            rules=None):
+    """-> logits [B, T, V] fp32; with a mesh, a DTensor (batch, None,
+    act_vocab)."""
+    if mesh is not None:
+        ctx = _context(mesh, rules)
+        x = _hidden_sharded(params, ctx.local(src_tokens),
+                            ctx.local(tgt_tokens), config, ctx)
+        lm_dt = params["lm_head"]
+        vocab_tp = ctx.on_tp(lm_dt.placements, 1)
+        logits = (_maybe(ctx.tp_copy if vocab_tp else None, x)
+                  @ ctx.gather(ctx.local(lm_dt), lm_dt.placements)).float()
+        return llama._as_dtensor(logits, ctx, (
+            "batch", None, "act_vocab" if vocab_tp else None))
     enc, src_mask = forward_encoder(params, src_tokens, config)
     return forward_decoder(params, enc, src_mask, tgt_tokens, config)
 
 
-def loss_fn(params, batch, config: T5Config):
+def loss_fn(params, batch, config: T5Config, mesh=None, rules=None):
     """Seq2seq cross-entropy. batch: {"src" [B,S], "tgt" [B,T]}: tgt[:, :-1]
-    feeds the decoder, tgt[:, 1:] are the labels; pad labels masked out."""
+    feeds the decoder, tgt[:, 1:] are the labels; pad labels masked out.
+    With a mesh, params and batch are DTensors and the loss is on every
+    rank."""
+    if mesh is not None:
+        ctx = _context(mesh, rules)
+        src, tgt = ctx.local(batch["src"]), ctx.local(batch["tgt"])
+        labels = tgt[:, 1:]
+        hidden = _hidden_sharded(params, src, tgt[:, :-1], config, ctx)
+        return llama.ce_sharded(hidden, params["lm_head"], labels,
+                                (labels != config.pad_id).float(), 0, ctx)
     src, tgt = batch["src"], batch["tgt"]
     logits = forward(params, src, tgt[:, :-1], config)
     labels = tgt[:, 1:]
@@ -205,6 +281,60 @@ def loss_fn(params, batch, config: T5Config):
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels[..., None].long())[..., 0]
     return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+# -- the sharded path ----------------------------------------------------------
+
+def _context(mesh, rules):
+    """The batch split on its batch dim only: sp ranks are replicas."""
+    return ShardingContext(mesh, rules, data_axes=("batch",))
+
+
+def _enc_layer_sharded(x, lp, positions, bias, c: T5Config, ctx,
+                       placements):
+    w = {n: ctx.gather(t, placements[n]) for n, t in lp.items()}
+    return _enc_layer(x, w, positions, bias, c, ctx.tp_pair(placements["wq"]),
+                      ctx.tp_pair(placements["w_gate"]))
+
+
+def _dec_layer_sharded(x, lp, positions, causal, enc_hidden, cross_bias,
+                       c: T5Config, ctx, placements):
+    w = {n: ctx.gather(t, placements[n]) for n, t in lp.items()}
+    return _dec_layer(x, w, positions, causal, enc_hidden, cross_bias, c,
+                      ctx.tp_pair(placements["self_wq"]),
+                      ctx.tp_pair(placements["cross_wq"]),
+                      ctx.tp_pair(placements["w_gate"]))
+
+
+def _hidden_sharded(params, src, tgt, config: T5Config, ctx):
+    """This rank's block [B_loc, T, D] of the decoder's final-norm hidden
+    states from its blocks of src [B_loc, S] and tgt [B_loc, T]."""
+    c = config
+    table_dt = params["embed"]
+    table = ctx.gather(ctx.local(table_dt), table_dt.placements).to(c.dtype)
+    vocab_tp = ctx.on_tp(table_dt.placements, 0)
+
+    def embed(tokens):
+        return llama._embed_sharded(table, tokens, ctx, vocab_tp)
+
+    def stack(layer_fn, x, name, n, *args):
+        layers, placements = llama.layers_local(params[name], n, ctx)
+        call = llama.layer_caller(c)
+        for lp in layers:
+            x = call(layer_fn, x, lp, *args, c, ctx, placements)
+        return x
+
+    mask = src != c.pad_id
+    enc = stack(_enc_layer_sharded, embed(src), "enc_layers",
+                c.n_enc_layers,
+                torch.arange(src.shape[1], device=src.device)[None, :],
+                _pad_bias(mask))
+    enc = llama._norm_local(enc, params["enc_final_ln"], c.norm_eps, ctx)
+    t = tgt.shape[1]
+    x = stack(_dec_layer_sharded, embed(tgt), "dec_layers", c.n_dec_layers,
+              torch.arange(t, device=tgt.device)[None, :],
+              _causal_bias(t, tgt.device), enc, _pad_bias(mask))
+    return llama._norm_local(x, params["dec_final_ln"], c.norm_eps, ctx)
 
 
 @torch.no_grad()

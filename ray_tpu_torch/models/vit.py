@@ -8,6 +8,17 @@ classifier on the CLS row. Layers stacked on a leading L axis, each
 checkpointed under `llama._remat_context` when training. The casts sit
 where the JAX package puts them: scores in the compute dtype, softmax in
 fp32, logits fp32.
+
+With `mesh=`, `forward` and `loss_fn` take DTensor parameters in the
+shardings of `param_logical_axes` and a DTensor batch split on its batch
+dim, and compute on each rank's blocks (`parallel.sharding.
+ShardingContext`, as Llama's sharded path does): a parameter is gathered
+over the data dims before its use, the attention heads and the MLP's
+hidden units take their tp split (`tp_copy` before the column-parallel
+products, `tp_sum` after the row-parallel ones), the classifier is
+vocab-parallel over tp, and the loss sums each rank's share over the data
+dims. The JAX function leaves all of this to GSPMD, which shards from the
+parameters' shardings alone.
 """
 
 from __future__ import annotations
@@ -19,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models import llama
-from ray_tpu_torch.models.llama import _proj_heads, _proj_out
+from ray_tpu_torch.models.llama import _maybe, _proj_heads, _proj_out
+from ray_tpu_torch.parallel.sharding import ShardingContext
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +102,30 @@ def param_shapes(config: ViTConfig) -> Dict[str, Any]:
     }
 
 
+def param_logical_axes(config: ViTConfig) -> Dict[str, Any]:
+    """Logical axis names per parameter (layers stacked on 'layers'; no rule
+    names 'patch', so the patch dim stays whole)."""
+    L = ("layers",)
+    return {
+        "patch_proj": ("patch", "embed"),
+        "patch_bias": ("embed",),
+        "pos_embed": (None, "embed"),
+        "cls_token": ("embed",),
+        "layers": {
+            "ln1_scale": L + (None,), "ln1_bias": L + (None,),
+            "wq": L + ("embed", "heads", "kv"),
+            "wk": L + ("embed", "heads", "kv"),
+            "wv": L + ("embed", "heads", "kv"),
+            "wo": L + ("heads", "kv", "embed"),
+            "ln2_scale": L + (None,), "ln2_bias": L + (None,),
+            "w1": L + ("embed", "mlp"), "b1": L + ("mlp",),
+            "w2": L + ("mlp", "embed"), "b2": L + (None,),
+        },
+        "final_ln_scale": (None,), "final_ln_bias": (None,),
+        "head_w": ("embed", "vocab"), "head_b": ("vocab",),
+    }
+
+
 def init(config: ViTConfig, generator: torch.Generator,
          device=None) -> Dict[str, Any]:
     """Random parameters with the JAX `init`'s scales: products normal *
@@ -129,21 +165,33 @@ def patchify(images, config: ViTConfig):
     return x.reshape(b, (hh // p) * (ww // p), p * p * ch)
 
 
-def _layer(x, p, config: ViTConfig):
+def _layer(x, p, config: ViTConfig, attn_tp=(None, None),
+           mlp_tp=(None, None)):
+    """One encoder layer. attn_tp and mlp_tp: (tp_copy, tp_sum) where the
+    heads or the hidden units hold this rank's tp split."""
     c = config
-    h = _ln(x, p["ln1_scale"], p["ln1_bias"], c.norm_eps)
+    copy, total = attn_tp
+    h = _maybe(copy, _ln(x, p["ln1_scale"], p["ln1_bias"], c.norm_eps))
     q, k, v = (_proj_heads(h, p[w]) for w in ("wq", "wk", "wv"))
     scores = torch.einsum("bnhk,bmhk->bhnm", q, k) / (c.d_head ** 0.5)
     attn = torch.softmax(scores.float(), dim=-1)
     out = torch.einsum("bhnm,bmhk->bnhk", attn.to(v.dtype), v)
-    x = x + _proj_out(out, p["wo"])
-    h = _ln(x, p["ln2_scale"], p["ln2_bias"], c.norm_eps)
-    ff = F.gelu(h @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"] + p["b2"]
+    x = x + _maybe(total, _proj_out(out, p["wo"]))
+    copy, total = mlp_tp
+    h = _maybe(copy, _ln(x, p["ln2_scale"], p["ln2_bias"], c.norm_eps))
+    ff = _maybe(total, F.gelu(h @ p["w1"] + p["b1"], approximate="tanh")
+                @ p["w2"]) + p["b2"]
     return x + ff
 
 
-def forward(params, images, config: ViTConfig):
-    """images [B,H,W,C] float -> logits [B, num_classes] fp32."""
+def forward(params, images, config: ViTConfig, mesh=None, rules=None):
+    """images [B,H,W,C] float -> logits [B, num_classes] fp32; with a mesh,
+    a DTensor (batch, act_vocab)."""
+    if mesh is not None:
+        ctx = _context(mesh, rules)
+        logits, vocab_tp = _logits_sharded(params, images, config, ctx)
+        return llama._as_dtensor(logits, ctx, (
+            "batch", "act_vocab" if vocab_tp else None))
     c = config
     x = patchify(images.to(c.dtype), c) @ params["patch_proj"]
     x = x + params["patch_bias"]
@@ -158,10 +206,63 @@ def forward(params, images, config: ViTConfig):
     return logits.float()
 
 
-def loss_fn(params, batch, config: ViTConfig):
+def loss_fn(params, batch, config: ViTConfig, mesh=None, rules=None):
     """Softmax cross-entropy classification loss. batch: {"images",
-    "labels"}."""
+    "labels"}. With a mesh, params and batch are DTensors and the loss, the
+    mean over the global batch, is on every rank."""
+    if mesh is not None:
+        ctx = _context(mesh, rules)
+        logits, vocab_tp = _logits_sharded(params, batch["images"], config,
+                                           ctx)
+        labels = ctx.local(batch["labels"])
+        if vocab_tp:
+            nll = llama.vocab_parallel_nll(logits, labels, ctx)
+        else:
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -logp.gather(-1, labels[:, None].long())[:, 0]
+        return ctx.data_sum(nll.sum() / batch["labels"].shape[0])
     logits = forward(params, batch["images"], config)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, batch["labels"][:, None].long())[:, 0]
     return torch.mean(nll)
+
+
+# -- the sharded path ----------------------------------------------------------
+
+def _context(mesh, rules):
+    """The images split on their batch dim only: sp ranks are replicas."""
+    return ShardingContext(mesh, rules, data_axes=("batch",))
+
+
+def _layer_sharded(x, lp, config: ViTConfig, ctx, placements):
+    """`_layer` on this rank's blocks, its weights gathered here (inside
+    the layer's checkpoint)."""
+    w = {n: ctx.gather(t, placements[n]) for n, t in lp.items()}
+    return _layer(x, w, config, ctx.tp_pair(placements["wq"]),
+                  ctx.tp_pair(placements["w1"]))
+
+
+def _logits_sharded(params, images, config: ViTConfig, ctx):
+    """This rank's fp32 logits [B_loc, C or C/tp], and whether the classes
+    split over tp."""
+    c = config
+
+    def whole(name):
+        w = params[name]
+        return ctx.gather(ctx.local(w), w.placements)
+
+    x = patchify(ctx.local(images).to(c.dtype), c) @ whole("patch_proj")
+    x = x + whole("patch_bias")
+    b = x.shape[0]
+    cls = whole("cls_token").expand(b, 1, c.d_model)
+    x = torch.cat([cls, x], dim=1) + whole("pos_embed")
+    layers, placements = llama.layers_local(params["layers"], c.n_layers,
+                                            ctx)
+    call = llama.layer_caller(c)
+    for lp in layers:
+        x = call(_layer_sharded, x, lp, c, ctx, placements)
+    x = _ln(x, whole("final_ln_scale"), whole("final_ln_bias"), c.norm_eps)
+    vocab_tp = ctx.on_tp(params["head_w"].placements, 1)
+    cls_row = ctx.tp_copy(x[:, 0]) if vocab_tp else x[:, 0]
+    logits = cls_row @ whole("head_w") + whole("head_b")
+    return logits.float(), vocab_tp

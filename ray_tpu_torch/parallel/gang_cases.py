@@ -244,12 +244,15 @@ def _leaf_names(tree, prefix=""):
 
 
 def train_steps(params_np, batches_np, cfg_kw, mesh_kw, lr, weight_decay,
-                slices=1) -> Dict[str, Any]:
-    """AdamW steps of the sharded eager step from numpy weights, one per
-    global batch; -> [(loss, grad norm)] and the whole final parameters."""
+                slices=1, compiled=False) -> Dict[str, Any]:
+    """AdamW steps of the sharded step from numpy weights, one per global
+    batch, eagerly or compiled (aot_eager, fullgraph); -> [(loss, grad
+    norm)], the whole final parameters and this rank's flash calls a
+    step."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.models.convert import params_from_jax_numpy
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+    from ray_tpu_torch.train.optim import tree_leaves
     from ray_tpu_torch.train.spmd import batch_sharding, shard_local_batch
 
     cfg = _llama(cfg_kw)
@@ -259,17 +262,21 @@ def train_steps(params_np, batches_np, cfg_kw, mesh_kw, lr, weight_decay,
         lambda dev: params_from_jax_numpy(params_np, cfg, dev), opt,
         device="cpu", param_logical_axes=llama.param_logical_axes(cfg),
         mesh=mesh)
+    torch._dynamo.reset()
     step = make_train_step(functools.partial(llama.loss_fn, config=cfg,
-                                             mesh=mesh), opt, compiled=False)
-    metrics = []
+                                             mesh=mesh), opt,
+                           compiled=compiled, backend="aot_eager")
+    metrics, calls = [], []
     for b in batches_np:
         batch = shard_local_batch(b, batch_sharding(mesh), mesh,
                                   torch.device("cpu"))
-        state, m = step(state, batch)
+        with counting_flash() as counts:
+            state, m = step(state, batch)
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
-    from ray_tpu_torch.train.optim import tree_leaves
-
+        calls.append(dict(counts))
+    torch._dynamo.reset()
     return {"metrics": metrics, "params": _tree_np(state.params),
+            "calls": calls,
             "moment_placements_match": all(
                 p.placements == mu.placements == nu.placements
                 for p, mu, nu in zip(tree_leaves(state.params),
@@ -277,11 +284,105 @@ def train_steps(params_np, batches_np, cfg_kw, mesh_kw, lr, weight_decay,
                                      tree_leaves(state.opt_state.nu)))}
 
 
+# -- the compiled sharded step and the zoo on the mesh -------------------------
+
+_CONFIGS = {"llama": "LlamaConfig", "mixtral": "MixtralConfig",
+            "vit": "ViTConfig", "t5": "T5Config"}
+
+
+def _family(family, cfg_kw):
+    """The port's model module of `family` and its tiny fp32 config."""
+    import importlib
+
+    mod = importlib.import_module(f"ray_tpu_torch.models.{family}")
+    tiny = getattr(mod, _CONFIGS[family]).tiny()
+    return mod, dataclasses.replace(tiny, dtype=torch.float32, **cfg_kw)
+
+
+def _shard_batch(batch_np, logical, mesh):
+    """{name: global numpy} -> {name: DTensor}, each placed as its logical
+    axes `logical[name]` say."""
+    from ray_tpu_torch.parallel.sharding import LogicalAxisRules
+    from ray_tpu_torch.train.spmd import shard_local_batch
+
+    rules = LogicalAxisRules()
+    return {name: shard_local_batch(
+        {name: x}, rules.to_physical(logical[name], mesh), mesh,
+        torch.device("cpu"))[name] for name, x in batch_np.items()}
+
+
+def zoo_loss_and_grads(family, params_np, batch_np, logical, cfg_kw,
+                       mesh_kw) -> Dict[str, Any]:
+    """`family`'s loss_fn(mesh=...) on the tiny fp32 config from numpy
+    weights (the JAX init's) and a global batch: -> the loss, the whole
+    gradients by name and the whole logits of its forward(mesh=...)."""
+    from ray_tpu_torch.models.convert import params_from_jax_numpy
+    from ray_tpu_torch.parallel.sharding import shard_params
+    from ray_tpu_torch.train.optim import tree_leaves
+
+    mod, cfg = _family(family, cfg_kw)
+    mesh = _mesh(mesh_kw)
+    params = shard_params(params_from_jax_numpy(params_np, cfg, "cpu"),
+                          mod.param_logical_axes(cfg), mesh)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = _shard_batch(batch_np, logical, mesh)
+    loss = mod.loss_fn(params, batch, cfg, mesh=mesh)
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        out = mod.forward(params, *_forward_inputs(family, batch), cfg,
+                          mesh=mesh)
+    logits = out[0] if family == "mixtral" else out
+    return {"loss": float(loss), "logits": _full(logits),
+            "grads": {n: _full(g) for n, g in zip(_leaf_names(params),
+                                                  grads)}}
+
+
+def _forward_inputs(family, batch):
+    """The positional inputs of `family`'s forward in its loss batch."""
+    if family == "vit":
+        return (batch["images"],)
+    if family == "t5":
+        return batch["src"], batch["tgt"][:, :-1]
+    return (batch["inputs"],)
+
+
+def zoo_train_steps(family, params_np, batches_np, logical, cfg_kw, mesh_kw,
+                    lr, weight_decay, compiled) -> Dict[str, Any]:
+    """AdamW steps of `family`'s sharded step from numpy weights, one per
+    global batch, compiled (aot_eager, fullgraph) or eagerly; -> [(loss,
+    grad norm)], the whole final parameters and this rank's flash calls."""
+    from ray_tpu_torch.models.convert import params_from_jax_numpy
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+
+    mod, cfg = _family(family, cfg_kw)
+    mesh = _mesh(mesh_kw)
+    torch._dynamo.reset()
+    opt = adamw(lr, weight_decay=weight_decay)
+    state = init_train_state(
+        lambda dev: params_from_jax_numpy(params_np, cfg, dev), opt,
+        device="cpu", param_logical_axes=mod.param_logical_axes(cfg),
+        mesh=mesh)
+    step = make_train_step(functools.partial(mod.loss_fn, config=cfg,
+                                             mesh=mesh), opt,
+                           compiled=compiled, backend="aot_eager")
+    metrics = []
+    with counting_flash() as counts:
+        for b in batches_np:
+            state, m = step(state, _shard_batch(b, logical, mesh))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    torch._dynamo.reset()
+    return {"metrics": metrics, "params": _tree_np(state.params),
+            "calls": dict(counts)}
+
+
 # -- pipeline, experts, tp serving ---------------------------------------------
 
-def pipeline_case(ws, xs, mesh_kw) -> np.ndarray:
+def pipeline_case(ws, xs, ct, mesh_kw) -> Dict[str, Any]:
     """`pipeline_sharded` of tanh(x @ w[0]) stages over the mesh's pp dim:
-    ws [pp, d, d], xs [M, mb, d] -> the whole output."""
+    ws [pp, d, d], xs [M, mb, d] -> the whole output and the whole
+    gradients of sum(out * ct) with respect to ws and xs."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     from ray_tpu_torch.parallel.pipeline import pipeline_sharded
@@ -291,10 +392,14 @@ def pipeline_case(ws, xs, mesh_kw) -> np.ndarray:
     names = mesh.mesh_dim_names
     rep = [Replicate()] * len(names)
     staged = [Shard(0) if n == "pp" else Replicate() for n in names]
-    out = pipeline_sharded(lambda w, x: torch.tanh(x @ w[0]), mesh)(
-        distribute_full(torch.from_numpy(ws), mesh, staged),
-        DTensor.from_local(torch.from_numpy(xs), mesh, rep, run_check=False))
-    return _full(out)
+    wd = distribute_full(torch.from_numpy(ws), mesh, staged)
+    xd = DTensor.from_local(torch.from_numpy(xs), mesh, rep, run_check=False)
+    wd.requires_grad_(True)
+    xd.requires_grad_(True)
+    out = pipeline_sharded(lambda w, x: torch.tanh(x @ w[0]), mesh)(wd, xd)
+    dw, dx = torch.autograd.grad(
+        (out.to_local() * torch.from_numpy(ct)).sum(), (wd, xd))
+    return {"out": _full(out), "dw": _full(dw), "dx": _full(dx)}
 
 
 def moe_case(x, gate_w, ew, mesh_kw, k, capacity_factor) -> Dict[str, Any]:
@@ -349,6 +454,182 @@ def paged_tp_case(params_np, cfg_kw, mesh_kw, engine_kw, prompts,
             "prefix_stats": dict(eng.prefix_stats),
             "pool_local_shape": tuple(eng.pool["k"].shape),
             "pool_placements": [repr(p) for p in eng.pool_placements]}
+
+
+def dense_tp_case(params_np, cfg_kw, mesh_kw, engine_kw, prompts,
+                  max_new_tokens) -> Dict[str, Any]:
+    """The dense engine tensor-parallel over the mesh's tp dim, from numpy
+    weights: -> its streams after `generate`, and its cache's local shape
+    and placements."""
+    from ray_tpu_torch.inference import GenerationConfig
+    from ray_tpu_torch.inference.engine import (InferenceEngine,
+                                                shard_params_for_inference)
+    from ray_tpu_torch.models.convert import params_from_jax_numpy
+
+    cfg = _llama(cfg_kw)
+    mesh = _mesh(mesh_kw)
+    params = shard_params_for_inference(
+        params_from_jax_numpy(params_np, cfg, "cpu"), cfg, mesh)
+    eng = InferenceEngine(params, cfg, mesh=mesh, device="cpu", **engine_kw)
+    streams = eng.generate(prompts, GenerationConfig(
+        max_new_tokens=max_new_tokens))
+    return {"streams": streams,
+            "cache_local_shape": tuple(eng.cache["k"].shape),
+            "cache_placements": [repr(p) for p in eng.cache_placements]}
+
+
+# -- on the card: each rank on its device ---------------------------------------
+
+def _swiglu(w, x):
+    """A Llama MLP stage (SwiGLU) of this rank's stage parameters."""
+    return (torch.nn.functional.silu(x @ w["w_gate"][0])
+            * (x @ w["w_up"][0])) @ w["w_down"][0]
+
+
+def pipeline_mlp_case(d_model, d_ff, m, mb, seed) -> Dict[str, Any]:
+    """A pp=<world> GPipe pipeline of Llama MLP stages (fp32, SwiGLU at
+    d_model x d_ff) over every rank, on this rank's device: the output and
+    the gradients of sum(out * ct) with respect to the stage parameters
+    and the microbatches [m, mb, d_model], against the sequential
+    composition of the same stages on rank 0 alone. -> rank 0: the largest
+    relative error of each against it and the pipeline's seconds."""
+    import time
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from ray_tpu_torch.parallel.pipeline import pipeline_sharded
+    from ray_tpu_torch.parallel.sharding import distribute_full
+    from ray_tpu_torch.train.backend import rank_device
+
+    dev = rank_device()
+    n = dist.get_world_size()
+    mesh = _mesh({"pp": n})
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    full = {"w_gate": randn(n, d_model, d_ff, scale=d_model ** -0.5),
+            "w_up": randn(n, d_model, d_ff, scale=d_model ** -0.5),
+            "w_down": randn(n, d_ff, d_model, scale=d_ff ** -0.5)}
+    xs, ct = randn(m, mb, d_model), randn(m, mb, d_model)
+    names = mesh.mesh_dim_names
+    rep = [Replicate()] * len(names)
+    staged = [Shard(0) if a == "pp" else Replicate() for a in names]
+    wd = {k: distribute_full(v, mesh, staged).requires_grad_(True)
+          for k, v in full.items()}
+    xd = DTensor.from_local(xs, mesh, rep,
+                            run_check=False).requires_grad_(True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipeline_sharded(_swiglu, mesh)(wd, xd)
+    grads = torch.autograd.grad((out.to_local() * ct).sum(),
+                                list(wd.values()) + [xd])
+    got = [_full_tensor(x) for x in [out] + list(grads)]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if dist.get_rank() != 0:
+        return {}
+    ws = {k: v.clone().requires_grad_(True) for k, v in full.items()}
+    x = xs.clone().requires_grad_(True)
+    y = x
+    for i in range(n):
+        y = _swiglu({k: w[i:i + 1] for k, w in ws.items()}, y)
+    want = [y] + list(torch.autograd.grad((y * ct).sum(),
+                                          list(ws.values()) + [x]))
+
+    def rel(a, b):
+        b = b.detach()
+        return float((a - b).norm() / b.norm())
+
+    errs = dict(zip(["out"] + [f"d{k}" for k in full] + ["dx"],
+                    (rel(a, b) for a, b in zip(got, want))))
+    return {"rel_err": errs, "seconds": secs}
+
+
+def _full_tensor(x):
+    from ray_tpu_torch.parallel.sharding import full_tensor
+
+    return full_tensor(x).detach()
+
+
+def dense_engine_versus_one(cfg, prompts, max_new_tokens, max_len, seed
+                            ) -> Dict[str, Any]:
+    """The dense engine tensor-parallel over tp=<world> against the one-card
+    engine (rank 0 alone, first) on the same weights (`llama.init` of
+    `cfg` from `seed` on each rank) and prompts: greedy streams, and the
+    prompts' prefill logits through `forward_with_cache` on a fresh cache.
+    -> rank 0: both streams, the logits' relative L2 difference, whether
+    every request's first token agrees and, per request, the tokens that
+    agree before the first divergence."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.inference import GenerationConfig, InferenceEngine
+    from ray_tpu_torch.inference.engine import shard_params_for_inference
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.sharding import ShardingContext
+    from ray_tpu_torch.train.backend import rank_device
+    from ray_tpu_torch.train.optim import tree_map
+
+    dev = rank_device()
+    n = dist.get_world_size()
+    gen_cfg = GenerationConfig(max_new_tokens=max_new_tokens)
+    full = llama.init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    b, s = len(prompts), max(len(p) for p in prompts)
+    tokens = torch.zeros((b, s), dtype=torch.int64, device=dev)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.as_tensor(p)
+    zeros = torch.zeros(b, dtype=torch.int64, device=dev)
+
+    def prefill(params, config, **kw):
+        cache = llama.init_kv_cache(config, b, max_len, device=dev)
+        with torch.no_grad():
+            return llama.forward_with_cache(params, tokens, cache, zeros,
+                                            config, **kw)[0]
+
+    one = {}
+    if dist.get_rank() == 0:
+        eng = InferenceEngine(full, cfg, max_batch=b, max_len=max_len,
+                              device=dev)
+        one = {"streams": eng.generate(prompts, gen_cfg),
+               "logits": prefill(full, cfg)}
+        del eng
+    dist.barrier()
+    mesh = _mesh({"tp": n})
+    sharded = shard_params_for_inference(full, cfg, mesh)
+    del full
+    eng = InferenceEngine(sharded, cfg, max_batch=b, max_len=max_len,
+                          mesh=mesh, device=dev)
+    streams = eng.generate(prompts, gen_cfg)
+    ctx = ShardingContext(mesh)
+    local_cfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // n,
+                                    n_kv_heads=cfg.n_kv_heads // n)
+    with torch.no_grad():
+        local = tree_map(ctx.local, sharded)
+    logits = prefill(local, local_cfg, tp_sum=ctx.tp_sum)
+    if dist.get_rank() != 0:
+        return {}
+    valid = torch.zeros((b, s), dtype=torch.bool, device=dev)
+    for i, p in enumerate(prompts):
+        valid[i, :len(p)] = True
+    a, w = logits[valid].float(), one["logits"][valid].float()
+    agree = []
+    for x, y in zip(streams, one["streams"]):
+        k = 0
+        while k < min(len(x), len(y)) and x[k] == y[k]:
+            k += 1
+        agree.append(k)
+    return {"streams": streams, "one_streams": one["streams"],
+            "logits_rel": float((a - w).norm() / w.norm()),
+            "first_equal": all(x[:1] == y[:1] for x, y in
+                               zip(streams, one["streams"])),
+            "agree_before_divergence": agree}
 
 
 def run_cases(cases: List[Any]) -> List[Any]:

@@ -20,7 +20,9 @@ shapes stay static and the layer traces with
 
 The expert-parallel form, `moe_shard_map`, splits the experts over a mesh
 dim and exchanges the token buffers with `all_to_all_single` around the
-same routing.
+same routing. Its collectives are operators with their own gradients
+(`all_to_all`, `group_mean`, `sum_grad`), so that a compiled step holds
+them as nodes of its program.
 """
 
 from __future__ import annotations
@@ -135,56 +137,105 @@ def moe_layer(x: torch.Tensor, gate_w: torch.Tensor, expert_fn: Callable,
     return out.to(x.dtype), r.aux
 
 
-class _AllToAll(torch.autograd.Function):
-    """Split x's leading dim into one part per rank of `group`, send part i
-    to rank i and stack what each rank sent here, in rank order; the
-    backward sends the gradients back the same way."""
+def _group(name: str):
+    from torch.distributed.distributed_c10d import _resolve_process_group
 
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        torch.distributed.all_to_all_single(out, x, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _AllToAll.apply(grad, ctx.group), None
+    return _resolve_process_group(name)
 
 
-class _Mean(torch.autograd.Function):
-    """The mean over the ranks of `group` of each one's x, on each; the
+@torch.library.custom_op("ray_tpu_torch::all_to_all", mutates_args=())
+def all_to_all(x: torch.Tensor, group: str) -> torch.Tensor:
+    """Split x's leading dim into one part per rank of the group named
+    `group`, send part i to rank i and stack what each rank sent here, in
+    rank order. Its own transpose: the backward sends the gradients back
+    the same way. An operator, so that a compiled program holds it."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    torch.distributed.all_to_all_single(out, x, group=_group(group))
+    return out
+
+
+@all_to_all.register_fake
+def _(x, group):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _all_to_all_setup_context(ctx, inputs, output):
+    ctx.group = inputs[1]
+
+
+def _all_to_all_backward(ctx, grad):
+    return all_to_all(grad, ctx.group), None
+
+
+all_to_all.register_autograd(_all_to_all_backward,
+                             setup_context=_all_to_all_setup_context)
+
+
+@torch.library.custom_op("ray_tpu_torch::all_reduce_sum", mutates_args=())
+def all_reduce_sum(x: torch.Tensor, group: str) -> torch.Tensor:
+    """The sum over the ranks of the group named `group` of each one's x,
+    on each (no gradient: the MoE functions below say theirs)."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    torch.distributed.all_reduce(out, group=_group(group))
+    return out
+
+
+@all_reduce_sum.register_fake
+def _(x, group):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("ray_tpu_torch::group_mean", mutates_args=())
+def group_mean(x: torch.Tensor, group: str) -> torch.Tensor:
+    """The mean over the ranks of the group of each one's x, on each; the
     objective that uses it is the same on every rank and counts once, so
     each rank's x gets 1/n of its gradient."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.n = torch.distributed.get_world_size(group)
-        out = x.clone()
-        torch.distributed.all_reduce(out, group=group)
-        return out / ctx.n
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad / ctx.n, None
+    n = torch.distributed.get_world_size(_group(group))
+    return all_reduce_sum(x, group) / n
 
 
-class _SumGrad(torch.autograd.Function):
-    """x as it is, its gradient summed over the ranks of `group`: the
-    gradient of an input replicated over the group that each rank uses on
-    its own tokens (JAX's transpose of a replicated shard_map input)."""
+@group_mean.register_fake
+def _(x, group):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
 
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.contiguous()
-        torch.distributed.all_reduce(grad, group=ctx.group)
-        return grad, None
+def _group_mean_setup_context(ctx, inputs, output):
+    ctx.n = torch.distributed.get_world_size(_group(inputs[1]))
+
+
+def _group_mean_backward(ctx, grad):
+    return grad / ctx.n, None
+
+
+group_mean.register_autograd(_group_mean_backward,
+                             setup_context=_group_mean_setup_context)
+
+
+@torch.library.custom_op("ray_tpu_torch::sum_grad", mutates_args=())
+def sum_grad(x: torch.Tensor, group: str) -> torch.Tensor:
+    """x as it is (a copy), its gradient summed over the ranks of the
+    group: the gradient of an input replicated over the group that each
+    rank uses on its own tokens (JAX's transpose of a replicated shard_map
+    input)."""
+    return x.clone()
+
+
+@sum_grad.register_fake
+def _(x, group):
+    return torch.empty_like(x)
+
+
+def _sum_grad_setup_context(ctx, inputs, output):
+    ctx.group = inputs[1]
+
+
+def _sum_grad_backward(ctx, grad):
+    return all_reduce_sum(grad, ctx.group), None
+
+
+sum_grad.register_autograd(_sum_grad_backward,
+                           setup_context=_sum_grad_setup_context)
 
 
 def moe_shard_map(x, gate_w, expert_fn, expert_params, mesh,
@@ -209,7 +260,7 @@ def moe_shard_map(x, gate_w, expert_fn, expert_params, mesh,
     names = tuple(mesh.mesh_dim_names)
     split = tuple(Shard(0) if n == axis_name else Replicate() for n in names)
     replicated = tuple(Replicate() for _ in names)
-    group = mesh.get_group(axis_name)
+    group = mesh.get_group(axis_name).group_name
     n = mesh.size(names.index(axis_name))
     n_exp = gate_w.shape[1]
     if n_exp % n:
@@ -219,17 +270,17 @@ def moe_shard_map(x, gate_w, expert_fn, expert_params, mesh,
     def local(x_loc, gate_full, *param_leaves):
         t, d = x_loc.shape
         cap = capacity(t, n_exp, k, capacity_factor)
-        gate_full = _SumGrad.apply(gate_full, group)
+        gate_full = sum_grad(gate_full, group)
         buf, flat, r = _dispatch(x_loc, gate_full, k, cap)
         e_loc = n_exp // n
         # [E, C, D] -> [n(dst), E_loc, C, D] out; in: [n(src), E_loc, C, D]
-        got = _AllToAll.apply(buf.view(n, e_loc, cap, d), group)
+        got = all_to_all(buf.view(n, e_loc, cap, d), group)
         got = got.transpose(0, 1).reshape(e_loc, n * cap, d)
         out = expert_fn(rebuild(list(param_leaves)), got)
         out = out.reshape(e_loc, n, cap, d).transpose(0, 1)
-        back = _AllToAll.apply(out, group).reshape(n_exp, cap, d)
+        back = all_to_all(out, group).reshape(n_exp, cap, d)
         y = _combine(back, flat, r, k).to(x_loc.dtype)
-        aux = _Mean.apply(r.aux, group)
+        aux = group_mean(r.aux, group)
         return y, aux
 
     fn = local_map(local, out_placements=(split, replicated),

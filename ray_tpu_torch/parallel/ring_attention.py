@@ -21,14 +21,19 @@ block by block, forward and backward:
     further, which brings them home to the rank that owns the block.
 
 Under causal a rank launches each kernel my + 1 times a call, (n + 1) / 2
-on average over the ring. `_block_attn_update_plain` is the JAX package's
+on average over the ring. The forward and the backward are the operators
+`ray_tpu_torch::ring_fwd` / `ring_bwd`: a compiled step holds each whole
+ring as one node, so every rank's program keeps every send and receive in
+one order, whatever blocks its own rank skips (as nodes of their own, a
+rotate whose result a rank does not use would be dead code to the
+compiler, and its peer would wait for it). `_block_attn_update_plain` is the JAX package's
 per-block arithmetic in torch, the plain version the ring is held to.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -37,12 +42,16 @@ from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops.flash_attention import NEG_INF
 
 
-def _rotate(tensors, group):
-    """Send each tensor to the next rank of `group` and receive the
-    previous rank's, all in one batch of point-to-point operations."""
+def _rotate(tensors, group, shift: int = 1):
+    """Send each tensor to the rank `shift` places on in `group` (a
+    ProcessGroup) and receive those of the rank `shift` places back, all in
+    one batch of point-to-point operations (every rank posts its sends,
+    then its receives, in the tensors' order). Its transpose is the rotate
+    by -shift, as that of JAX's ppermute is the inverse permutation (the
+    pipeline's backward takes it so)."""
     n, my = dist.get_world_size(group), dist.get_rank(group)
-    nxt = dist.get_global_rank(group, (my + 1) % n)
-    prv = dist.get_global_rank(group, (my - 1) % n)
+    nxt = dist.get_global_rank(group, (my + shift) % n)
+    prv = dist.get_global_rank(group, (my - shift) % n)
     recv = [torch.empty_like(t) for t in tensors]
     ops = ([dist.P2POp(dist.isend, t.contiguous(), nxt, group)
             for t in tensors]
@@ -74,54 +83,95 @@ def _visible(causal: bool, src: int, my: int) -> Optional[bool]:
     return False if src < my else None
 
 
-class _Ring(torch.autograd.Function):
+def _group(name: str):
+    from torch.distributed.distributed_c10d import _resolve_process_group
 
-    @staticmethod
-    def forward(ctx, q, k, v, group, causal, scale):
-        n, my = dist.get_world_size(group), dist.get_rank(group)
-        o_acc = lse_acc = None
-        kc, vc = k.contiguous(), v.contiguous()
-        for s in range(n):
-            flag = _visible(causal, (my - s) % n, my)
-            if flag is not None:
-                o, lse = fa.flash_fwd(q, kc, vc, flag, scale)
-                o_acc, lse_acc = merge_partials(o_acc, lse_acc, o, lse)
-            if s < n - 1:
-                kc, vc = _rotate([kc, vc], group)
-        o = o_acc.to(q.dtype)
-        ctx.save_for_backward(q, k, v, o, lse_acc)
-        ctx.group, ctx.causal, ctx.scale = group, causal, scale
-        ctx.mark_non_differentiable(lse_acc)
-        return o, lse_acc
+    group = _resolve_process_group(name)
+    return group, dist.get_world_size(group), dist.get_rank(group)
 
-    @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, o, lse = ctx.saved_tensors
-        group = ctx.group
-        n, my = dist.get_world_size(group), dist.get_rank(group)
-        do = do.contiguous()
-        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        kc, vc = k.contiguous(), v.contiguous()
-        dkc = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-        dvc = torch.zeros_like(dkc)
-        for s in range(n):
-            flag = _visible(ctx.causal, (my - s) % n, my)
-            if flag is not None:
-                dq_s, dk_s, dv_s = fa.flash_bwd(q, kc, vc, o, lse, do, flag,
-                                                ctx.scale)
-                dq += dq_s.float()
-                dkc += dk_s.float()
-                dvc += dv_s.float()
-            if n == 1:
-                break
-            # K/V move on while another step needs them; the partial
-            # dK/dV move once more, to the block's owner.
-            if s < n - 1:
-                kc, vc, dkc, dvc = _rotate([kc, vc, dkc, dvc], group)
-            else:
-                dkc, dvc = _rotate([dkc, dvc], group)
-        return (dq.to(q.dtype), dkc.to(k.dtype), dvc.to(v.dtype), None,
-                None, None)
+
+@torch.library.custom_op("ray_tpu_torch::ring_fwd", mutates_args=())
+def ring_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, group: str,
+             causal: bool, scale: float
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ring's forward over the group named `group`: (o like q, the
+    merged lse [B,H,S_loc] fp32). An operator, so that a compiled program
+    holds the whole ring, its sends and receives in their order, as one
+    node that every rank runs, whatever blocks its own rank skips."""
+    pg, n, my = _group(group)
+    o_acc = lse_acc = None
+    kc, vc = k.contiguous(), v.contiguous()
+    for s in range(n):
+        flag = _visible(causal, (my - s) % n, my)
+        if flag is not None:
+            o, lse = fa.flash_fwd(q, kc, vc, flag, scale)
+            o_acc, lse_acc = merge_partials(o_acc, lse_acc, o, lse)
+        if s < n - 1:
+            kc, vc = _rotate([kc, vc], pg)
+    return o_acc.to(q.dtype), lse_acc
+
+
+@ring_fwd.register_fake
+def _(q, k, v, group, causal, scale):
+    b, s_q, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, s_q), dtype=torch.float32))
+
+
+@torch.library.custom_op("ray_tpu_torch::ring_bwd", mutates_args=())
+def ring_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+             group: str, causal: bool, scale: float
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ring's backward: (dq, dk, dv) like q, k and v."""
+    pg, n, my = _group(group)
+    do = do.contiguous()
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    kc, vc = k.contiguous(), v.contiguous()
+    dkc = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dvc = torch.zeros_like(dkc)
+    for s in range(n):
+        flag = _visible(causal, (my - s) % n, my)
+        if flag is not None:
+            dq_s, dk_s, dv_s = fa.flash_bwd(q, kc, vc, o, lse, do, flag,
+                                            scale)
+            dq += dq_s.float()
+            dkc += dk_s.float()
+            dvc += dv_s.float()
+        if n == 1:
+            break
+        # K/V move on while another step needs them; the partial dK/dV
+        # move once more, to the block's owner.
+        if s < n - 1:
+            kc, vc, dkc, dvc = _rotate([kc, vc, dkc, dvc], pg)
+        else:
+            dkc, dvc = _rotate([dkc, dvc], pg)
+    return (dq.to(q.dtype).contiguous(), dkc.to(k.dtype).contiguous(),
+            dvc.to(v.dtype).contiguous())
+
+
+@ring_bwd.register_fake
+def _(q, k, v, o, lse, do, group, causal, scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _ring_fwd_setup_context(ctx, inputs, output):
+    q, k, v, group, causal, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.group, ctx.causal, ctx.scale = group, causal, scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _ring_fwd_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = ring_bwd(q, k, v, o, lse, do, ctx.group, ctx.causal,
+                          ctx.scale)
+    return dq, dk, dv, None, None, None
+
+
+ring_fwd.register_autograd(_ring_fwd_backward,
+                           setup_context=_ring_fwd_setup_context)
 
 
 def ring_attention(q, k, v, group=None, causal: bool = True,
@@ -133,7 +183,7 @@ def ring_attention(q, k, v, group=None, causal: bool = True,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     group = dist.group.WORLD if group is None else group
-    return _Ring.apply(q, k, v, group, causal, scale)[0]
+    return ring_fwd(q, k, v, group.group_name, causal, scale)[0]
 
 
 def _block_attn_update_plain(q, k, v, o, m, l, q_pos, k_pos, scale, causal):

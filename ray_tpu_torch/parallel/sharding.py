@@ -222,9 +222,14 @@ class ShardingContext:
     its backward the identity); `tp_copy` its conjugate before a
     column-parallel one (the identity forward, an all-reduce of the
     gradient). `data_sum` sums a per-rank partial over the data dims the
-    same way."""
+    same way. `data_axes`: the logical activation axes whose split makes a
+    rank's gradient partial (a model that does not split its sequence
+    gives ("batch",), and its sp ranks are replicas). `whole` gathers a
+    block on every rank for code that computes the same thing on each (the
+    MoE block on JAX's token partition)."""
 
-    def __init__(self, mesh, rules: Optional[LogicalAxisRules] = None):
+    def __init__(self, mesh, rules: Optional[LogicalAxisRules] = None,
+                 data_axes: Sequence[str] = ("batch", "seq")):
         from torch.distributed.tensor import Partial, Replicate
 
         self.mesh = mesh
@@ -234,7 +239,7 @@ class ShardingContext:
         coord = mesh.get_coordinate()
         self.coord = dict(zip(self.names, coord))
         data = set()
-        for logical in ("batch", "seq"):
+        for logical in data_axes:
             phys = self.rules.spec((logical,), mesh)[0]
             data.update((phys,) if isinstance(phys, str) else phys or ())
         self.data_dims = tuple(n for n in self.names if n in data)
@@ -270,6 +275,18 @@ class ShardingContext:
             return local
         w = DTensor.from_local(local, self.mesh, placements, run_check=False)
         return w.redistribute(self.mesh, use).to_local(grad_placements=grad)
+
+    def whole(self, local: torch.Tensor, placements) -> torch.Tensor:
+        """A block under `placements` -> the whole tensor, on every rank,
+        whose gradient (the same on every rank, as that of code every rank
+        runs alike) goes back as this rank's block of it."""
+        from torch.distributed.tensor import DTensor
+
+        if all(p == self._replicate[0] for p in placements):
+            return local
+        return DTensor.from_local(local, self.mesh, placements,
+                                  run_check=False).redistribute(
+            self.mesh, self._replicate).to_local()
 
     def tp_sum(self, partial: torch.Tensor) -> torch.Tensor:
         """The sum over the tp ranks of their partial results, on each."""
@@ -319,3 +336,11 @@ class ShardingContext:
         from torch.distributed.tensor import Shard
 
         return self.tp > 1 and placements[self.names.index("tp")] == Shard(dim)
+
+    def tp_pair(self, placements, dim: int = 1):
+        """(tp_copy, tp_sum) for a product whose weight splits dim `dim`
+        over tp (its column-parallel entry and row-parallel exit), (None,
+        None) where it does not."""
+        if self.on_tp(placements, dim):
+            return self.tp_copy, self.tp_sum
+        return None, None

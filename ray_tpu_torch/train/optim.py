@@ -11,13 +11,14 @@ Where the JAX package returns new arrays (and donates the old ones), this
 updates parameters and moments in place, with PyTorch's multi-tensor
 (`_foreach`) operations, eagerly or as one compiled program (`updater`).
 Over DTensor parameters (the sharded step) each rank updates its local
-blocks eagerly and the global norm counts every block once.
+blocks, eagerly or compiled the same way, and the global norm counts every
+block once, its all-reduce inside the program.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -48,12 +49,15 @@ def _is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def _local(x) -> torch.Tensor:
+    return x.to_local() if _is_dtensor(x) else x
+
+
 def local_leaves(tree) -> List[torch.Tensor]:
     """The leaves, each DTensor as its rank's local block (the tensor
     itself, so an in-place update of it updates the DTensor)."""
     with torch.no_grad():
-        return [x.to_local() if _is_dtensor(x) else x
-                for x in tree_leaves(tree)]
+        return [_local(x) for x in tree_leaves(tree)]
 
 
 def _first_replica(x) -> bool:
@@ -77,16 +81,27 @@ def global_norm(grads) -> torch.Tensor:
         norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
                  for g in leaves]
         return torch.linalg.vector_norm(torch.stack(norms))
-    import torch.distributed as dist
+    return _blocks_norm(local_leaves(grads), _counted(leaves))
 
-    local = local_leaves(grads)
+
+def _counted(leaves) -> Tuple[bool, ...]:
+    """Per leaf, whether this rank's block adds to the global norm: a plain
+    tensor always, a DTensor's block on its first replica."""
+    return tuple(not _is_dtensor(g) or _first_replica(g) for g in leaves)
+
+
+def _blocks_norm(blocks, counted) -> torch.Tensor:
+    """The global norm from each rank's blocks: the squares of the blocks
+    `counted` marks, summed over the gang by one all-reduce (a functional
+    collective, so that a compiled update holds it)."""
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+
     squares = torch.stack([
-        torch.linalg.vector_norm(x, dtype=torch.float32) ** 2
-        if not _is_dtensor(g) or _first_replica(g) else
+        torch.linalg.vector_norm(x, dtype=torch.float32) ** 2 if c else
         torch.zeros((), dtype=torch.float32, device=x.device)
-        for g, x in zip(leaves, local)]).sum()
-    dist.all_reduce(squares)
-    return torch.sqrt(squares)
+        for x, c in zip(blocks, counted)]).sum()
+    return torch.sqrt(funcol.all_reduce(squares, "sum", dist.group.WORLD))
 
 
 def _zeros_like(x):
@@ -132,9 +147,14 @@ def _adamw_(p, g, mu, nu, count, lr, b1, b2, eps, weight_decay) -> None:
     torch._foreach_addcdiv_(p, mu, denom)
 
 
-def _norm_and_adamw_(p, g, mu, nu, count, *hyper) -> torch.Tensor:
-    """global_norm(g), then `_adamw_`: the optimizer's half of a step."""
-    norm = global_norm(g)
+def _norm_and_adamw_(p, g, mu, nu, count, counted, *hyper) -> torch.Tensor:
+    """The global norm of g, then `_adamw_`: the optimizer's half of a
+    step. counted None: g holds whole gradients (`global_norm`); else
+    each rank's local blocks of DTensor gradients, and counted marks the
+    blocks that add to the norm (`_blocks_norm`): the update of a block is
+    the update of the whole tensor's elements; only the norm needs the
+    gang."""
+    norm = global_norm(g) if counted is None else _blocks_norm(g, counted)
     _adamw_(p, g, mu, nu, count, *hyper)
     return norm
 
@@ -175,24 +195,14 @@ class AdamW:
         def update(grads, state: AdamWState, params) -> torch.Tensor:
             p, g = tree_leaves(params), tree_leaves(grads)
             state.count += 1
-            if any(_is_dtensor(x) for x in p):
-                if backend is not None:
-                    raise NotImplementedError(
-                        "the update of DTensor parameters runs eagerly: "
-                        "updater(None)")
-                # The update of each block is the update of the whole
-                # tensor's elements; only the norm needs the gang.
-                norm = global_norm(g)
-                p = local_leaves(p)
-                count = torch.full((), state.count, dtype=torch.float32,
-                                   device=p[0].device)
-                _adamw_(p, local_leaves(g), local_leaves(state.mu),
-                        local_leaves(state.nu), count, *hyper)
-                return norm
             count = torch.full((), state.count, dtype=torch.float32,
-                               device=p[0].device)
+                               device=_local(p[0]).device)
+            if any(_is_dtensor(x) for x in p):
+                return fn(local_leaves(p), local_leaves(g),
+                          local_leaves(state.mu), local_leaves(state.nu),
+                          count, _counted(p), *hyper)
             return fn(p, g, tree_leaves(state.mu), tree_leaves(state.nu),
-                      count, *hyper)
+                      count, None, *hyper)
 
         return update
 

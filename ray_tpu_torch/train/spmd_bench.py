@@ -1,25 +1,28 @@
 """Measured multi-GPU SPMD training-step benchmark.
 
     python -m ray_tpu_torch.train.spmd_bench [--n-devices N] [--steps K]
-                                             [--device cpu]
+                                             [--device cpu] [--eager]
 
 Counterpart of `ray_tpu/train/spmd_bench.py`. It runs the SAME global
-batch through the one-GPU step (the unsharded eager step, on rank 0 while
-the others wait) and through the sharded step over a named (dp, fsdp, tp)
-mesh spanning N ranks (one per GPU, NCCL), and prints ONE JSON line:
-tokens/s per GPU, MFU per GPU (against the part's dense bf16 peak,
+batch through the one-GPU step (the unsharded step, on rank 0 while the
+others wait) and through the sharded step over a named (dp, fsdp, tp) mesh
+spanning N ranks (one per GPU, NCCL), and prints ONE JSON line: tokens/s
+per GPU, MFU per GPU (against the part's dense bf16 peak,
 `_private/accelerators/nvidia.py`), scaling efficiency (per-GPU throughput
 kept going from 1 to N GPUs), peak device memory per GPU, the device time
-of the mesh step's NCCL kernels by name, and the largest loss difference
-between the two trajectories (the mesh program must be a re-partitioning
-of the same arithmetic).
+of the mesh step's NCCL kernels by name against the rest, and the largest
+loss difference between the two trajectories (the mesh program must be a
+re-partitioning of the same arithmetic).
 
-On the card the configuration is the JAX bench's (Llama-3-8B widths, 5
-layers, vocab 32000, chunked CE of 1024, bf16, remat "dots", B = 4 N,
-S = 2048, `adamw(3e-4, weight_decay=0.0)`); both steps run eagerly (the
-sharded step is not compiled). With --device cpu it runs gloo ranks on the
-tiny fp32 config at B = 2 N, S = 128 and reports no MFU and no device
-memory: a CPU rate is no device metric.
+By default the steps are compiled, as the JAX step is jitted: the one-GPU
+step, and the mesh step compiled and eager side by side (`sharded` in the
+detail; the top-level numbers are the compiled step's). --eager runs every
+step eagerly. On the card the configuration is the JAX bench's (Llama-3-8B
+widths, 5 layers, vocab 32000, chunked CE of 1024, bf16, remat "dots",
+B = 4 N, S = 2048, `adamw(3e-4, weight_decay=0.0)`). With --device cpu it
+runs gloo ranks on the tiny fp32 config at B = 2 N, S = 128 (compiled with
+aot_eager) and reports no MFU and no device memory: a CPU rate is no
+device metric.
 """
 
 from __future__ import annotations
@@ -70,30 +73,43 @@ def launch_counts() -> Dict[str, int]:
             "flash_bwd_dkv": fa.flash_bwd_dkv_cuda.launches}
 
 
-def train_run(cfg, plan: Optional[Dict[str, int]], tokens: np.ndarray,
-              steps: int, seed: int = 0, lr: float = 3e-4,
-              num_slices: int = 1) -> Dict[str, Any]:
-    """On this rank of a gang: a seeded state, one warm-up step and `steps`
-    timed eager steps on the global batch `tokens` [B, S+1]; plan None is
-    the unsharded step on this rank alone, else the sharded step over the
-    mesh MeshConfig(**plan) (with `num_slices` a leading dcn dim).
-    -> {"step_s", "losses", "grad_norms" (warm-up first), "peak_gib"
-    (None on the CPU), "launches" (per timed step, this rank's)}."""
-    from ray_tpu_torch.models import llama
+def compile_backend(dev) -> str:
+    """What a compiled step is built with: inductor on the card, aot_eager
+    on CPU ranks (no Triton there)."""
+    return "inductor" if dev.type == "cuda" else "aot_eager"
+
+
+def model_run(family: str, cfg, plan: Optional[Dict[str, int]],
+              batch_np: Dict[str, np.ndarray], logical, steps: int,
+              seed: int = 0, lr: float = 3e-4, num_slices: int = 1,
+              compiled: bool = False) -> Dict[str, Any]:
+    """On this rank of a gang: a seeded state of the port's model `family`
+    ("llama", "mixtral", "vit", "t5"), one warm-up step and `steps` timed
+    steps on the global batch `batch_np` ({name: numpy}); plan None is the
+    unsharded step on this rank alone, else the sharded step over the mesh
+    MeshConfig(**plan) (with `num_slices` a leading dcn dim), the batch
+    placed by `logical` ({name: logical axes}). compiled: the step of
+    `make_train_step(compiled=True)` (`compile_backend`), else eager.
+    -> {"step_s", "compile_s" (the warm-up step's seconds), "losses",
+    "grad_norms" (warm-up first), "peak_gib" (None on the CPU),
+    "launches" (per timed step, this rank's), and on the card with a
+    mesh "collectives_ms"}."""
+    import importlib
+
     from ray_tpu_torch.parallel.mesh import MeshConfig, build_multislice_mesh
     from ray_tpu_torch.parallel.sharding import LogicalAxisRules
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
     from ray_tpu_torch.train.backend import rank_device
-    from ray_tpu_torch.train.spmd import batch_sharding, shard_local_batch
+    from ray_tpu_torch.train.spmd import shard_local_batch
 
+    mod = importlib.import_module(f"ray_tpu_torch.models.{family}")
     dev = rank_device()
     opt = adamw(lr, weight_decay=0.0)
-    init = functools.partial(llama.init, cfg, torch.Generator(
+    init = functools.partial(mod.init, cfg, torch.Generator(
         device=dev).manual_seed(seed))
-    batch_np = {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
     if plan is None:
         state = init_train_state(init, opt, device=dev)
-        loss_fn = functools.partial(llama.loss_fn, config=cfg)
+        loss_fn = functools.partial(mod.loss_fn, config=cfg)
         batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
                  for k, v in batch_np.items()}
     else:
@@ -101,19 +117,24 @@ def train_run(cfg, plan: Optional[Dict[str, int]], tokens: np.ndarray,
         mesh = build_multislice_mesh(MeshConfig(**plan), num_slices,
                                      device_type=dev.type)
         state = init_train_state(init, opt, device=dev,
-                                 param_logical_axes=llama.param_logical_axes(
+                                 param_logical_axes=mod.param_logical_axes(
                                      cfg), mesh=mesh, rules=rules)
-        loss_fn = functools.partial(llama.loss_fn, config=cfg, mesh=mesh,
+        loss_fn = functools.partial(mod.loss_fn, config=cfg, mesh=mesh,
                                     rules=rules)
-        batch = shard_local_batch(batch_np, batch_sharding(mesh, rules),
-                                  mesh, dev)
-    step = make_train_step(loss_fn, opt, compiled=False)
+        batch = {k: shard_local_batch({k: v}, rules.to_physical(
+            logical[k], mesh), mesh, dev)[k] for k, v in batch_np.items()}
+    if compiled:
+        torch._dynamo.reset()
+    step = make_train_step(loss_fn, opt, compiled=compiled,
+                           backend=compile_backend(dev))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     metrics = []
-    state, m = step(state, batch)  # warm-up
+    t0 = time.perf_counter()
+    state, m = step(state, batch)  # warm-up (and the compile)
     metrics.append(m)
     _sync(dev)
+    compile_s = time.perf_counter() - t0
     launches = []
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -124,7 +145,7 @@ def train_run(cfg, plan: Optional[Dict[str, int]], tokens: np.ndarray,
         metrics.append(m)
     _sync(dev)
     step_s = (time.perf_counter() - t0) / max(steps, 1)
-    out = {"step_s": step_s,
+    out = {"step_s": step_s, "compile_s": compile_s,
            "losses": [float(m["loss"]) for m in metrics],
            "grad_norms": [float(m["grad_norm"]) for m in metrics],
            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
@@ -132,10 +153,53 @@ def train_run(cfg, plan: Optional[Dict[str, int]], tokens: np.ndarray,
            "launches": launches}
     if dev.type == "cuda" and plan is not None:
         out["collectives_ms"] = _profile_collectives(step, state, batch)
-    del state
+    del state, step
+    if compiled:
+        torch._dynamo.reset()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+TOKENS = {"inputs": ("batch", "seq"), "targets": ("batch", "seq")}
+
+
+def train_run(cfg, plan: Optional[Dict[str, int]], tokens: np.ndarray,
+              steps: int, seed: int = 0, lr: float = 3e-4,
+              num_slices: int = 1, compiled: bool = False) -> Dict[str, Any]:
+    """`model_run` of Llama on the global token batch `tokens` [B, S+1]
+    (inputs and targets its shifted views, both (batch, seq))."""
+    return model_run("llama", cfg, plan, {"inputs": tokens[:, :-1],
+                                          "targets": tokens[:, 1:]},
+                     TOKENS, steps, seed, lr, num_slices, compiled)
+
+
+def model_forms(family: str, cfg, plan: Optional[Dict[str, int]],
+                batch_np, logical, steps: int, forms=("eager", "compiled"),
+                seed: int = 0, lr: float = 3e-4) -> Dict[str, Any]:
+    """`model_run` once per form ("eager", "compiled") from the same seeded
+    state on the same batch, in one rank process; -> {form: its result}."""
+    return {form: model_run(family, cfg, plan, batch_np, logical, steps,
+                            seed, lr, compiled=form == "compiled")
+            for form in forms}
+
+
+def versus_one(family: str, cfg, plan: Dict[str, int], batch_np, logical,
+               steps: int, seed: int = 0, lr: float = 3e-4,
+               compiled: bool = False) -> Dict[str, Any]:
+    """The unsharded step on rank 0 alone (the others wait), then the
+    sharded step on every rank, from the same seeded state on the same
+    global batch; -> {"one": rank 0's result or None, "mesh": this
+    rank's}."""
+    import torch.distributed as dist
+
+    one = (model_run(family, cfg, None, batch_np, logical, steps, seed, lr,
+                     compiled=compiled)
+           if dist.get_rank() == 0 else None)
+    dist.barrier()
+    return {"one": one, "mesh": model_run(family, cfg, plan, batch_np,
+                                          logical, steps, seed, lr,
+                                          compiled=compiled)}
 
 
 def _profile_collectives(step, state, batch) -> Dict[str, float]:
@@ -160,22 +224,37 @@ def _profile_collectives(step, state, batch) -> Dict[str, float]:
 
 
 def _bench_rank(n: int, steps: int, plan: Dict[str, int], cfg, batch: int,
-                seq: int, seed: int) -> Dict[str, Any]:
+                seq: int, seed: int, compiled: bool) -> Dict[str, Any]:
     """One rank of the bench: rank 0 runs the one-GPU step first while the
-    others wait, then every rank runs the mesh step."""
+    others wait, then every rank runs the mesh step (compiled, then eager,
+    when `compiled`; eager alone otherwise)."""
     import torch.distributed as dist
 
     toks = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (batch, seq + 1))
-    one = train_run(cfg, None, toks, steps) if dist.get_rank() == 0 else None
+    one = (train_run(cfg, None, toks, steps, compiled=compiled)
+           if dist.get_rank() == 0 else None)
     dist.barrier()
-    mesh = train_run(cfg, plan, toks, steps)
-    return {"one": one, "mesh": mesh}
+    forms = ("compiled", "eager") if compiled else ("eager",)
+    return {"one": one, "mesh": {
+        form: train_run(cfg, plan, toks, steps, compiled=form == "compiled")
+        for form in forms}}
+
+
+def nccl_split(collectives_ms: Optional[Dict[str, float]]):
+    """(NCCL kernels' ms, the rest's ms) of `_profile_collectives`."""
+    if not collectives_ms:
+        return None, None
+    nccl = sum(v for k, v in collectives_ms.items() if k != "compute")
+    return nccl, collectives_ms.get("compute", 0.0)
 
 
 def run(n_devices: int, steps: int = 3, device=None,
-        timeout_s: float = 1500.0) -> Dict[str, Any]:
-    """The bench on a gang of n_devices ranks; -> its JSON object."""
+        timeout_s: float = 1500.0, compiled: bool = True) -> Dict[str, Any]:
+    """The bench on a gang of n_devices ranks; -> its JSON object. compiled
+    (the default, as `make_train_step`'s): the one-GPU step compiled, and
+    the mesh step compiled and eager side by side, the top-level numbers
+    the compiled one's; else every step eager."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.train.backend import launch_gang
 
@@ -190,14 +269,41 @@ def run(n_devices: int, steps: int = 3, device=None,
         cfg = tiny_config()
         batch, seq = 2 * n_devices, 128
     res = launch_gang(_bench_rank, n_devices, device, timeout_s,
-                      args=(n_devices, steps, plan, cfg, batch, seq, 1))
-    one, meshes = res[0]["one"], [r["mesh"] for r in res]
+                      args=(n_devices, steps, plan, cfg, batch, seq, 1,
+                            compiled))
+    one = res[0]["one"]
     tokens = batch * seq
     flops_tok = llama.flops_per_token(cfg, seq)
-    step_1, step_n = one["step_s"], max(m["step_s"] for m in meshes)
+    step_1 = one["step_s"]
     per_gpu_1 = tokens / step_1
-    per_gpu_n = tokens / step_n / n_devices
-    diffs = [abs(a - b) for a, b in zip(one["losses"], meshes[0]["losses"])]
+    peak = None
+    if on_card:
+        from ray_tpu_torch._private.accelerators.nvidia import (
+            bf16_peak_flops_per_device)
+        from ray_tpu_torch.bench import nvidia_smi_line
+
+        card = nvidia_smi_line()
+        peak = bf16_peak_flops_per_device(card.split(",")[0])
+    forms = {}
+    for form in res[0]["mesh"]:
+        meshes = [r["mesh"][form] for r in res]
+        step_n = max(m["step_s"] for m in meshes)
+        per_gpu_n = tokens / step_n / n_devices
+        nccl_ms, compute_ms = nccl_split(meshes[0].get("collectives_ms"))
+        forms[form] = {
+            "step_time_ms": step_n * 1e3,
+            "compile_s": max(m["compile_s"] for m in meshes),
+            "tokens_per_sec_per_gpu": per_gpu_n,
+            "scaling_efficiency": per_gpu_n / per_gpu_1,
+            "mfu": flops_tok * per_gpu_n / peak if peak else None,
+            "peak_gib_per_gpu": [m["peak_gib"] for m in meshes],
+            "collectives_ms_rank0": meshes[0].get("collectives_ms"),
+            "nccl_ms_rank0": nccl_ms, "compute_ms_rank0": compute_ms,
+            "losses": meshes[0]["losses"],
+            "grad_norms": meshes[0]["grad_norms"],
+        }
+    main_form = forms["compiled" if compiled else "eager"]
+    diffs = [abs(a - b) for a, b in zip(one["losses"], main_form["losses"])]
     detail = {
         "platform": "gpu" if on_card else "cpu",
         "n_devices": n_devices,
@@ -206,35 +312,33 @@ def run(n_devices: int, steps: int = 3, device=None,
         "seq_len": seq,
         "global_batch": batch,
         "steps": steps,
+        "compiled": compiled,
         "step_time_ms_1dev": step_1 * 1e3,
-        "step_time_ms_ndev": step_n * 1e3,
+        "compile_s_1dev": one["compile_s"],
+        "step_time_ms_ndev": main_form["step_time_ms"],
         "tokens_per_sec_per_gpu_1dev": per_gpu_1,
-        "scaling_efficiency": per_gpu_n / per_gpu_1,
+        "scaling_efficiency": main_form["scaling_efficiency"],
         "loss_max_abs_diff": max(diffs),
         "loss_max_rel_diff": max(d / abs(a) for d, a in
                                  zip(diffs, one["losses"])),
         "loss_1dev": one["losses"],
-        "loss_ndev": meshes[0]["losses"],
+        "loss_ndev": main_form["losses"],
         "grad_norm_1dev": one["grad_norms"],
-        "grad_norm_ndev": meshes[0]["grad_norms"],
+        "grad_norm_ndev": main_form["grad_norms"],
+        "sharded": forms,
     }
     if on_card:
-        from ray_tpu_torch._private.accelerators.nvidia import (
-            bf16_peak_flops_per_device)
-        from ray_tpu_torch.bench import nvidia_smi_line
-
-        card = nvidia_smi_line()
-        peak = bf16_peak_flops_per_device(card.split(",")[0])
         detail.update({
             "card": card,
             "mfu_1dev": flops_tok * per_gpu_1 / peak,
-            "mfu": flops_tok * per_gpu_n / peak,
+            "mfu": main_form["mfu"],
             "peak_gib_1dev": one["peak_gib"],
-            "peak_gib_per_gpu": [m["peak_gib"] for m in meshes],
-            "collectives_ms_rank0": meshes[0].get("collectives_ms"),
+            "peak_gib_per_gpu": main_form["peak_gib_per_gpu"],
+            "collectives_ms_rank0": main_form["collectives_ms_rank0"],
         })
     return {"metric": "train_multigpu_tokens_per_sec_per_gpu",
-            "value": per_gpu_n, "unit": "tokens/s/gpu", "detail": detail}
+            "value": main_form["tokens_per_sec_per_gpu"],
+            "unit": "tokens/s/gpu", "detail": detail}
 
 
 def main(argv=None) -> int:
@@ -243,6 +347,9 @@ def main(argv=None) -> int:
                    help="ranks to span (default: every visible card)")
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--device", default=None, choices=("cuda", "cpu"))
+    p.add_argument("--eager", action="store_true",
+                   help="every step eager (default: the one-GPU step and "
+                   "the mesh step compiled, the mesh step eager beside)")
     args = p.parse_args(argv)
     n = args.n_devices
     if n is None:
@@ -255,7 +362,8 @@ def main(argv=None) -> int:
             if n == 0:
                 raise RuntimeError("no CUDA card visible; pass --device cpu "
                                    "to run gloo ranks")
-    print(json.dumps(run(n, steps=args.steps, device=args.device)))
+    print(json.dumps(run(n, steps=args.steps, device=args.device,
+                         compiled=not args.eager)))
     return 0
 
 

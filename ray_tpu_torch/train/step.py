@@ -7,7 +7,8 @@ that donates the state's buffers; here the step is two programs that
 backward (AOTAutograd compiles the backward; the flash kernels are custom
 operators inside both) and the global norm with the AdamW update. The
 update writes the parameter and moment tensors in place: the state a step
-returns holds the same tensors as the state it was given. The eager step
+returns holds the same tensors as the state it was given. The sharded step
+(DTensor parameters on a mesh) is compiled the same way. The eager step
 stays as an explicit choice. Metrics stay on the device; nothing in the
 step waits for the card.
 """
@@ -20,7 +21,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.train.optim import AdamW, _is_dtensor, tree_leaves
+from ray_tpu_torch.train.optim import AdamW, tree_leaves
 
 
 @dataclasses.dataclass
@@ -66,9 +67,11 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     compiled (the default, as the JAX step is always jitted): the loss and
     its backward, and the norm and update, each one torch.compile program
     (fullgraph, static shapes) built by `backend` on the first step; a
-    failure to compile raises. compiled=False runs the same functions
-    eagerly, and is what a state of DTensors takes (the first step raises
-    otherwise)."""
+    failure to compile raises. Over a state of DTensors (the sharded step)
+    the first program takes the DTensor parameters and holds the
+    collectives the sharded loss says, and the second updates each rank's
+    local blocks, the global norm's all-reduce inside it. compiled=False
+    runs the same functions eagerly."""
     if compiled:
         loss_fn = torch.compile(loss_fn, backend=backend, fullgraph=True,
                                 dynamic=False)
@@ -76,10 +79,6 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         leaves = tree_leaves(state.params)
-        if compiled and any(_is_dtensor(p) for p in leaves):
-            raise NotImplementedError(
-                "the sharded step runs eagerly: make_train_step(..., "
-                "compiled=False)")
         for p in leaves:
             p.requires_grad_(True)
         try:

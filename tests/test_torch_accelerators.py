@@ -8,6 +8,7 @@ sharded code on a 1 x ... x 1 mesh against the unsharded step, and (l-2)
 `graft_entry.dryrun_multichip(4, device="cpu")` on 4 spawned gloo ranks.
 """
 
+import json
 import multiprocessing
 import operator
 import time
@@ -143,40 +144,176 @@ def test_initialize_distributed_is_idempotent_for_one_binding(tmp_path):
         backend.init_process_group(0, 1, method, "cuda")
 
 
-def test_chip_smoke_phase_l_rehearsed_on_the_cpu(monkeypatch, capsys,
-                                                 tmp_path, request):
-    """chip_smoke.py's phase (l) on a one-card machine, at tiny sizes on the
-    CPU with the card stubbed and the kernels counted (as
-    tests/test_torch_flash_sm90.py rehearses main()): (l-1)'s checks (the
-    world-1 sharded step equal to the unsharded one, 2L / L / L launches a
-    step) and (l-2)'s 4-rank CPU dry run, which says so."""
+def _rehearse_phase_l(monkeypatch, tmp_path, request):
+    """chip_smoke.py loaded for a phase (l) rehearsal on a one-card machine:
+    the card stubbed and the kernels counted (as
+    tests/test_torch_flash_sm90.py rehearses main()), the bench
+    configuration tiny."""
     from test_torch_flash_sm90 import rehearse_on_the_cpu
 
-    t0 = time.perf_counter()
     smoke = rehearse_on_the_cpu(monkeypatch, tmp_path, request)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(smoke, "bench_config", smoke.tiny_train_config)
     monkeypatch.setattr(smoke, "TRAIN_ATTN", (2, 64, 64, 4, 2, 32, True))
+    return smoke
+
+
+def _no_launches():
+    return {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def test_chip_smoke_phase_l_rehearsed_on_the_cpu(monkeypatch, capsys,
+                                                 tmp_path, request):
+    """chip_smoke.py's phase (l) on a one-card machine, at tiny sizes on the
+    CPU: (l-1)'s eager checks (the world-1 sharded step equal to the
+    unsharded one, 2L / L / L launches a step), then (l-2), which asks for
+    the 4-rank dry run on CPU ranks and says so. The dry run itself is
+    rehearsed by test_chip_smoke_phase_l2_dry_run_rehearsed_on_the_cpu,
+    (l-1)'s compiled, zoo and engine checks by the tests after it."""
+    from ray_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    smoke = _rehearse_phase_l(monkeypatch, tmp_path, request)
+    monkeypatch.setattr(smoke, "phase_spmd_world1_compiled", _no_launches)
+    monkeypatch.setattr(smoke, "phase_spmd_world1_zoo",
+                        lambda seed: _no_launches())
+    monkeypatch.setattr(smoke, "phase_spmd_world1_engine", lambda seed: None)
+    asked = []
+
+    def dry_run(n, device=None):
+        asked.append((n, device))
+        return ["[dryrun stub] all multichip checks passed"]
+
+    monkeypatch.setattr(graft_entry, "dryrun_multichip", dry_run)
     counts = smoke.phase_spmd()
     assert not dist.is_initialized()
+    assert asked == [(4, "cpu")]
     lines = capsys.readouterr().out.strip().splitlines()
     for text in ("[l] 1 GPU(s) visible: (l-1), then (l-2)",
                  "[l-1] tiny fp32, world-1 mesh, 3 steps",
                  "[l-1] bench config (B=2 S=64",
                  "[l-2] this machine has 1 GPU(s); the 4-rank dry run runs "
-                 "on CPU ranks", "[l] launches on the SPMD path"):
+                 "on CPU ranks", "[l-2] the CPU-rank dry run took",
+                 "[l] launches on the SPMD paths"):
         assert any(line.startswith(text) for line in lines), text
-    dry = [line for line in lines if line.startswith("[dryrun")]
-    assert len(dry) == 8 and all(
-        line.startswith("[dryrun cpu-ranks: 4 gloo CPU ranks, no GPU]")
-        for line in dry)
-    assert "ring over sp=2" in "".join(dry)
-    assert "tp=2 paged decode OK" in dry[-2]
     layers = smoke.tiny_train_config().n_layers
     # (l-1)'s sharded steps: 3 of the tiny config and 3 of the bench
     # config (tiny here), 2L / L / L each; the unsharded steps they are
     # held to do not count.
-    assert counts == {"flash_fwd": 6 * 2 * layers,
-                      "flash_bwd_dq": 6 * layers,
-                      "flash_bwd_dkv": 6 * layers}
+    assert counts["spmd"] == {"flash_fwd": 6 * 2 * layers,
+                              "flash_bwd_dq": 6 * layers,
+                              "flash_bwd_dkv": 6 * layers}
+    assert time.perf_counter() - t0 < 60
+
+
+def test_chip_smoke_phase_l2_dry_run_rehearsed_on_the_cpu(monkeypatch, capsys,
+                                                          tmp_path, request):
+    """(l-2): `graft_entry.dryrun_multichip(4, device="cpu")` on 4 spawned
+    gloo ranks, as phase (l) runs it on a one-card machine: every check of
+    the dry run (the sharded step, the ring against the gathered sequence,
+    the compiled sharded step against the eager one, the pipeline, the MoE
+    dispatch, a Mixtral step over ep, the multi-slice mesh, tp=2 paged
+    decode) passes and says so."""
+    t0 = time.perf_counter()
+    smoke = _rehearse_phase_l(monkeypatch, tmp_path, request)
+    smoke.phase_spmd_cpu_ranks(1)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert any(line.startswith("[l-2] this machine has 1 GPU(s); the 4-rank "
+                               "dry run runs on CPU ranks") for line in lines)
+    dry = [line for line in lines if line.startswith("[dryrun")]
+    assert len(dry) == 10 and all(
+        line.startswith("[dryrun cpu-ranks: 4 gloo CPU ranks, no GPU]")
+        for line in dry)
+    assert "ring over sp=2" in "".join(dry)
+    assert "compiled sharded step (aot_eager) OK" in "".join(dry)
+    assert "Mixtral step (dp=2 x ep=2) OK" in "".join(dry)
+    assert "tp=2 paged decode OK" in dry[-2]
+    assert dry[-1].endswith("all multichip checks passed")
+    assert time.perf_counter() - t0 < 60
+
+
+def test_chip_smoke_phase_l1_compiled_rehearsed_on_the_cpu(
+        monkeypatch, capsys, tmp_path, request):
+    """(l-1)'s compiled sharded steps (aot_eager here) against the compiled
+    unsharded ones, the tiny config and the bench widths cut to 1 layer,
+    with 2L / L / L launches a step on their own count; the zoo and engine
+    checks are rehearsed by the next test, the (l-2) dry run by the one
+    above."""
+    t0 = time.perf_counter()
+    smoke = _rehearse_phase_l(monkeypatch, tmp_path, request)
+    # The bench widths (the tiny config here) at the tiny config's depth:
+    # the cut config is then the tiny one, whose programs torch.compile
+    # finds in its cache.
+    monkeypatch.setattr(smoke, "SPMD_COMPILED_LAYERS",
+                        smoke.tiny_train_config().n_layers)
+    monkeypatch.setattr(smoke, "phase_spmd_cpu_ranks", lambda n: None)
+    monkeypatch.setattr(smoke, "phase_spmd_world1_zoo",
+                        lambda seed: _no_launches())
+    monkeypatch.setattr(smoke, "phase_spmd_world1_engine", lambda seed: None)
+    counts = smoke.phase_spmd()
+    assert not dist.is_initialized()
+    lines = capsys.readouterr().out.strip().splitlines()
+    for text in ("[l-1] compiled (aot_eager) tiny fp32, world-1 mesh",
+                 "[l-1] compiled (aot_eager) bench widths cut to 2 layer(s)",
+                 "[l-1] the compiled sharded checks"):
+        assert any(line.startswith(text) for line in lines), text
+    layers = smoke.tiny_train_config().n_layers
+    # 3 steps of the tiny config and 3 at the bench widths cut to
+    # SPMD_COMPILED_LAYERS (the tiny config cut so here), 2L / L / L each.
+    cut = smoke.SPMD_COMPILED_LAYERS
+    assert counts["spmd_compiled"] == {
+        "flash_fwd": 3 * 2 * (layers + cut),
+        "flash_bwd_dq": 3 * (layers + cut),
+        "flash_bwd_dkv": 3 * (layers + cut)}
+    assert time.perf_counter() - t0 < 60
+
+
+def test_chip_smoke_phase_l1_zoo_and_engine_rehearsed_on_the_cpu(
+        monkeypatch, capsys, tmp_path, request):
+    """(l-1)'s tiny Mixtral (compiled, aot_eager here), ViT and T5 sharded
+    steps against their unsharded ones, Mixtral's launches on their own
+    count, and the dense engine with mesh= at tp=1 giving the engine's
+    tokens without it."""
+    t0 = time.perf_counter()
+    smoke = _rehearse_phase_l(monkeypatch, tmp_path, request)
+    monkeypatch.setattr(smoke, "phase_spmd_cpu_ranks", lambda n: None)
+    monkeypatch.setattr(smoke, "phase_spmd_world1_compiled", _no_launches)
+    counts = smoke.phase_spmd()
+    assert not dist.is_initialized()
+    lines = capsys.readouterr().out.strip().splitlines()
+    for text in ("[l-1] tiny Mixtral fp32 compiled (aot_eager), world-1 mesh",
+                 "[l-1] tiny ViT fp32 eager, world-1 mesh",
+                 "[l-1] tiny T5 fp32 eager, world-1 mesh",
+                 "[l-1] dense engine, tiny fp32, mesh= at tp=1"):
+        assert any(line.startswith(text) for line in lines), text
+    assert any("identical True" in line for line in lines
+               if line.startswith("[l-1] dense engine"))
+    # the tiny Mixtral's 3 steps, its 2 layers under "dots"
+    assert counts["zoo_mesh"] == {"flash_fwd": 3 * 2 * 2,
+                                  "flash_bwd_dq": 3 * 2,
+                                  "flash_bwd_dkv": 3 * 2}
+    assert time.perf_counter() - t0 < 60
+
+
+def test_chip_smoke_only_l_part_runs_one_four_card_part_on_the_cpu(
+        monkeypatch, capsys, tmp_path, request):
+    """`chip_smoke.py --only l --part pipeline` with four cards (stubbed;
+    gloo CPU ranks here): the build, then that (l-3) part alone (the pp=4
+    pipeline's output and gradients against the stages in sequence), its
+    lines and the last line's ok object; --part without --only l is
+    refused."""
+    t0 = time.perf_counter()
+    smoke = _rehearse_phase_l(monkeypatch, tmp_path, request)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(smoke, "SPMD_PIPE", dict(m=4, mb=(2, 8),
+                                                 rel_tol=1e-4))
+    assert smoke.main(["--only", "l", "--part", "pipeline"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert any(line.startswith("[l-3] pipeline pp=4 of SwiGLU stages")
+               for line in lines)
+    assert any(line.startswith("[l-3] cards_pipeline:") for line in lines)
+    assert not any(line.startswith(("[l-1]", "[dryrun")) for line in lines)
+    assert json.loads(lines[-1])["ok"] is True
+    with pytest.raises(SystemExit):
+        smoke.main(["--part", "pipeline"])
     assert time.perf_counter() - t0 < 60

@@ -318,7 +318,7 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     t0 = time.perf_counter()
     smoke = rehearse_on_the_cpu(monkeypatch, tmp_path, request)
 
-    def zoo(t_start):
+    def mixtral_step(tag):
         smoke.reset_kernel_counts()
         cfg = mixtral.MixtralConfig.tiny(vocab_size=64)
         params = mixtral.init(cfg, torch.Generator().manual_seed(0),
@@ -329,12 +329,15 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
         loss = mixtral.loss_fn(params, {"tokens": torch.arange(34).view(
             2, 17)}, cfg)
         torch.autograd.grad(loss, leaves)
-        smoke.log("[k] one tiny Mixtral step in place of phase (k)")
+        smoke.log(tag)
         return smoke.kernel_counts()
+
+    def zoo(t_start):
+        return mixtral_step("[k] one tiny Mixtral step in place of phase (k)")
 
     monkeypatch.setattr(smoke, "phase_zoo", zoo)
 
-    def spmd(eager_first=None):
+    def llama_step(tag):
         smoke.reset_kernel_counts()
         cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=64),
                                   dtype=torch.float32)
@@ -346,8 +349,17 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
         loss = llama.loss_fn(params, {"tokens": torch.arange(34).view(
             2, 17)}, cfg)
         torch.autograd.grad(loss, leaves)
-        smoke.log("[l] one tiny Llama step in place of phase (l)")
+        smoke.log(tag)
         return smoke.kernel_counts()
+
+    def spmd(eager_first=None):
+        # one tiny step in place of each of (l)'s paths
+        return {"spmd": llama_step("[l] one tiny Llama step in place of "
+                                   "phase (l)'s eager sharded steps"),
+                "spmd_compiled": llama_step("[l] one tiny Llama step in "
+                                            "place of its compiled ones"),
+                "zoo_mesh": mixtral_step("[l] one tiny Mixtral step in "
+                                         "place of the zoo on the mesh")}
 
     # (l), the SPMD path, is rehearsed on its own by
     # tests/test_torch_accelerators.py.
@@ -360,9 +372,7 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     # (n), the data plane, is rehearsed on its own by
     # tests/test_torch_data_feed.py; here one tiny Llama step stands in.
     def dataplane(card):
-        counts = spmd()
-        smoke.log("[n] one tiny Llama step in place of phase (n)")
-        return counts
+        return llama_step("[n] one tiny Llama step in place of phase (n)")
 
     monkeypatch.setattr(smoke, "phase_dataplane", dataplane)
     # The bench at (h-2)'s batch, as on the card.
@@ -474,10 +484,11 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert by_path[name] == {"serve": 0, "train": 13 * layers,
                                  "train_compiled": 30 * layers,
-                                 "mixtral": 2, "spmd": 2, "feed": 2}
-    assert by_path["flash_fwd"]["mixtral"] == 4  # 2 layers under "dots"
-    assert by_path["flash_fwd"]["spmd"] == 4
-    assert by_path["flash_fwd"]["feed"] == 4
+                                 "mixtral": 2, "spmd": 2, "spmd_compiled": 2,
+                                 "zoo_mesh": 2, "feed": 2}
+    # 2 layers under "dots" for each stand-in step
+    for path in ("mixtral", "spmd", "spmd_compiled", "zoo_mesh", "feed"):
+        assert by_path["flash_fwd"][path] == 4, path
     assert by_path["flash_fwd"]["serve"] >= 2 * layers
     assert [k["launches"] for k in kernels] == [
         sum(by_path[k["name"]].values()) for k in kernels]

@@ -20,6 +20,9 @@ import pytest
 from jax.sharding import Mesh, NamedSharding
 
 from ray_tpu.models import llama as jl
+from ray_tpu.models import mixtral as jmx
+from ray_tpu.models import t5 as jt5
+from ray_tpu.models import vit as jvit
 from ray_tpu.parallel import mesh as jmesh
 from ray_tpu.parallel import sharding as jsharding
 from ray_tpu_torch.models import llama as tl
@@ -117,10 +120,18 @@ def test_every_rule_gives_jax_partition_spec(sizes):
     for name in names:
         want = tuple(jr.to_physical((name,), _jax_mesh(sizes)))
         assert tr.spec((name,), sizes) == want, name
-    # whole parameter trees and activation layouts, several dims at once
-    axes = [a for a in jax.tree.leaves(
-        jl.param_logical_axes(jl.LlamaConfig.tiny()),
-        is_leaf=lambda x: isinstance(x, tuple))]
+    # whole parameter trees and activation layouts, several dims at once;
+    # the zoo's trees name "patch", "enc_layers" and "dec_layers", which no
+    # rule maps, so those dims stay whole, as JAX keeps them
+    axes = [a for tree in (jl.param_logical_axes(jl.LlamaConfig.tiny()),
+                           jmx.param_logical_axes(jmx.MixtralConfig.tiny()),
+                           jvit.param_logical_axes(jvit.ViTConfig.tiny()),
+                           jt5.param_logical_axes(jt5.T5Config.tiny()))
+            for a in jax.tree.leaves(
+                tree, is_leaf=lambda x: isinstance(x, tuple))]
+    for name in ("patch", "enc_layers", "dec_layers"):
+        assert any(name in a for a in axes)
+        assert tr.spec((name,), sizes) == (None,)
     axes += [("batch", "seq", "act_heads", "act_kv"),
              ("batch", "seq", "act_vocab"), ("batch", "seq", "act_embed")]
     for a in axes:

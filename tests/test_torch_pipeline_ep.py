@@ -1,18 +1,21 @@
-"""The port's pipeline, expert-parallel MoE and tensor-parallel paged
-decode against the JAX package's, on the CPU.
+"""The port's pipeline, expert-parallel MoE and tensor-parallel dense and
+paged decode against the JAX package's, on the CPU.
 
 One 4-rank gloo gang (spawned once for the file) runs
 `ray_tpu_torch.parallel.pipeline.pipeline_sharded` over pp=2 (x dp=2),
 `ray_tpu_torch.parallel.moe.moe_shard_map` over ep=2 (x dp=2) with
-all_to_all_single, and the paged engine over tp=2 (x dp=2) from the JAX
-init's weights. Each is held against its JAX counterpart on the same mesh
-shape of the 8 virtual CPU devices: the pipeline's outputs (fp32, 1e-5),
-the MoE outputs, aux loss and gradients with respect to x, the gate and
-the experts (and the one-device `moe_layer` on each ep shard's tokens,
-with the aux loss's gradient), and the engine's
-streams and final host state (block table, lengths, free blocks, prefix
-cache) equal to `ray_tpu.inference.paged_engine.PagedInferenceEngine`'s
-with `mesh=`.
+all_to_all_single, and the dense and paged engines over tp=2 (x dp=2) from
+the JAX init's weights. Each is held against its JAX counterpart on the
+same mesh shape of the 8 virtual CPU devices: the pipeline's outputs and
+its gradients with respect to the stage parameters and the microbatches
+(against `jax.grad` through the shard_map'd scan; fp32, 1e-5), the MoE
+outputs, aux loss and gradients with respect to x, the gate and the
+experts (and the one-device `moe_layer` on each ep shard's tokens, with the
+aux loss's gradient), the dense engine's streams against
+`ray_tpu.inference.engine.InferenceEngine`'s with `mesh=`, and the paged
+engine's streams and final host state (block table, lengths, free blocks,
+prefix cache) equal to `ray_tpu.inference.paged_engine.
+PagedInferenceEngine`'s with `mesh=`.
 """
 
 import dataclasses
@@ -25,6 +28,7 @@ import torch
 from jax.sharding import Mesh
 
 from ray_tpu.inference import GenerationConfig as JGen
+from ray_tpu.inference.engine import InferenceEngine as JDense
 from ray_tpu.inference.engine import (
     shard_params_for_inference as jax_shard_for_inference)
 from ray_tpu.inference.paged_engine import PagedInferenceEngine as JPaged
@@ -34,7 +38,6 @@ from ray_tpu.parallel.moe import moe_shard_map as jax_moe_shard_map
 from ray_tpu.parallel.pipeline import pipeline_sharded as jax_pipeline
 from ray_tpu_torch.parallel import gang_cases
 from ray_tpu_torch.parallel.moe import moe_layer
-from ray_tpu_torch.parallel.pipeline import pipeline_apply
 from ray_tpu_torch.train.backend import launch_gang
 
 WORLD = 4
@@ -48,6 +51,7 @@ MOE_MESH = dict(dp=2, ep=2)
 TP_MESH = dict(dp=2, tp=2)
 MOE_CASES = [(1, 4.0), (2, 1.25)]   # (k, capacity factor): roomy, dropping
 ENGINE = dict(max_batch=2, max_len=64, block_size=8, decode_chunk=4)
+DENSE = dict(max_batch=2, max_len=64, decode_chunk=4)
 PROMPTS = [[1, 2, 3], [4, 5, 6, 7, 8, 9, 10, 11, 12, 13]]
 NEW_TOKENS = 6
 
@@ -61,6 +65,7 @@ def _jmesh(mesh_kw):
 def _pipe_inputs():
     rng = np.random.default_rng(0)
     return (rng.normal(size=(2, D, D)).astype(np.float32) * 0.3,
+            rng.normal(size=(4, 4, D)).astype(np.float32),
             rng.normal(size=(4, 4, D)).astype(np.float32))
 
 
@@ -86,6 +91,8 @@ def gang(tmp_path_factory, params_np):
     cases = [("pipeline_case", (*_pipe_inputs(), PIPE_MESH))]
     cases += [("moe_case", (*_moe_inputs(i), MOE_MESH, k, cf))
               for i, (k, cf) in enumerate(MOE_CASES)]
+    cases.append(("dense_tp_case", (params_np, dict(vocab_size=VOCAB),
+                                    TP_MESH, DENSE, PROMPTS, NEW_TOKENS)))
     cases.append(("paged_tp_case", (params_np, dict(vocab_size=VOCAB),
                                     TP_MESH, ENGINE, PROMPTS, NEW_TOKENS)))
     store = tmp_path_factory.mktemp("gang") / "store"
@@ -93,21 +100,38 @@ def gang(tmp_path_factory, params_np):
                        args=(cases,), init_method=f"file://{store}")
 
 
-def test_pipeline_matches_jax(gang):
-    ws, xs = _pipe_inputs()
-    want = jax_pipeline(lambda w, x: jnp.tanh(x @ w[0]),
+def _jax_pipe(ws, xs):
+    return jax_pipeline(lambda w, x: jnp.tanh(x @ w[0]),
                         _jmesh(PIPE_MESH))(ws, xs)
+
+
+def test_pipeline_matches_jax(gang):
+    ws, xs, _ = _pipe_inputs()
+    want = _jax_pipe(ws, xs)
     for rank in range(WORLD):
-        np.testing.assert_allclose(gang[rank][0], np.asarray(want),
+        np.testing.assert_allclose(gang[rank][0]["out"], np.asarray(want),
                                    atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("grad_of", ["params", "microbatches"])
-def test_pipeline_refuses_to_run_under_autograd(grad_of):
-    ws, xs = (torch.from_numpy(a) for a in _pipe_inputs())
-    (ws if grad_of == "params" else xs).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        pipeline_apply(lambda w, x: torch.tanh(x @ w[0]), ws, xs)
+def test_pipeline_gradients_match_jax(gang, grad_of):
+    """The backward against jax.grad through the shard_map'd scan: JAX's
+    transposes (ppermute's inverse permutation, and psum under
+    check_vma=False for the replicated result) give the gradient of the
+    sequential composition with no factor of the group size, and so must
+    the port's."""
+    ws, xs, ct = _pipe_inputs()
+    argnum = 0 if grad_of == "params" else 1
+    want = jax.jit(jax.grad(lambda w, x: jnp.sum(_jax_pipe(w, x) * ct),
+                            argnums=argnum))(ws, xs)
+    seq = jax.grad(lambda w, x: jnp.sum(
+        jnp.tanh(jnp.tanh(x @ w[0]) @ w[1]) * ct), argnums=argnum)(ws, xs)
+    np.testing.assert_allclose(np.asarray(want), np.asarray(seq), rtol=1e-5,
+                               atol=ATOL)
+    key = "dw" if grad_of == "params" else "dx"
+    for rank in range(WORLD):
+        np.testing.assert_allclose(gang[rank][0][key], np.asarray(want),
+                                   atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("i", range(len(MOE_CASES)),
@@ -178,3 +202,17 @@ def test_tp_paged_decode_matches_the_jax_engine(gang, params_np):
     got = gang[0][-1]
     assert got["pool_local_shape"][3] == jcfg.n_kv_heads // 2
     assert got["pool_placements"][-1] == "Shard(dim=3)"
+
+
+def test_tp_dense_decode_matches_the_jax_engine(gang, params_np):
+    jcfg = _jcfg()
+    mesh = _jmesh(TP_MESH)
+    eng = JDense(jax_shard_for_inference(params_np, jcfg, mesh), jcfg,
+                 mesh=mesh, **DENSE)
+    streams = eng.generate(PROMPTS, JGen(max_new_tokens=NEW_TOKENS))
+    for rank in range(WORLD):
+        assert gang[rank][-2]["streams"] == streams
+    # the cache's KV-head dim is split over tp: one rank holds half the heads
+    got = gang[0][-2]
+    assert got["cache_local_shape"][3] == jcfg.n_kv_heads // 2
+    assert got["cache_placements"][-1] == "Shard(dim=3)"

@@ -10,7 +10,8 @@ devices, and three eager AdamW steps on fsdp=2 x tp=2 against
 `ray_tpu.train.step`'s sharded `init_train_state` / `make_train_step`
 (loss and grad norm 1e-5, parameters within lr). Each rank's flash calls
 follow the remat policy and the ring. In this process, a world-1 gloo gang:
-the sharded code on a 1 x ... x 1 mesh equals the unsharded step.
+the sharded code on a 1 x ... x 1 mesh equals the unsharded step, eagerly
+and compiled (aot_eager).
 """
 
 import dataclasses
@@ -203,43 +204,42 @@ def test_world1_mesh_equals_the_unsharded_step(tmp_path):
             a: 1 for a in ("pp", "dp", "fsdp", "ep", "sp", "tp")}
         mesh = spmd.get_mesh()
         assert mesh.mesh_dim_names == build_mesh(MeshConfig()).mesh_dim_names
-        runs = []
-        for m in (mesh, None):
-            opt = adamw(LR)
-            init = functools.partial(tl.init, cfg,
-                                     torch.Generator().manual_seed(0))
-            state = init_train_state(
-                init, opt, device="cpu",
-                param_logical_axes=tl.param_logical_axes(cfg) if m else None,
-                mesh=m)
-            step = make_train_step(functools.partial(
-                tl.loss_fn, config=cfg, mesh=m), opt, compiled=False)
-            out = []
-            for i in range(3):
-                b = _batch(20 + i, b=2)
-                batch = (shard_local_batch(b, batch_sharding(m), m)
-                         if m is not None else
-                         {k: torch.from_numpy(v) for k, v in b.items()})
-                state, metrics = step(state, batch)
-                out.append((float(metrics["loss"]),
-                            float(metrics["grad_norm"])))
-            runs.append((out, [gang_cases._full(p)
-                               for p in tree_leaves(state.params)]))
-        (sharded, p_sharded), (plain, p_plain) = runs
-        np.testing.assert_allclose(sharded, plain, rtol=LOSS_RTOL)
-        for a, b in zip(p_sharded, p_plain):
-            np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
-        with pytest.raises(NotImplementedError, match="eagerly"):
-            opt = adamw(LR)
-            state = init_train_state(
-                functools.partial(tl.init, cfg,
-                                  torch.Generator().manual_seed(0)), opt,
-                device="cpu", param_logical_axes=tl.param_logical_axes(cfg),
-                mesh=mesh)
-            make_train_step(functools.partial(tl.loss_fn, config=cfg,
-                                              mesh=mesh), opt)(
-                state, shard_local_batch(_batch(0, b=2),
-                                         batch_sharding(mesh), mesh))
+        runs = {}
+        for compiled in (False, True):
+            for m in (mesh, None):
+                torch._dynamo.reset()
+                opt = adamw(LR)
+                init = functools.partial(tl.init, cfg,
+                                         torch.Generator().manual_seed(0))
+                state = init_train_state(
+                    init, opt, device="cpu",
+                    param_logical_axes=(tl.param_logical_axes(cfg) if m
+                                        else None), mesh=m)
+                step = make_train_step(functools.partial(
+                    tl.loss_fn, config=cfg, mesh=m), opt, compiled=compiled,
+                    backend="aot_eager")
+                out = []
+                for i in range(3):
+                    b = _batch(20 + i, b=2)
+                    batch = (shard_local_batch(b, batch_sharding(m), m)
+                             if m is not None else
+                             {k: torch.from_numpy(v) for k, v in b.items()})
+                    state, metrics = step(state, batch)
+                    out.append((float(metrics["loss"]),
+                                float(metrics["grad_norm"])))
+                runs[compiled, m is not None] = (
+                    out, [gang_cases._full(p)
+                          for p in tree_leaves(state.params)])
+        torch._dynamo.reset()
+        # The sharded step, eager and compiled (as one compiled program
+        # over DTensor parameters since the sharded step compiles), equals
+        # the unsharded step of the same form.
+        for compiled in (False, True):
+            (sharded, p_sharded), (plain, p_plain) = (
+                runs[compiled, True], runs[compiled, False])
+            np.testing.assert_allclose(sharded, plain, rtol=LOSS_RTOL)
+            for a, b in zip(p_sharded, p_plain):
+                np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
     finally:
         spmd.teardown_worker_mesh()
         backend.destroy_process_group()
