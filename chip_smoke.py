@@ -151,9 +151,19 @@ Phases, in order; any failure raises and the script exits non-zero:
       within 15 iterations), two iterations at PPO's defaults on the 84x84
       synthetic image env with the Nature CNN (env-steps/s, updates/s,
       seconds sampling and learning, peak memory) and
-      `benchmark_env_steps` (8 envs, 256 steps). Its numbers are printed
-      beside the card's name and power limit. `--only m` runs (m) alone
-      after (a). It launches none of the flash kernels;
+      `benchmark_env_steps` (8 envs, 256 steps); (m-4) one APPO V-trace
+      update (the clipped surrogate) on the Nature CNN at (m-1)'s 128
+      frames as [4, 32] rows, card against CPU; one DreamerV3 train_step
+      at its full width on the card against the CPU from one state with
+      the same Gumbel noise (losses, the three gradients, the parameters
+      after the three Adam steps); DreamerV3 on the port's CartPole under
+      tests/test_rllib_catalog.py::test_dreamerv3_learns's settings (best
+      return >= 60 within 70 iterations, seconds an iteration and the
+      share in train_step); multi-agent PPO with two policies on a
+      two-agent env defined here (best return above 8 within 30
+      iterations). Its numbers are printed beside the card's name and
+      power limit. `--only m` runs (m) alone after (a). It launches none
+      of the flash kernels;
   (n) the data plane (`ray_tpu_torch.data`, `_private.serialization`):
       (n-1) (h-2)'s compiled step at the bench configuration (B=4, S=2048,
       "dots") fed 12 seeded numpy token batches by `iter_device_batches`,
@@ -175,14 +185,30 @@ Phases, in order; any failure raises and the script exits non-zero:
       exact on cuda:0 with one typed put and get each, the host buffer
       overwritten and freed after the get, and `dataplane_bench`'s JSON
       line. Its numbers are printed beside the card's name and power
-      limit. `--only n` runs (n) alone after (a).
+      limit. `--only n` runs (n) alone after (a);
+  (o) Train's checkpoint and predictor (`ray_tpu_torch.train.checkpoint`,
+      `.predictor`): (o-1) the compiled bench step at the bench widths cut
+      to 1 layer (B=4, S=2048, bf16, "dots"): two steps, the whole
+      TrainState saved by `Checkpoint.from_arrays` and restored by
+      `to_arrays` into a fresh state, which must equal the saved one bit
+      for bit; step 3 on both runs gives the identical loss, step 4 within
+      1e-4 (the GB written, the save and restore seconds); (o-2)
+      `CompiledPredictor` over ViT-B/16 (bf16, published widths) at
+      batches of 1, 3, 17, 32 and 64 rows, each against the eager forward
+      on the same rows in the same padded batch (bf16 1e-2 + 1e-2 |ref|;
+      the eager forward of the rows alone is logged beside it), exactly
+      one compile per distinct bucket, images/s per batch. Its numbers
+      are printed beside the card's name and power limit. `--only o` runs
+      (o) alone after (a), and (o-2) there also with inductor on the same
+      batches, timed and held against eager beside the default (about a
+      minute of compile a bucket).
 
 The launch counts are set to 0 just before each main path (serving: (d)
 and (e); paged serving: (i), which runs no flash kernel; training: (h);
 compiled training: (h-2); Mixtral: (k-1) and (k-2); the SPMD path's
 eager sharded steps, its compiled sharded steps and the zoo on the mesh:
-(l), each on its own; the fed training path: (n-1)'s fed runs) and read
-just after it. The last
+(l), each on its own; the fed training path: (n-1)'s fed runs; the
+checkpointed training path: (o-1)) and read just after it. The last
 three lines of stdout are the card's `nvidia-smi` name and power limit, one
 JSON object on the kernels, and `{"ok": true, "device": ...}`. Without
 CUDA, or without the repository beside it, it exits non-zero and prints no
@@ -2772,7 +2798,13 @@ def cards_engine(n, launches):
         f"{e['new_tokens']} new ({time.perf_counter() - t0:.1f} s): prefill "
         f"logits rel L2 {res['logits_rel']:.3e}; first tokens equal "
         f"{res['first_equal']}; tokens that agree before the first "
-        f"divergence {res['agree_before_divergence']} of {e['new_tokens']}")
+        f"divergence {res['agree_before_divergence']} of {e['new_tokens']}"
+        f"; one card's own logits, each prompt prefilled alone against the "
+        f"batch: rel L2 {res['alone_rel']:.3e}; per layer, the residual "
+        f"stream's rel L2 from one card's "
+        f"{[float(f'{x:.3e}') for x in res['stream_rel']]}, and the layer's "
+        f"own update given one card's input "
+        f"{[float(f'{x:.3e}') for x in res['layer_rel']]}")
     check(res["first_equal"] and res["logits_rel"] <= e["logits_rel_tol"],
           "the tp=4 dense engine differs from the one-card engine")
 
@@ -3247,12 +3279,236 @@ def phase_rl_loop(card):
             "image_peak_gib": peak, "env_steps_per_s": bench["value"]}
 
 
+# (m-4): APPO's V-trace update on the Nature CNN at (m-1)'s 128 frames as
+# [4, 32] rows; one DreamerV3 train_step at the JAX package's "nano" dims
+# (its full width: deter 128, 8 x 8 latents, B=8, T=16, H=10); DreamerV3 on
+# CartPole under tests/test_rllib_catalog.py::test_dreamerv3_learns's
+# settings (best return >= 60 within 70 iterations); multi-agent PPO with
+# two policies on TargetMatch under tests/test_rllib_multi_agent.py's
+# learning settings (best return above 8 within 30 iterations).
+RL_APPO_ROWS = (4, 32)
+RL_DREAMER = dict(iterations=70, target=60.0, training=dict(
+    num_steps_per_iteration=200, train_ratio=48, batch_size_B=8,
+    batch_length_T=16, horizon_H=10, entropy_coeff=1e-2, actor_lr=5e-5))
+RL_MULTI_AGENT = dict(iterations=30, target=8.0, training=dict(
+    lr=3e-3, train_batch_size=512, minibatch_size=128, num_epochs=4,
+    entropy_coeff=0.0, gamma=0.0))
+
+
+def _target_match_env():
+    """tests/test_rllib_multi_agent.py's TargetMatch on the port's
+    MultiAgentEnv: two agents, each sees a one-hot target in {0, 1} and
+    gets +1 for the matching action, -1 otherwise; 16 steps an episode."""
+    from ray_tpu_torch.rllib import MultiAgentEnv
+
+    class _Space:
+        def __init__(self, shape=None, n=None):
+            self.shape, self.n = shape, n
+
+    class TargetMatch(MultiAgentEnv):
+        possible_agents = ["a0", "a1"]
+
+        def __init__(self, horizon: int = 16):
+            self.observation_spaces = {a: _Space(shape=(2,))
+                                       for a in self.possible_agents}
+            self.action_spaces = {a: _Space(n=2)
+                                  for a in self.possible_agents}
+            self.horizon = horizon
+            self._rng = np.random.default_rng(0)
+
+        def _obs(self):
+            self._targets = {a: int(self._rng.integers(2))
+                             for a in self.possible_agents}
+            return {a: np.eye(2, dtype=np.float32)[t]
+                    for a, t in self._targets.items()}
+
+        def reset(self, *, seed=None, options=None):
+            if seed is not None:
+                self._rng = np.random.default_rng(seed)
+            self._t = 0
+            return self._obs(), {a: {} for a in self.possible_agents}
+
+        def step(self, action_dict):
+            rewards = {a: 1.0 if action_dict[a] == self._targets[a] else -1.0
+                       for a in action_dict}
+            self._t += 1
+            obs = self._obs()
+            terms = {a: False for a in action_dict}
+            terms["__all__"] = self._t >= self.horizon
+            truncs = {a: False for a in action_dict}
+            truncs["__all__"] = False
+            return obs, rewards, terms, truncs, {a: {} for a in action_dict}
+
+    return TargetMatch
+
+
+def dreamer_step_check(card):
+    """(m-4) One DreamerV3 train_step on the card against the CPU from one
+    state (the model drawn on the CPU from one seed), one batch and one
+    Gumbel noise: the losses, the three gradients, and the parameters after
+    the three Adam steps. -> the largest difference of the losses."""
+    from ray_tpu_torch.rllib.algorithms import dreamerv3 as dv3
+
+    cfg = dv3.DreamerV3Config().training(**RL_DREAMER["training"])
+    b, t = cfg.batch_size_B, cfg.batch_length_T
+    rng = np.random.default_rng(21)
+    batch = {"obs": rng.standard_normal((b, t, 4)).astype(np.float32),
+             "actions": rng.integers(0, 2, (b, t)),
+             "rewards": rng.random((b, t)).astype(np.float32),
+             "cont": (rng.random((b, t)) > 0.05).astype(np.float32)}
+    sides, grads = {}, {}
+    for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+        model = dv3.DreamerModel(
+            4, 2, deter_dim=cfg.deter_dim, stoch_groups=cfg.stoch_groups,
+            stoch_classes=cfg.stoch_classes, embed_dim=cfg.embed_dim,
+            hidden_dim=cfg.hidden_dim,
+            generator=torch.Generator().manual_seed(0), device=dev)
+        learner = dv3.DreamerV3Learner(model, cfg.to_dict())
+        seen = grads[side] = {}
+        for name, update in list(learner._updates.items()):
+            def record(g, state, params, name=name, update=update, seen=seen):
+                seen[name] = [x.detach().cpu() for x in g]
+                return update(g, state, params)
+            learner._updates[name] = record
+        sides[side] = (model, learner)
+    noise = sides["cpu"][1].draw_noise(b, t, torch.Generator().manual_seed(1))
+    out = {side: learner.train_step(
+        dv3._to_device(batch, model.wm.gru_h.weight.device),
+        {k: v.to(model.wm.gru_h.weight.device) for k, v in noise.items()})
+        for side, (model, learner) in sides.items()}
+    worst = rl_close("(m-4) DreamerV3 train_step losses", out["card"],
+                     out["cpu"])
+    signs = {}
+    for name in ("wm", "actor", "critic"):
+        mods = [getattr(sides[s][0], name) for s in ("card", "cpu")]
+        for (n, p), (_, q), gp, gq in zip(
+                mods[0].named_parameters(), mods[1].named_parameters(),
+                grads["card"][name], grads["cpu"][name]):
+            scale = float(gq.abs().max()) or 1.0
+            check(float((gp - gq).abs().max()) <= RL_GRAD_TOL * scale,
+                  f"(m-4) DreamerV3 gradient of {name}.{n}")
+            diff = (p.detach().cpu() - q.detach()).abs()
+            bad = diff > RL_PARAM_TOL * float(q.detach().abs().max())
+            tiny = gq.abs() <= RL_TINY_GRAD * scale
+            check(not bool((bad & ~tiny).any()),
+                  f"(m-4) DreamerV3 {name}.{n} after the step: "
+                  f"{float(diff.max()):.3e}")
+            if bool((bad & tiny).any()):
+                signs[f"{name}.{n}"] = int((bad & tiny).sum())
+    log(f"[m-4] ({card}) DreamerV3 train_step (B={b} T={t} H="
+        f"{cfg.horizon_H}, deter {cfg.deter_dim}, {cfg.stoch_groups} x "
+        f"{cfg.stoch_classes} latents) card vs cpu from one state and one "
+        f"noise: losses {out['cpu']}, largest difference {worst:.3e}; "
+        f"parameter entries off by Adam's sign step: {signs or 'none'}")
+    return worst
+
+
+def dreamer_learns(card):
+    """(m-4) DreamerV3 on the port's CartPole on the card under
+    test_dreamerv3_learns's settings: the best return, the seconds per
+    iteration and the share of them in train_step."""
+    from ray_tpu_torch.rllib.algorithms import dreamerv3 as dv3
+
+    algo = (dv3.DreamerV3Config().environment("CartPole-v1")
+            .training(**RL_DREAMER["training"]).debugging(seed=0)
+            .resources(device=DEVICE)).build()
+    spent = [0.0]
+    train_step = algo.train_step
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = train_step(*a, **kw)
+        spent[0] += time.perf_counter() - t0
+        return out
+    algo.train_step = timed
+    best, returns = 0.0, []
+    t0 = time.perf_counter()
+    for _ in range(RL_DREAMER["iterations"]):
+        r = algo.train()
+        returns.append(round(r.get("episode_return_mean", 0.0), 1))
+        best = max(best, returns[-1])
+        if best >= RL_DREAMER["target"]:
+            break
+    wall = time.perf_counter() - t0
+    algo.stop()
+    per_it = wall / len(returns)
+    log(f"[m-4] ({card}) DreamerV3 CartPole-v1 on the card: "
+        f"episode_return_mean by iteration {returns}; best {best} after "
+        f"{len(returns)} iterations, {per_it:.3f} s an iteration, "
+        f"{spent[0] / wall:.3f} of it in train_step ("
+        f"{spent[0] / max(1, algo.learner.opt_state['wm'].count) * 1e3:.2f}"
+        f" ms a train_step)")
+    check(best >= RL_DREAMER["target"],
+          f"DreamerV3 never beat random: best {best}")
+    return {"returns": returns, "best": best, "s_per_iteration": per_it,
+            "train_step_share": spent[0] / wall}
+
+
+def multi_agent_learns(card):
+    """(m-4) MultiAgentPPO with two policies (one per agent) on TargetMatch
+    on the card: the best mean episode return."""
+    from ray_tpu_torch.rllib import MultiAgentPPOConfig
+
+    algo = (MultiAgentPPOConfig().environment(_target_match_env())
+            .training(**RL_MULTI_AGENT["training"])
+            .multi_agent(policies=["p0", "p1"],
+                         policy_mapping_fn=lambda aid:
+                         "p0" if aid == "a0" else "p1")
+            .debugging(seed=0).resources(device=DEVICE)).build()
+    returns = []
+    t0 = time.perf_counter()
+    for _ in range(RL_MULTI_AGENT["iterations"]):
+        r = algo.train()
+        check("p0" in r and "p1" in r, f"a policy did not train: {list(r)}")
+        returns.append(round(r.get("episode_return_mean", -np.inf), 2))
+        if max(returns) > RL_MULTI_AGENT["target"]:
+            break
+    algo.stop()
+    log(f"[m-4] ({card}) MultiAgentPPO, two policies, TargetMatch on the "
+        f"card: episode_return_mean by iteration {returns}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(max(returns) > RL_MULTI_AGENT["target"],
+          f"multi-agent PPO did not learn: best {max(returns)}")
+    return returns
+
+
+def phase_rl_more(card):
+    """(m-4) APPO, DreamerV3 and multi-agent PPO on the card."""
+    from ray_tpu_torch.rllib.algorithms.impala import VTraceLearner
+
+    b, t = RL_APPO_ROWS
+    rng = np.random.default_rng(13)
+    spec = {"module_class":
+            "ray_tpu_torch.rllib.rl_module:ConvActorCriticModule",
+            "obs_shape": RL_OBS_SHAPE, "num_actions": RL_NUM_ACTIONS}
+    terms = (rng.random((b, t)) < 0.05).astype(np.float32)
+    terms[:, -1] = 1
+    batch = {"obs": rng.integers(0, 256, (b, t, *RL_OBS_SHAPE),
+                                 dtype=np.uint8),
+             "actions": rng.integers(0, RL_NUM_ACTIONS, (b, t)),
+             "rewards": rng.standard_normal((b, t)).astype(np.float32),
+             # far from the policy's, so that the clip bites
+             "logp": np.full((b, t), -3.0, np.float32),
+             "terminateds": terms, "mask": np.ones((b, t), np.float32),
+             "bootstrap_value": rng.standard_normal(b).astype(np.float32)}
+    appo = rl_update_check(
+        "(m-4) APPO V-trace update, Nature CNN",
+        lambda d: VTraceLearner(spec, {"lr": 5e-4, "appo_clip": True,
+                                       "clip_param": 0.2, "seed": 7,
+                                       "device": d}), batch)
+    return {"appo_max_abs_err": appo,
+            "dreamer_max_abs_err": dreamer_step_check(card),
+            "dreamer": dreamer_learns(card),
+            "multi_agent_returns": multi_agent_learns(card)}
+
+
 def phase_rl(card):
-    """(m) RLlib's one-process path: (m-1), (m-2), (m-3)."""
+    """(m) RLlib's one-process path: (m-1), (m-2), (m-3), (m-4)."""
     t0 = time.perf_counter()
     out = {"module": phase_rl_module(card),
            "learners": phase_rl_learners(card),
-           "loop": phase_rl_loop(card)}
+           "loop": phase_rl_loop(card),
+           "more": phase_rl_more(card)}
     log(f"[m] RLlib's one-process path: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -3618,6 +3874,250 @@ def phase_dataplane(card):
     return counts
 
 
+# -- (o) Train's checkpoint and predictor -------------------------------------
+
+# (o-1): the compiled bench step at the bench widths cut to CKPT_LAYERS
+# layer(s) (B=4, S=2048, bf16, "dots"): CKPT_STEPS steps, a checkpoint
+# after CKPT_SAVE_AFTER, restored into a fresh state; the first step after
+# the restore must give the uninterrupted run's loss exactly, the next
+# within CKPT_NEXT_REL_TOL (the compiled step's own run-to-run drift).
+CKPT_LAYERS = 1
+CKPT_SAVE_AFTER = 2
+CKPT_STEPS = 4
+CKPT_NEXT_REL_TOL = 1e-4
+# (o-2): CompiledPredictor over ViT-B/16 (bf16) at these batch sizes, its
+# rows against the eager forward on the same rows in the same padded batch
+# (bf16 1e-2 + 1e-2 |ref|).
+PREDICT_BATCHES = (1, 3, 17, 32, 64)
+PREDICT_TIMED = 5
+PREDICT_TOL = (1e-2, 1e-2)
+
+
+def _state_leaves(state):
+    from ray_tpu_torch.train.optim import tree_leaves
+
+    return tree_leaves([state.params, state.opt_state.mu,
+                        state.opt_state.nu, state.step])
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return bool(torch.equal(a, b))
+
+
+def phase_checkpoint(card, seed=17):
+    """(o-1) The compiled bench step at CKPT_LAYERS layer(s): steps 1 and
+    2, `Checkpoint.from_arrays` of the whole TrainState, `to_arrays` copied
+    into a fresh state (another seed), which must equal the saved state bit
+    for bit; then steps 3 and 4 on both runs. -> the kernels' launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+    from ray_tpu_torch.train.optim import tree_leaves
+
+    cfg = dataclasses.replace(bench_config(), n_layers=CKPT_LAYERS)
+    b, s = TRAIN_ATTN[0], TRAIN_ATTN[1]
+    opt = adamw(3e-4, weight_decay=0.0)
+    step = make_train_step(functools.partial(llama.loss_fn, config=cfg),
+                           opt, backend=COMPILE_BACKEND)
+
+    def fresh(k):
+        gen = torch.Generator(device=DEVICE).manual_seed(k)
+        return init_train_state(functools.partial(llama.init, cfg, gen),
+                                opt, device=DEVICE)
+
+    batches = [train_batch(cfg, b, s, seed + i) for i in range(CKPT_STEPS)]
+    state, losses = fresh(seed), []
+    t0 = time.perf_counter()
+    for i in range(CKPT_SAVE_AFTER):
+        state, m = step(state, batches[i])
+        losses.append(float(m["loss"]))
+    first_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    root = tempfile.mkdtemp(prefix="ckpt_o1_")
+    try:
+        t0 = time.perf_counter()
+        ckpt = Checkpoint.from_arrays(state, root)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(root, f))
+                     for f in os.listdir(root))
+        resumed = fresh(seed + 100)
+        t0 = time.perf_counter()
+        restored = ckpt.to_arrays()
+        with torch.no_grad():
+            for dst, src in zip(_state_leaves(resumed),
+                                _state_leaves(restored)):
+                dst.copy_(src)
+        resumed.opt_state.count = restored.opt_state.count
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del restored
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = [_same_bits(x, y) for x, y in zip(_state_leaves(resumed),
+                                             _state_leaves(state))]
+    check(all(same) and resumed.opt_state.count == state.opt_state.count,
+          f"(o-1) the restored state differs from the saved one "
+          f"({same.count(False)} of {len(same)} leaves)")
+    after = []
+    for i in range(CKPT_SAVE_AFTER, CKPT_STEPS):
+        state, m = step(state, batches[i])
+        resumed, mr = step(resumed, batches[i])
+        losses.append(float(m["loss"]))
+        after.append(float(mr["loss"]))
+    rel_next = [abs(a - b) / abs(b) for a, b in
+                zip(after[1:], losses[CKPT_SAVE_AFTER + 1:])]
+    params = sum(x.numel() for x in tree_leaves(state.params))
+    log(f"[o-1] ({card}) compiled bench step at {cfg.n_layers} layer(s) "
+        f"(B={b} S={s}, bf16, {cfg.remat_policy}, {params / 1e9:.3f} B "
+        f"params): losses {losses}; after a checkpoint at step "
+        f"{CKPT_SAVE_AFTER} ({nbytes / 1e9:.3f} GB written, save "
+        f"{save_s:.2f} s, restore into a fresh state {restore_s:.2f} s; "
+        f"the first {CKPT_SAVE_AFTER} steps with the compile "
+        f"{first_s:.1f} s) the restored run's {after}: step "
+        f"{CKPT_SAVE_AFTER + 1} identical "
+        f"{after[0] == losses[CKPT_SAVE_AFTER]}, the next rel {rel_next}")
+    check(after[0] == losses[CKPT_SAVE_AFTER],
+          "(o-1) the step after the restore gives another loss")
+    check(all(r <= CKPT_NEXT_REL_TOL for r in rel_next),
+          "(o-1) the restored run drifts from the uninterrupted one")
+    del state, resumed, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernel_counts()
+
+
+def _predictor_run(params, apply_fn, cfg, **kw):
+    """One CompiledPredictor (`kw`: its backend, none for the default) at
+    PREDICT_BATCHES rows: -> per batch the rows' largest difference from
+    the eager forward on the same rows in the same padded batch and the
+    entries over PREDICT_TOL, the ms of a predict call from numpy and of
+    the compiled apply on the padded batch on the card (CUDA events); the
+    predictor's compiles and buckets."""
+    from ray_tpu_torch.train.predictor import CompiledPredictor, _bucket
+
+    pred = CompiledPredictor(params, apply_fn, device=DEVICE, **kw)
+    rng = np.random.default_rng(29)
+    rows = {}
+    for n in PREDICT_BATCHES:
+        x = rng.standard_normal((n, cfg.image_size, cfg.image_size,
+                                 cfg.num_channels)).astype(np.float32)
+        t0 = time.perf_counter()
+        got = pred.predict({"inputs": x})["predictions"]
+        first_s = time.perf_counter() - t0
+        padded = pred._to_device(
+            np.concatenate([x, np.repeat(x[-1:], _bucket(n) - n, 0)]))
+        with torch.no_grad():
+            want = apply_fn(params, padded)[:n].float().cpu().numpy()
+            apply_ms = cuda_ms(lambda: pred._apply(pred.params, padded),
+                               iters=PREDICT_TIMED, warmup=1)
+        err = np.abs(got - want)
+        bad = err > PREDICT_TOL[0] + PREDICT_TOL[1] * np.abs(want)
+        t0 = time.perf_counter()
+        for _ in range(PREDICT_TIMED):
+            pred.predict({"inputs": x})
+        wall = (time.perf_counter() - t0) / PREDICT_TIMED
+        rows[n] = {"bucket": _bucket(n), "first_call_s": first_s,
+                   "ms": wall * 1e3, "images_per_s": n / wall,
+                   "apply_ms": apply_ms, "max_abs_err": float(err.max()),
+                   "over_tol": int(bad.sum()), "size": want.size,
+                   "shape_ok": got.shape == want.shape,
+                   "eager_max": float(np.abs(want).max())}
+    return pred, rows
+
+
+def phase_predictor(card, compare=False):
+    """(o-2) CompiledPredictor over ViT-B/16 (bf16, ViTConfig.base_16())
+    at PREDICT_BATCHES rows with its default backend: its outputs against
+    the eager forward on the same rows in the same padded batch, one
+    compile per distinct bucket, images/s per batch; the eager forward's
+    own spread between the rows alone and padded. With `compare` (`--only
+    o`) also with COMPILE_BACKEND on the same batches, timed and held
+    against eager beside it (its compiles take about a minute a bucket on
+    the card, too long for the whole script): the measurement behind the
+    default."""
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.train.predictor import _bucket
+
+    cfg = vit.ViTConfig.base_16()
+    params = vit.init(cfg, torch.Generator(device=DEVICE).manual_seed(23),
+                      device=DEVICE)
+    apply_fn = functools.partial(vit.forward, config=cfg)
+    runs = [_predictor_run(params, apply_fn, cfg)]
+    if compare:
+        runs.append(_predictor_run(params, apply_fn, cfg,
+                                   backend=COMPILE_BACKEND))
+    # The eager forward of the rows alone against them in the bucket's
+    # batch, padded with the last row: bf16 GEMMs of another batch size
+    # round differently, and ViT-B/16's 12 layers carry that to its logits.
+    rng = np.random.default_rng(29)
+    spread, eager_ms = {}, {}
+    for n in PREDICT_BATCHES:
+        x = rng.standard_normal((n, cfg.image_size, cfg.image_size,
+                                 cfg.num_channels)).astype(np.float32)
+        padded = np.concatenate([x, np.repeat(x[-1:], _bucket(n) - n, 0)])
+        with torch.no_grad():
+            xs = [torch.from_numpy(v).to(DEVICE) for v in (padded, x)]
+            want, alone = (apply_fn(params, v)[:n].float().cpu().numpy()
+                           for v in xs)
+            eager_ms[n] = cuda_ms(lambda: apply_fn(params, xs[0]),
+                                  iters=PREDICT_TIMED, warmup=1)
+        spread[n] = float(np.abs(alone - want).max())
+    buckets = sorted({_bucket(n) for n in PREDICT_BATCHES})
+    for pred, rows in runs:
+        log(f"[o-2] ({card}) CompiledPredictor ViT-B/16 bf16 "
+            f"({pred.backend}): batches {list(PREDICT_BATCHES)} -> buckets "
+            f"{pred.buckets}, {pred.compiles} compiles; by batch (bucket, "
+            f"first call s with its compile, ms a predict call from numpy, "
+            f"images/s, ms of the compiled apply on the card against "
+            f"eager's, largest difference from eager, entries over "
+            f"{PREDICT_TOL[0]} + {PREDICT_TOL[1]}|eager|) "
+            + "; ".join(f"{n}: {r['bucket']}, {r['first_call_s']:.2f}, "
+                        f"{r['ms']:.3f}, {r['images_per_s']:.1f}, "
+                        f"{r['apply_ms']:.3f} vs {eager_ms[n]:.3f}, "
+                        f"{r['max_abs_err']:.3e}, {r['over_tol']} of "
+                        f"{r['size']}" for n, r in rows.items()))
+    log(f"[o-2] ({card}) the eager forward of the rows alone against them "
+        f"in the bucket's batch (bf16 rounding of another batch size): "
+        f"largest difference {spread}")
+    pred, rows = runs[0]
+    for n, r in rows.items():
+        check(r["shape_ok"] and not r["over_tol"],
+              f"(o-2) the predictor's {n} rows differ from the eager "
+              f"forward: {r['over_tol']} of {r['size']} entries, largest "
+              f"{r['max_abs_err']:.3e} (|eager| up to {r['eager_max']:.3e})")
+    for p, _ in runs:
+        check(sorted(p.buckets) == buckets and p.compiles == len(buckets),
+              f"(o-2) {p.compiles} compiles ({p.backend}) for buckets "
+              f"{p.buckets}, not one for each of {buckets}")
+    return {"compiles": pred.compiles, "buckets": pred.buckets,
+            "backend": pred.backend, "rates": rows,
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "eager_ms": eager_ms, "eager_batch_size_spread": spread,
+            **{p.backend: r for p, r in runs[1:]}}
+
+
+def phase_train_io(card, compare=False):
+    """(o): (o-1) the checkpoint of the compiled step's state, then (o-2)
+    the compiled predictor (`compare`: beside COMPILE_BACKEND's). -> the
+    flash kernels' launches of (o-1)."""
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    with _recompiles():  # the script has compiled llama.loss_fn before
+        launches = phase_checkpoint(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        predict = phase_predictor(card, compare)
+    log(f"[o] Train's checkpoint and predictor: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches, predict
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3631,10 +4131,11 @@ def main(argv=()) -> int:
 
     parser = argparse.ArgumentParser(description="Drive ray_tpu_torch on the "
                                      "card(s); see the module docstring.")
-    parser.add_argument("--only", choices=("l", "m", "n"), default=None,
+    parser.add_argument("--only", choices=("l", "m", "n", "o"), default=None,
                         help="run phase (l), the SPMD path (with 4 cards its "
-                        "4-card part), (m), RLlib's one-process path, or "
-                        "(n), the data plane, alone after the kernel build")
+                        "4-card part), (m), RLlib's one-process path, (n), "
+                        "the data plane, or (o), Train's checkpoint and "
+                        "predictor, alone after the kernel build")
     parser.add_argument("--part", default=None, choices=[
         p.__name__[len("cards_"):] for p in CARDS_PARTS],
         help="with --only l on 4 cards: this (l-3) part alone")
@@ -3681,6 +4182,17 @@ def main(argv=()) -> int:
             f"{time.perf_counter() - t_start:.1f} s in all")
         print(card)
         print(json.dumps({"rl": rl}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": info["platform"], "kind": info["kind"],
+            "count": info["count"]}}))
+        return 0
+    if args.only == "o":
+        ckpt, predict = phase_train_io(card, compare=True)
+        log(f"[o] launches on the checkpointed training path: {ckpt}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        print(card)
+        print(json.dumps({"checkpoint_launches": ckpt,
+                          "predictor": predict}))
         print(json.dumps({"ok": True, "device": {
             "platform": info["platform"], "kind": info["kind"],
             "count": info["count"]}}))
@@ -3773,6 +4285,11 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     feed = phase_dataplane(card)
     log(f"[n] launches on the fed training path: {feed}; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt, _ = phase_train_io(card)
+    log(f"[o] launches on the checkpointed training path: {ckpt}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
 
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu", 45),
@@ -3784,7 +4301,8 @@ def main(argv=()) -> int:
                    "train_compiled": compiled[name], "mixtral": zoo[name],
                    "spmd": spmd["spmd"][name],
                    "spmd_compiled": spmd["spmd_compiled"][name],
-                   "zoo_mesh": spmd["zoo_mesh"][name], "feed": feed[name]}
+                   "zoo_mesh": spmd["zoo_mesh"][name], "feed": feed[name],
+                   "checkpoint": ckpt[name]}
         check(all(v > 0 for path, v in by_path.items() if path != "serve"),
               f"a training path never launched {name}: {by_path}")
         kernels.append({

@@ -111,8 +111,10 @@ class InferenceEngine:
                 n_kv_heads=config.n_kv_heads // ctx.tp)
             with torch.no_grad():
                 params = tree_map(ctx.local, params)
+            # fp32 partial products, summed and rounded once (the prefill
+            # and decode are latency-bound: the doubled bytes cost little).
             forward_with_cache = functools.partial(forward_with_cache,
-                                                   tp_sum=ctx.tp_sum)
+                                                   tp_sum=ctx.tp_sum_f32)
             self.cache_placements = ctx.placements(
                 (None, None, None, "act_heads", None))
         for w in _tensors(params):

@@ -101,7 +101,9 @@ class PagedInferenceEngine:
                 n_kv_heads=config.n_kv_heads // ctx.tp)
             with torch.no_grad():
                 params = tree_map(ctx.local, params)
-            fwd = functools.partial(fwd, tp_sum=ctx.tp_sum)
+            # fp32 partial products, summed and rounded once (the prefill
+            # and decode are latency-bound: the doubled bytes cost little).
+            fwd = functools.partial(fwd, tp_sum=ctx.tp_sum_f32)
             self.pool_placements = ctx.placements(
                 (None, None, None, "act_heads", None))
         for w in _tensors(params):

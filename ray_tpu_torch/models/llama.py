@@ -238,9 +238,23 @@ def _proj_heads(h, w):
         *h.shape[:-1], *w.shape[1:])
 
 
-def _proj_out(attn, wo):
-    """einsum("bshk,hkd->bsd", attn, wo) as one matrix product."""
-    return attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+def _proj_out(attn, wo, tp_sum=None):
+    """einsum("bshk,hkd->bsd", attn, wo) as one matrix product, summed over
+    the tp ranks by tp_sum where wo holds this rank's heads (`_row_out`)."""
+    return _row_out(attn.reshape(*attn.shape[:2], -1),
+                    wo.reshape(-1, wo.shape[-1]), tp_sum)
+
+
+def _row_out(h, w, tp_sum=None):
+    """h @ w for a weight whose rows may be this rank's tp block; tp_sum
+    (None off a mesh) sums the partial products over the tp ranks. Given
+    `ShardingContext.tp_sum_f32` (the engines'), each partial is the
+    product's fp32 accumulator (`_bmm_f32`) and the sum is rounded once to
+    h's dtype, where one card rounds its whole product once."""
+    if getattr(tp_sum, "__func__", None) is not ShardingContext.tp_sum_f32:
+        return _maybe(tp_sum, h @ w)
+    flat = _bmm_f32(h.reshape(1, -1, h.shape[-1]), w[None])
+    return tp_sum(flat).reshape(*h.shape[:-1], w.shape[-1]).to(h.dtype)
 
 
 def _qkv(x, params, positions, config: LlamaConfig, tp_copy=None):
@@ -274,7 +288,7 @@ def _attn_sublayer(x, params, positions, config: LlamaConfig,
         attn = _cached_attention(q, k_cache, v_cache, lengths, c)
     else:
         attn = attention(q, k, v, causal=True)
-    return x + _maybe(tp_sum, _proj_out(attn, params["wo"]))
+    return x + _proj_out(attn, params["wo"], tp_sum)
 
 
 def _scatter_add(cache, positions, new):
@@ -299,7 +313,7 @@ def _mlp_sublayer(x, params, config: LlamaConfig, tp_copy=None,
     h = _maybe(tp_copy, _rms_norm(x, params["mlp_norm"], c.norm_eps))
     gate = h @ params["w_gate"]
     up = h @ params["w_up"]
-    return x + _maybe(tp_sum, (F.silu(gate) * up) @ params["w_down"])
+    return x + _row_out(F.silu(gate) * up, params["w_down"], tp_sum)
 
 
 def _maybe(fn, x):
@@ -796,7 +810,7 @@ def _attn_sublayer_decode(x, params, positions, config: LlamaConfig,
     c = config
     q, k, v = _qkv(x, params, positions, c)
     attn = _decode_attention(q, k, v, k_cache, v_cache, positions[:, 0], c)
-    x = x + _maybe(tp_sum, _proj_out(attn, params["wo"]))
+    x = x + _proj_out(attn, params["wo"], tp_sum)
     return x, (k.to(k_cache.dtype), v.to(v_cache.dtype))
 
 
@@ -907,7 +921,7 @@ def _attn_sublayer_paged(x, params, positions, config: LlamaConfig,
     attn = _attend(q, _gather_kv_major(k_pool, block_table),
                    _gather_kv_major(v_pool, block_table),
                    _causal_visible(lengths, s, t), c)
-    return x + _maybe(tp_sum, _proj_out(attn, params["wo"]))
+    return x + _proj_out(attn, params["wo"], tp_sum)
 
 
 def _attn_sublayer_paged_decode(x, params, positions, config: LlamaConfig,
@@ -924,7 +938,7 @@ def _attn_sublayer_paged_decode(x, params, positions, config: LlamaConfig,
                    _gather_kv_major(v_pool, block_table),
                    _prefix_visible(positions[:, 0], t), c,
                    self_kv=(k[:, 0], v[:, 0]))
-    return (x + _maybe(tp_sum, _proj_out(attn, params["wo"])),
+    return (x + _proj_out(attn, params["wo"], tp_sum),
             (k[:, 0], v[:, 0]))
 
 

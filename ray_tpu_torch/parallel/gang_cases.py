@@ -104,6 +104,98 @@ def mesh_cases(cases: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
     return out
 
 
+def grad_reduce_case(mesh_kw, shape, logical, seed) -> Dict[str, Any]:
+    """A bf16 parameter of `shape`, gathered over the data dims by
+    `ShardingContext.gather`, whose gathered gradient on rank r is c_r
+    (small integers from seed + r, so that bf16 holds every sum exactly).
+    -> this rank's block's slices, c_r, its reduced gradient block (the
+    backward's reduce-scatter and all-reduce) and its dtype, and the dtype
+    the gather hands the model."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.sharding import ShardingContext, local_slices
+
+    mesh = _mesh(mesh_kw)
+    ctx = ShardingContext(mesh)
+    placements = ctx.placements(logical)
+    block = local_slices(shape, placements, mesh)
+    local = torch.zeros(shape, dtype=torch.bfloat16)[block].clone()
+    local.requires_grad_()
+    w = ctx.gather(local, placements)
+    c = np.random.default_rng(seed + dist.get_rank()).integers(
+        -16, 17, w.shape).astype(np.float32)
+    w.backward(torch.from_numpy(c).to(w.dtype))
+    return {"block": [(sl.start, sl.stop) for sl in block], "c": c,
+            "grad": local.grad.float().numpy(),
+            "grad_dtype": str(local.grad.dtype), "gathered": str(w.dtype)}
+
+
+def tp_sum_case(m, k, n, seed) -> Dict[str, Any]:
+    """A row-parallel product of bf16 h [m, k] and w [k, n] (small integers,
+    the same on every rank) over tp=<world>, each rank its k-block: summed
+    by the engines' `tp_sum_f32` and by the training step's `tp_sum`, and
+    whether the tp=<world> dense and paged engines sum with the former."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.inference.engine import (InferenceEngine,
+                                                shard_params_for_inference)
+    from ray_tpu_torch.inference.paged_engine import PagedInferenceEngine
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.llama import _row_out
+    from ray_tpu_torch.parallel.sharding import ShardingContext
+
+    world = dist.get_world_size()
+    mesh = _mesh({"tp": world})
+    ctx = ShardingContext(mesh)
+    rng = np.random.default_rng(seed)
+    h = rng.integers(-64, 65, (m, k)).astype(np.float32)
+    w = rng.integers(-64, 65, (k, n)).astype(np.float32)
+    t = ctx.coord["tp"]
+    cut = slice(t * k // world, (t + 1) * k // world)
+    hb = torch.from_numpy(h[:, cut]).to(torch.bfloat16)
+    wb = torch.from_numpy(w[cut]).to(torch.bfloat16)
+    cfg = llama.LlamaConfig(vocab_size=64, d_model=32, n_layers=1,
+                            n_heads=world, n_kv_heads=world, d_head=8,
+                            d_ff=64, max_seq_len=32)
+    params = shard_params_for_inference(
+        llama.init(cfg, torch.Generator().manual_seed(seed), device="cpu"),
+        cfg, mesh)
+    engines = (InferenceEngine(params, cfg, max_batch=1, max_len=16,
+                               mesh=mesh, device="cpu"),
+               PagedInferenceEngine(params, cfg, block_size=4, max_len=16,
+                                    max_batch=1, mesh=mesh, device="cpu"))
+    f32 = _row_out(hb, wb, ctx.tp_sum_f32)
+    return {"h": h, "w": w, "f32": f32.float().numpy(),
+            "f32_dtype": str(f32.dtype),
+            "bf16": _row_out(hb, wb, ctx.tp_sum).float().numpy(),
+            "engines_f32": [eng._fwd.keywords["tp_sum"].__func__
+                            is ShardingContext.tp_sum_f32 for eng in engines]}
+
+
+def checkpoint_case(mesh_kw, shape, logical) -> Dict[str, Any]:
+    """A bf16 DTensor of `shape` in the layout `logical` names, saved by
+    `Checkpoint.from_arrays` on every rank (each into its own directory)
+    and read back: -> whether the saved leaf is the whole tensor, bit for
+    bit, its dtype, and this rank's block's shape."""
+    import tempfile
+
+    from ray_tpu_torch.parallel.sharding import (LogicalAxisRules,
+                                                 distribute_full)
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+
+    mesh = _mesh(mesh_kw)
+    full = torch.arange(int(np.prod(shape)), dtype=torch.float32).reshape(
+        shape).to(torch.bfloat16)
+    w = distribute_full(full, mesh,
+                        LogicalAxisRules().to_physical(logical, mesh))
+    back = Checkpoint.from_arrays({"w": w, "step": 3},
+                                  tempfile.mkdtemp()).to_arrays()
+    return {"whole": bool(torch.equal(back["w"].view(torch.int16),
+                                      full.view(torch.int16))),
+            "dtype": str(back["w"].dtype), "step": back["step"],
+            "local_shape": tuple(w.to_local().shape)}
+
+
 def batch_blocks(mesh_kw, slices, batch_np) -> Dict[str, Any]:
     """This rank's block of a global batch under `batch_sharding`, and its
     mesh coordinate."""
@@ -561,20 +653,20 @@ def dense_engine_versus_one(cfg, prompts, max_new_tokens, max_len, seed
     """The dense engine tensor-parallel over tp=<world> against the one-card
     engine (rank 0 alone, first) on the same weights (`llama.init` of
     `cfg` from `seed` on each rank) and prompts: greedy streams, and the
-    prompts' prefill logits through `forward_with_cache` on a fresh cache.
+    prompts' prefill logits through each engine's forward on a fresh cache.
     -> rank 0: both streams, the logits' relative L2 difference, whether
     every request's first token agrees and, per request, the tokens that
-    agree before the first divergence."""
-    import dataclasses
-
+    agree before the first divergence; where the difference arises: per
+    layer, the relative L2 difference of the prefill's residual stream
+    after it ("stream_rel") and of the layer's own update given one card's
+    input ("layer_rel"); and one card's own logits with each prompt
+    prefilled alone against the batch ("alone_rel")."""
     import torch.distributed as dist
 
     from ray_tpu_torch.inference import GenerationConfig, InferenceEngine
     from ray_tpu_torch.inference.engine import shard_params_for_inference
     from ray_tpu_torch.models import llama
-    from ray_tpu_torch.parallel.sharding import ShardingContext
     from ray_tpu_torch.train.backend import rank_device
-    from ray_tpu_torch.train.optim import tree_map
 
     dev = rank_device()
     n = dist.get_world_size()
@@ -583,42 +675,70 @@ def dense_engine_versus_one(cfg, prompts, max_new_tokens, max_len, seed
                       device=dev)
     b, s = len(prompts), max(len(p) for p in prompts)
     tokens = torch.zeros((b, s), dtype=torch.int64, device=dev)
+    valid = torch.zeros((b, s), dtype=torch.bool, device=dev)
     for i, p in enumerate(prompts):
         tokens[i, :len(p)] = torch.as_tensor(p)
-    zeros = torch.zeros(b, dtype=torch.int64, device=dev)
+        valid[i, :len(p)] = True
 
-    def prefill(params, config, **kw):
-        cache = llama.init_kv_cache(config, b, max_len, device=dev)
+    def prefill(eng, toks):
+        """The prompts' logits through the engine's own forward."""
+        config = eng._model_config
+        cache = llama.init_kv_cache(config, len(toks), max_len, device=dev)
+        zeros = torch.zeros(len(toks), dtype=torch.int64, device=dev)
         with torch.no_grad():
-            return llama.forward_with_cache(params, tokens, cache, zeros,
-                                            config, **kw)[0]
+            return eng._fwd(eng.params, toks, cache, zeros, config)[0]
+
+    def stream(eng, feed=None):
+        """The prefill's residual stream (the embedding, then each layer's
+        output) through llama's sublayers with the engine's tp sum; with
+        `feed` (one card's stream) layer i reads feed[i], not its own."""
+        c, params = eng._model_config, eng.params
+        tp_sum = getattr(eng._fwd, "keywords", {}).get("tp_sum")
+        cache = llama.init_kv_cache(c, b, max_len, device=dev)
+        zeros = torch.zeros(b, dtype=torch.int64, device=dev)
+        positions = torch.arange(s, device=dev).expand(b, s)
+        out = [params["embed"][tokens].to(c.dtype)]
+        with torch.no_grad():
+            for i in range(c.n_layers):
+                lp = llama._layer_params(params, i)
+                x = llama._attn_sublayer(
+                    out[-1] if feed is None else feed[i], lp, positions, c,
+                    kv_cache=(cache["k"][i], cache["v"][i]), lengths=zeros,
+                    tp_sum=tp_sum)
+                out.append(llama._mlp_sublayer(x, lp, c, tp_sum=tp_sum))
+        return out
+
+    def rel(x, ref):
+        x, ref = x[valid].float(), ref[valid].float()
+        return float((x - ref).norm() / ref.norm())
 
     one = {}
     if dist.get_rank() == 0:
         eng = InferenceEngine(full, cfg, max_batch=b, max_len=max_len,
                               device=dev)
         one = {"streams": eng.generate(prompts, gen_cfg),
-               "logits": prefill(full, cfg)}
-        del eng
+               "logits": prefill(eng, tokens), "stream": stream(eng)}
+        alone = torch.zeros_like(one["logits"])
+        for i, p in enumerate(prompts):
+            alone[i, :len(p)] = prefill(eng, tokens[i:i + 1, :len(p)])[0]
+        one["alone_rel"] = rel(alone, one["logits"])
+        del eng, alone
     dist.barrier()
+    feed = one.get("stream") or [
+        torch.empty((b, s, cfg.d_model), dtype=cfg.dtype, device=dev)
+        for _ in range(cfg.n_layers + 1)]
+    for x in feed:
+        dist.broadcast(x, 0)
     mesh = _mesh({"tp": n})
     sharded = shard_params_for_inference(full, cfg, mesh)
     del full
     eng = InferenceEngine(sharded, cfg, max_batch=b, max_len=max_len,
                           mesh=mesh, device=dev)
     streams = eng.generate(prompts, gen_cfg)
-    ctx = ShardingContext(mesh)
-    local_cfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // n,
-                                    n_kv_heads=cfg.n_kv_heads // n)
-    with torch.no_grad():
-        local = tree_map(ctx.local, sharded)
-    logits = prefill(local, local_cfg, tp_sum=ctx.tp_sum)
+    logits = prefill(eng, tokens)
+    own, fed = stream(eng), stream(eng, feed)
     if dist.get_rank() != 0:
         return {}
-    valid = torch.zeros((b, s), dtype=torch.bool, device=dev)
-    for i, p in enumerate(prompts):
-        valid[i, :len(p)] = True
-    a, w = logits[valid].float(), one["logits"][valid].float()
     agree = []
     for x, y in zip(streams, one["streams"]):
         k = 0
@@ -626,10 +746,14 @@ def dense_engine_versus_one(cfg, prompts, max_new_tokens, max_len, seed
             k += 1
         agree.append(k)
     return {"streams": streams, "one_streams": one["streams"],
-            "logits_rel": float((a - w).norm() / w.norm()),
+            "logits_rel": rel(logits, one["logits"]),
             "first_equal": all(x[:1] == y[:1] for x, y in
                                zip(streams, one["streams"])),
-            "agree_before_divergence": agree}
+            "agree_before_divergence": agree,
+            "stream_rel": [rel(x, y) for x, y in zip(own[1:], feed[1:])],
+            "layer_rel": [rel(fed[i + 1] - feed[i], feed[i + 1] - feed[i])
+                          for i in range(cfg.n_layers)],
+            "alone_rel": one["alone_rel"]}
 
 
 def run_cases(cases: List[Any]) -> List[Any]:

@@ -219,14 +219,15 @@ class ShardingContext:
     a reduce-scatter over dims the parameter is sharded on, an all-reduce
     over dims it is replicated on. `tp_sum` is the constraint after a
     row-parallel product (a Partial over tp made Replicate: an all-reduce,
-    its backward the identity); `tp_copy` its conjugate before a
-    column-parallel one (the identity forward, an all-reduce of the
-    gradient). `data_sum` sums a per-rank partial over the data dims the
-    same way. `data_axes`: the logical activation axes whose split makes a
-    rank's gradient partial (a model that does not split its sequence
-    gives ("batch",), and its sp ranks are replicas). `whole` gathers a
-    block on every rank for code that computes the same thing on each (the
-    MoE block on JAX's token partition)."""
+    its backward the identity; `tp_sum_f32` the same sum of fp32 partials,
+    the engines'); `tp_copy` its conjugate before a column-parallel one
+    (the identity forward, an all-reduce of the gradient). `data_sum` sums
+    a per-rank partial over the data dims the same way. `data_axes`: the
+    logical activation axes whose split makes a rank's gradient partial (a
+    model that does not split its sequence gives ("batch",), and its sp
+    ranks are replicas). `whole` gathers a block on every rank for code
+    that computes the same thing on each (the MoE block on JAX's token
+    partition)."""
 
     def __init__(self, mesh, rules: Optional[LogicalAxisRules] = None,
                  data_axes: Sequence[str] = ("batch", "seq")):
@@ -297,6 +298,15 @@ class ShardingContext:
         x = DTensor.from_local(partial, self.mesh, self._partial_tp,
                                run_check=False)
         return x.redistribute(self.mesh, self._replicate).to_local()
+
+    def tp_sum_f32(self, partial: torch.Tensor) -> torch.Tensor:
+        """`tp_sum` of partial products kept in fp32: `llama._row_out`,
+        given this method, computes the product with an fp32 result, sums it
+        here and rounds the sum once. The engines sum this way: their
+        prefill and decode are latency-bound, so the doubled bytes cost
+        little, and a sum of bf16 partials rounds each partial and each
+        hop."""
+        return self.tp_sum(partial.float())
 
     def tp_copy(self, x: torch.Tensor) -> torch.Tensor:
         """x as it is, its gradient summed over the tp ranks."""

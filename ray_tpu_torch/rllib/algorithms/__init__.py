@@ -1,10 +1,15 @@
-"""The port's algorithms: PPO, DQN, CQL, MARWIL/BC, SAC and IMPALA's
-synchronous V-trace path. APPO and DreamerV3 wait (ROADMAP.md queue 1,
-item 3)."""
+"""The port's algorithms: PPO, APPO and IMPALA (the synchronous V-trace
+path), DQN, CQL, MARWIL/BC, SAC and DreamerV3."""
 
 from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.dreamerv3 import (  # noqa: F401
+    DreamerV3,
+    DreamerV3Config,
+)
 from ray_tpu_torch.rllib.algorithms.impala import (  # noqa: F401
+    APPO,
+    APPOConfig,
     IMPALA,
     IMPALAConfig,
 )
@@ -17,6 +22,7 @@ from ray_tpu_torch.rllib.algorithms.marwil import (  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.sac import SAC, SACConfig  # noqa: F401
 
-__all__ = ["BC", "BCConfig", "CQL", "CQLConfig", "DQN", "DQNConfig",
-           "IMPALA", "IMPALAConfig", "MARWIL", "MARWILConfig", "PPO",
-           "PPOConfig", "SAC", "SACConfig"]
+__all__ = ["APPO", "APPOConfig", "BC", "BCConfig", "CQL", "CQLConfig",
+           "DQN", "DQNConfig", "DreamerV3", "DreamerV3Config", "IMPALA",
+           "IMPALAConfig", "MARWIL", "MARWILConfig", "PPO", "PPOConfig",
+           "SAC", "SACConfig"]

@@ -1,14 +1,16 @@
-"""IMPALA's V-trace update and its synchronous loop, the port's counterpart
-of `ray_tpu/rllib/algorithms/impala.py` (`make_vtrace_update` :39-123 and
-`IMPALA` with num_env_runners = 0, :291-295).
+"""IMPALA's and APPO's V-trace update and their synchronous loop, the
+port's counterpart of `ray_tpu/rllib/algorithms/impala.py`
+(`make_vtrace_update` :39-123, `IMPALA` with num_env_runners = 0,
+:291-295, and `APPOConfig` / `APPO`, :370-381).
 
 V-trace (Espeholt et al. 2018): JAX runs the recursion as a `lax.scan`
 over the reversed time axis; here it is a reversed loop over T computing
 the same recursion, vs_t - V(x_t) = delta_t + gamma_t c_t (vs_{t+1} -
-V(x_{t+1})). The asynchronous in-flight pipeline and the decoupled
-dataflow need the actor runtime and are not ported (ROADMAP.md queue 1,
-item 5); APPO's clipped surrogate waits (item 3); neither is the `rl.learner_step` event, which waits for the port
-of the event log.
+V(x_{t+1})). APPO (`appo_clip`) takes PPO's clipped surrogate on the
+V-trace advantages in place of the plain policy gradient. The
+asynchronous in-flight pipeline and the decoupled dataflow need the actor
+runtime and are not ported (ROADMAP.md queue 1, item 5); neither is the
+`rl.learner_step` event, which waits for the port of the event log.
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ def vtrace_returns(values, bootstrap, rewards, discounts, clipped_rho,
 class VTraceLearner(TorchLearner):
     """The V-trace actor-critic update on [B, T] trajectories (batch keys:
     obs, actions, rewards, logp (behaviour), terminateds, mask,
-    bootstrap_value), under optax.adam(lr) as in JAX (no clip)."""
+    bootstrap_value), under optax.adam(lr) as in JAX (no clip). With
+    config["appo_clip"], APPO's clipped surrogate (clip_param)."""
 
     def __init__(self, module_spec: Dict[str, Any], config: Dict[str, Any]):
         super().__init__(resolve_module(
@@ -96,7 +99,13 @@ class VTraceLearner(TorchLearner):
                 adv_mean = torch.sum(pg_adv * mask) / denom
                 adv_var = torch.sum(mask * (pg_adv - adv_mean) ** 2) / denom
                 pg_adv = (pg_adv - adv_mean) * torch.rsqrt(adv_var + 1e-8)
-        pg_loss = -torch.sum(logp * pg_adv * mask) / denom
+        if cfg.get("appo_clip", False):
+            clip = cfg.get("clip_param", 0.2)
+            surr = torch.minimum(
+                rhos * pg_adv, torch.clamp(rhos, 1 - clip, 1 + clip) * pg_adv)
+            pg_loss = -torch.sum(surr * mask) / denom
+        else:
+            pg_loss = -torch.sum(logp * pg_adv * mask) / denom
         vf_loss = 0.5 * torch.sum(mask * (values - vs) ** 2) / denom
         ent = torch.sum(entropy * mask) / denom
         total = (pg_loss + cfg.get("vf_loss_coeff", 0.5) * vf_loss
@@ -200,3 +209,18 @@ class IMPALA(Algorithm):
 
     def stop(self) -> None:
         self.runner_group.stop()
+
+
+class APPOConfig(IMPALAConfig):
+    def __init__(self):
+        super().__init__()
+        self.algo_class = APPO
+        self.appo_clip = True
+        self.clip_param = 0.2
+
+
+class APPO(IMPALA):
+    """Asynchronous PPO (reference: ray rllib/algorithms/appo/appo.py):
+    IMPALA's loop with the PPO clipped surrogate on the V-trace-corrected
+    advantages. Here it runs IMPALA's synchronous path (num_env_runners =
+    0); the asynchronous one waits for the actor runtime."""

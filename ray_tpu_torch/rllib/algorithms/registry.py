@@ -16,13 +16,14 @@ def _table():
     from ray_tpu_torch.rllib import algorithms as a
 
     return {
-        "PPO": a.PPO, "IMPALA": a.IMPALA, "DQN": a.DQN, "SAC": a.SAC,
-        "BC": a.BC, "MARWIL": a.MARWIL, "CQL": a.CQL,
+        "PPO": a.PPO, "APPO": a.APPO, "IMPALA": a.IMPALA, "DQN": a.DQN,
+        "SAC": a.SAC, "BC": a.BC, "MARWIL": a.MARWIL, "CQL": a.CQL,
+        "DreamerV3": a.DreamerV3,
     }
 
 
-# APPO and DreamerV3 are not ported yet (ROADMAP.md queue 1, item 3).
-ALGORITHMS = ("PPO", "IMPALA", "DQN", "SAC", "BC", "MARWIL", "CQL")
+ALGORITHMS = ("PPO", "APPO", "IMPALA", "DQN", "SAC", "BC", "MARWIL", "CQL",
+              "DreamerV3")
 
 
 def get_algorithm_class(name: str):

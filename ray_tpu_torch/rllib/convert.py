@@ -7,7 +7,9 @@ port's submodules (`torso/0/w` is `torso.0.weight`); dense weights are
 [in, out] in JAX and [out, in] in `nn.Linear`, conv kernels HWIO in JAX
 and OIHW in `nn.Conv2d`. Other leaves (SAC's `log_alpha`) keep their name
 and layout. The Adam state (`count`, `mu`, `nu` of optax's
-ScaleByAdamState) comes across the same way, so a resumed update matches.
+ScaleByAdamState) comes across the same way, so a resumed update matches;
+DreamerV3's parameters and its three Adam states come across together
+(`dreamer_state_from_jax_numpy`).
 """
 
 from __future__ import annotations
@@ -141,3 +143,15 @@ def adam_state_to_jax_layout(module: nn.Module, state: AdamWState):
     names = [n for n, _ in module.named_parameters()]
     return (state.count, to_jax_layout(zip(names, state.mu)),
             to_jax_layout(zip(names, state.nu)))
+
+
+def dreamer_state_from_jax_numpy(model: nn.Module, params, opt_state
+                                 ) -> Dict[str, AdamWState]:
+    """DreamerV3's numpy `params` ({"wm", "actor", "critic"}) into `model`
+    (a `DreamerModel`, named as the pytree), and its three optax Adam
+    states (`opt_state`, keyed the same) -> {name: AdamWState} over each
+    submodule's parameters, as `DreamerV3Learner` lists them."""
+    load_jax_numpy(model, params)
+    return {name: adam_state_from_jax_numpy(getattr(model, name),
+                                            opt_state[name])
+            for name in ("wm", "actor", "critic")}

@@ -375,6 +375,13 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
         return llama_step("[n] one tiny Llama step in place of phase (n)")
 
     monkeypatch.setattr(smoke, "phase_dataplane", dataplane)
+
+    # (o), Train's checkpoint and predictor, is rehearsed on its own by
+    # tests/test_torch_checkpoint.py; here one tiny Llama step stands in.
+    def train_io(card):
+        return llama_step("[o] one tiny Llama step in place of phase (o)"), {}
+
+    monkeypatch.setattr(smoke, "phase_train_io", train_io)
     # The bench at (h-2)'s batch, as on the card.
     from ray_tpu_torch import bench
     monkeypatch.setattr(bench, "CPU_BATCH", 2)
@@ -439,7 +446,7 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     lines = capsys.readouterr().out.strip().splitlines()
     for tag in ("[a]", "[b]", "[c]", "[f]", "[g]", "[d]", "[d+e]", "[h]",
                 "[i-1]", "[i-2]", "[i-3]", "[i-4]", "[i]", "[h-2]",
-                "[bench]", "[j]", "[k]", "[l]", "[m]", "[n]"):
+                "[bench]", "[j]", "[k]", "[l]", "[m]", "[n]", "[o]"):
         assert any(line.startswith(tag) for line in lines), tag
     for text in ("[e] _decode_attention", "[e] _cached_attention",
                  "token blocks identical True", "[e] decode step, former",
@@ -485,9 +492,10 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
         assert by_path[name] == {"serve": 0, "train": 13 * layers,
                                  "train_compiled": 30 * layers,
                                  "mixtral": 2, "spmd": 2, "spmd_compiled": 2,
-                                 "zoo_mesh": 2, "feed": 2}
+                                 "zoo_mesh": 2, "feed": 2, "checkpoint": 2}
     # 2 layers under "dots" for each stand-in step
-    for path in ("mixtral", "spmd", "spmd_compiled", "zoo_mesh", "feed"):
+    for path in ("mixtral", "spmd", "spmd_compiled", "zoo_mesh", "feed",
+                 "checkpoint"):
         assert by_path["flash_fwd"][path] == 4, path
     assert by_path["flash_fwd"]["serve"] >= 2 * layers
     assert [k["launches"] for k in kernels] == [

@@ -17,6 +17,7 @@ import types
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh, NamedSharding
 
 from ray_tpu.models import llama as jl
@@ -58,6 +59,11 @@ BATCH_MESHES = [(dict(dp=2, fsdp=2), 1), (dict(sp=2, fsdp=2), 1),
                 (dict(tp=2), 2), (dict(sp=4), 1)]
 # (mesh config, slices, prefetch) of the sharded device feed.
 FEED_MESHES = [(dict(dp=2, fsdp=2), 1, 1), (dict(sp=2, fsdp=2), 1, 0)]
+# The gradient reduction of a gathered bf16 parameter, the tp sums, and a
+# DTensor checkpointed whole.
+REDUCE_CASE = (dict(dp=2, fsdp=2), (8, 6), ("embed", "mlp"), 41)
+TP_SUM_CASE = (4, 64, 6, 43)
+CHECKPOINT_CASE = (dict(fsdp=2, tp=2), (8, 12), ("embed", "mlp"))
 
 
 def _feed_batches():
@@ -74,6 +80,8 @@ def _cases():
     cases += [("batch_blocks", (m, n, batch)) for m, n in BATCH_MESHES]
     cases += [("feed_blocks", (m, n, _feed_batches(), p))
               for m, n, p in FEED_MESHES]
+    cases += [("grad_reduce_case", REDUCE_CASE), ("tp_sum_case", TP_SUM_CASE),
+              ("checkpoint_case", CHECKPOINT_CASE)]
     return cases
 
 
@@ -267,3 +275,41 @@ def test_with_logical_constraint_passes_plain_tensors():
 
     x = torch.ones(2, 3)
     assert tsharding.with_logical_constraint(x, ("batch", "seq")) is x
+
+
+def test_gang_gathers_reduce_gradients_over_the_data_dims(gang):
+    """ShardingContext.gather's backward on dp=2 x fsdp=2 (an all-reduce
+    over dp, a reduce-scatter over fsdp): a bf16 parameter comes out of the
+    gather in bf16, and each rank's gradient block is its block of the sum
+    of the four ranks' gathered gradients."""
+    res = [r[len(_cases()) - 3] for r in gang]
+    shape = REDUCE_CASE[1]
+    total = sum(r["c"] for r in res)
+    for r in res:
+        block = tuple(slice(a, b) for a, b in r["block"])
+        assert r["grad_dtype"] == r["gathered"] == "torch.bfloat16"
+        assert r["grad"].shape == total[block].shape != shape
+        np.testing.assert_array_equal(r["grad"], total[block])
+
+
+def test_gang_engines_sum_fp32_partial_products_over_tp(gang):
+    """The engines' tp sum (`tp_sum_f32` through `_row_out`) gives the bf16
+    rounding of the whole fp32 product, where the bf16 sum of bf16 partial
+    products (the training step's `tp_sum`) does not; both engines on a
+    tp=4 mesh sum that way."""
+    for r in (res[len(_cases()) - 2] for res in gang):
+        want = torch.from_numpy(r["h"] @ r["w"]).to(torch.bfloat16).float()
+        assert r["f32_dtype"] == "torch.bfloat16"
+        np.testing.assert_array_equal(r["f32"], want.numpy())
+        assert not np.array_equal(r["bf16"], want.numpy())
+        assert r["engines_f32"] == [True, True]
+
+
+def test_gang_checkpoint_saves_a_dtensor_whole(gang):
+    """`Checkpoint.from_arrays` of a bf16 DTensor split over fsdp x tp
+    stores the whole tensor (as JAX's device_get fetches a sharded array
+    whole), and `to_arrays` gives it back bit for bit, in bf16."""
+    for res in gang:
+        got = res[len(_cases()) - 1]
+        assert got["whole"] and got["dtype"] == "torch.bfloat16"
+        assert got["step"] == 3 and got["local_shape"] == (4, 6)

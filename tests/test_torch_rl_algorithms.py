@@ -336,14 +336,16 @@ def test_fault_tolerance_and_dataflow_chain_as_on_jax():
 
 
 def test_registry_names_the_ported_algorithms():
+    from ray_tpu.rllib.algorithms.registry import ALGORITHMS as JAX_ALGORITHMS
     from ray_tpu_torch.rllib.algorithms.registry import (ALGORITHMS,
                                                          get_algorithm_class)
 
     assert get_algorithm_class("PPO") is talgos.PPO
-    assert set(ALGORITHMS) == {"PPO", "IMPALA", "DQN", "SAC", "BC", "MARWIL",
-                               "CQL"}
+    assert ALGORITHMS == JAX_ALGORITHMS
+    for name in ALGORITHMS:
+        assert get_algorithm_class(name) is getattr(talgos, name)
     with pytest.raises(ValueError, match="unknown algorithm"):
-        get_algorithm_class("APPO")
+        get_algorithm_class("A3C")
 
 
 def test_benchmark_env_steps_on_the_cpu():
@@ -359,8 +361,9 @@ def test_chip_smoke_phase_m_rehearsed_on_the_cpu(monkeypatch, capsys,
     """`chip_smoke.py --only m` at tiny sizes with the card stubbed (as
     tests/test_torch_flash_sm90.py rehearses main()): (m-1)'s and (m-2)'s
     checks of every learner, (m-3)'s CartPole run at its real settings and
-    the image run and benchmark at tiny ones; the last line is the ok
-    object."""
+    the image run and benchmark at tiny ones, (m-4)'s APPO and DreamerV3
+    checks and DreamerV3 run at tiny sizes and its multi-agent PPO run at
+    its real settings; the last line is the ok object."""
     import json
 
     from test_torch_flash_sm90 import rehearse_on_the_cpu
@@ -373,6 +376,16 @@ def test_chip_smoke_phase_m_rehearsed_on_the_cpu(monkeypatch, capsys,
         training={"train_batch_size": 32, "minibatch_size": 16,
                   "num_epochs": 1}))
     monkeypatch.setattr(smoke, "RL_BENCH", dict(num_envs=2, steps=4))
+    # (m-4): DreamerV3 at tiny dims for one iteration (its learning run is
+    # tests/test_torch_rl_dreamerv3.py's slow test); multi-agent PPO at its
+    # real settings.
+    monkeypatch.setattr(smoke, "RL_APPO_ROWS", (2, 4))
+    monkeypatch.setattr(smoke, "RL_DREAMER", dict(
+        iterations=1, target=0.0, training=dict(
+            num_steps_per_iteration=48, train_ratio=1, batch_size_B=2,
+            batch_length_T=8, horizon_H=3, deter_dim=16, stoch_groups=2,
+            stoch_classes=4, embed_dim=8, hidden_dim=16,
+            num_steps_sampled_before_learning_starts=48)))
 
     def profile_rl(fn, n):
         for _ in range(n):
@@ -383,11 +396,13 @@ def test_chip_smoke_phase_m_rehearsed_on_the_cpu(monkeypatch, capsys,
     assert smoke.main(["--only", "m"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     for tag in ("[m-1]", "[m-2]", "[m-3]", "[m] (m-2) SAC", "[m] (m-2) V-trace",
-                "[m] RLlib"):
+                "[m] (m-4) APPO", "[m-4]", "[m] RLlib"):
         assert any(line.startswith(tag) for line in lines), tag
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
     rl = json.loads(lines[-2])["rl"]
     assert max(rl["loop"]["cartpole_returns"]) > 60
+    assert max(rl["more"]["multi_agent_returns"]) > 8
+    assert rl["more"]["dreamer"]["train_step_share"] > 0
     assert rl["module"]["bound_ms"] > 0
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
