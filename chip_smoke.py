@@ -107,17 +107,28 @@ Phases, in order; any failure raises and the script exits non-zero:
       config (fp32 1e-4) and the bench widths at 1 layer (bf16 loss 1e-3,
       grad norm 1e-2; 2L / L / L), with the seconds it adds; the tiny
       Mixtral (compiled, 1e-4), ViT and T5 (eager, 1e-5) sharded steps
-      against their unsharded ones; and the dense engine with mesh= at
-      tp=1 against the engine without it (the same greedy tokens); (l-2)
+      against their unsharded ones; the dense engine with mesh= at tp=1
+      against the engine without it (the same greedy tokens); the
+      collective report (`parallel.hlo_report`) of the compiled sharded
+      step at the bench widths, read from the programs it compiled; and a
+      world-1 "mesh" collective group (`util.collective`) with
+      `bootstrap_mesh`: every collective the identity on a tensor on the
+      card, eagerly and inside a fullgraph function (aot_eager); (l-2)
       with fewer than 4 cards, `graft_entry.dryrun_multichip(4,
-      device="cpu")` on 4 gloo CPU ranks (NCCL takes one rank a card), as
-      its lines say; (l-3) with 4 cards or more, one rank a card over NCCL,
-      each part logged and the next one run if it fails (the phase then
-      fails at its end): the dry run, `spmd_bench` (fsdp=2 x tp=2 against
+      device="cpu")` and `cards_collective` on 4 gloo CPU ranks (NCCL
+      takes one rank a card), as their lines say; (l-3) with 4 cards or
+      more, one rank a card over NCCL, each part logged and the next one
+      run if it fails (the phase then fails at its end): the dry run, the
+      collective groups (mesh groups over dp=4, over tp of dp=2 x tp=2 and
+      over both: each collective eagerly and compiled, exact against numpy
+      on integer-valued fp32 and the bf16 sum, the typed errors, the host
+      path on numpy with a send/recv ring by tag, and one 1 GiB bf16
+      all-reduce's bus bandwidth), `spmd_bench` (fsdp=2 x tp=2 against
       the 1-GPU compiled step on one global batch, B=16 S=2048, the
       compiled and the eager sharded step side by side: step ms, tok/s and
       MFU per GPU, scaling efficiency, peak memory per GPU, NCCL ms against
-      compute ms, the trajectories within 1e-2, the compiled step's first
+      compute ms, rank 0's collective report of the compiled step beside
+      its NCCL ms, the trajectories within 1e-2, the compiled step's first
       step within bf16 loss 1e-3 and grad norm 1e-2 of the eager one's),
       the ring step at sp=2 x fsdp=2 (the bench widths, B=4 S=2048) with
       each rank's flash launches (2L(c+1) / L(c+1) / L(c+1) at sp
@@ -126,19 +137,25 @@ Phases, in order; any failure raises and the script exits non-zero:
       (its first step against the eager ring's, the same launches),
       Mixtral at 8x7B widths and 2 layers over ep=4 (B=4 S=2048, eager and
       compiled from the same state within 1e-3, MFU, peak memory and the
-      all-to-all's device ms), ViT-B/16 over dp=4 and T5-base over dp=2 x
-      tp=2 against the one-card step on the same global batch (three
-      steps, losses within 1e-3), a pp=4 pipeline of Llama-width SwiGLU
+      all-to-all's device ms), ViT-B/16 over dp=4 against the one-card
+      step on the same global batch (the first bf16 step's loss within
+      1e-3 and gradient norm within 1e-2, after the dp reduction, and three
+      fp32 steps' losses within 1e-3; the bf16 three-step gap a reading),
+      T5-base over dp=2 x tp=2 against the one-card step (three steps,
+      losses within 1e-3), a pp=4 pipeline of Llama-width SwiGLU
       stages (fp32: output and gradients within 1e-4 of the sequential
       composition on one card), the Llama-3-8B dense engine at tp=4
       against the one-card engine (prefill logits within 2e-2, the first
       token of every request equal, the tokens that agree before the first
       divergence), and Llama-3-8B at its full 32 layers over fsdp=4 (B=8
-      S=2048, 3 steps), eager and then compiled from the same state.
+      S=2048, 3 steps), eager and then compiled from the same state, with
+      rank 0's collective report of the compiled step (its all-gather
+      bytes equal to the figure from the parameters' shapes and the remat
+      policy).
       `--only l` runs (l) alone after (a); `python3 chip_smoke.py --only l`
       on a host with four cards is the four-card run, and `--only l
-      --part NAME` runs one of its parts (bench, ring, mixtral, vit, t5,
-      pipeline, engine, llama8b) alone;
+      --part NAME` runs one of its parts (collective, bench, ring, mixtral,
+      vit, t5, pipeline, engine, llama8b) alone;
   (m) RLlib's one-process path (`ray_tpu_torch.rllib`), fp32 with TF32
       off: (m-1) the Nature-CNN actor-critic at full width on a seeded
       [128, 84, 84, 4] uint8 minibatch, `forward_train` and one PPO update
@@ -208,7 +225,8 @@ and (e); paged serving: (i), which runs no flash kernel; training: (h);
 compiled training: (h-2); Mixtral: (k-1) and (k-2); the SPMD path's
 eager sharded steps, its compiled sharded steps and the zoo on the mesh:
 (l), each on its own; the fed training path: (n-1)'s fed runs; the
-checkpointed training path: (o-1)) and read just after it. The last
+checkpointed training path: (o-1)) and read just after it. Each phase's
+seconds are logged at the end ("[phases]"). The last
 three lines of stdout are the card's `nvidia-smi` name and power limit, one
 JSON object on the kernels, and `{"ok": true, "device": ...}`. Without
 CUDA, or without the repository beside it, it exits non-zero and prints no
@@ -2203,11 +2221,18 @@ SPMD_MIXTRAL = dict(plan={"ep": 4}, batch=4, seq=2048, layers=2, steps=2)
 SPMD_MIXTRAL_REL_TOL = 1e-3       # eager and compiled, from the same state
 SPMD_ZOO_STEPS = 2                # after the warm-up: three steps each
 SPMD_ZOO_REL_TOL = 1e-3           # the sharded and the one-card losses
+# One card against itself: ViT-B/16's three bf16 steps on the same batch in
+# another order moved the losses this far on an H100 (PERF.md). A bf16
+# reading of the mesh against one card is printed beside it.
+ONE_CARD_REORDER_SPREAD = 1.267e-03
 SPMD_VIT = dict(plan={"dp": 4}, batch=32)
 SPMD_T5 = dict(plan={"dp": 2, "tp": 2})
 SPMD_PIPE = dict(m=8, mb=(2, 256), rel_tol=1e-4)   # fp32
 SPMD_ENGINE = dict(prompts=4, prompt_len=(96, 400), new_tokens=32,
                    max_len=512, logits_rel_tol=2e-2)
+# (l-3), the collective groups: one all-reduce of 1 GiB of bf16, timed.
+COLLECTIVE_BUSBW_BYTES = 1 << 30
+COLLECTIVE_BUSBW_ITERS = 5
 
 
 def _recompiles(limit: int = 64):
@@ -2230,6 +2255,7 @@ def spmd_world1_runs(cfg, batch, seq, seed, plain_first=None,
     norm)], launches per sharded step, the sharded run's launches: the
     counts are set to 0 just before it and read just after)."""
     from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.hlo_report import collective_report
     from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
     from ray_tpu_torch.train.spmd import batch_sharding, shard_local_batch
@@ -2262,15 +2288,18 @@ def spmd_world1_runs(cfg, batch, seq, seed, plain_first=None,
             after = kernel_counts()
             launches.append({k: after[k] - before[k] for k in after})
         total = kernel_counts()
+        # from the programs the steps compiled: no compile, nothing runs
+        report = (collective_report(step, state, batch_in)
+                  if compiled and mesh is not None else None)
         del state
         gc.collect()
         torch.cuda.empty_cache()
-        return out, launches, total
+        return out, launches, total, report
 
     mesh = build_mesh(MeshConfig())
-    sharded, launches, total = run(mesh)
+    sharded, launches, total, report = run(mesh)
     plain = plain_first if plain_first is not None else run(None)[0]
-    return sharded, plain, launches, total
+    return sharded, plain, launches, total, report
 
 
 def phase_spmd_world1(eager_first=None):
@@ -2292,7 +2321,7 @@ def phase_spmd_world1(eager_first=None):
     backend.init_process_group(0, 1, f"file://{store}/store", DEVICE)
     try:
         cfg = tiny_train_config()
-        got, want, _, tiny_total = spmd_world1_runs(cfg, 2, 64, seed=5)
+        got, want, _, tiny_total, _ = spmd_world1_runs(cfg, 2, 64, seed=5)
         rel = max(abs(a - b) / abs(b) for x, y in zip(got, want)
                   for a, b in zip(x, y))
         log(f"[l-1] tiny fp32, world-1 mesh, {SPMD_STEPS} steps: (loss, "
@@ -2301,7 +2330,7 @@ def phase_spmd_world1(eager_first=None):
               "mesh differs from the unsharded one")
         cfg = bench_config()
         t0 = time.perf_counter()
-        got, want, launches, total = spmd_world1_runs(
+        got, want, launches, total, _ = spmd_world1_runs(
             cfg, TRAIN_ATTN[0], TRAIN_ATTN[1], seed=3, plain_first=eager_first)
         secs = time.perf_counter() - t0
         rel_loss = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, want))
@@ -2322,6 +2351,7 @@ def phase_spmd_world1(eager_first=None):
         compiled = phase_spmd_world1_compiled()
         zoo = phase_spmd_world1_zoo(seed=21)
         phase_spmd_world1_engine(seed=22)
+        phase_spmd_world1_collective(seed=23)
     finally:
         backend.destroy_process_group()
     return {"spmd": {k: tiny_total[k] + total[k] for k in total},
@@ -2339,8 +2369,8 @@ def phase_spmd_world1_compiled():
     t0 = time.perf_counter()
     with _recompiles():
         cfg = tiny_train_config()
-        got, want, _, tiny_total = spmd_world1_runs(cfg, 2, 64, seed=5,
-                                                    compiled=True)
+        got, want, _, tiny_total, _ = spmd_world1_runs(cfg, 2, 64, seed=5,
+                                                       compiled=True)
         rel = max(abs(a - b) / abs(b) for x, y in zip(got, want)
                   for a, b in zip(x, y))
         log(f"[l-1] compiled ({COMPILE_BACKEND}) tiny fp32, world-1 mesh, "
@@ -2350,7 +2380,7 @@ def phase_spmd_world1_compiled():
               "step on a world-1 mesh differs from the compiled unsharded one")
         cfg = dataclasses.replace(bench_config(),
                                   n_layers=SPMD_COMPILED_LAYERS)
-        got, want, launches, total = spmd_world1_runs(
+        got, want, launches, total, report = spmd_world1_runs(
             cfg, TRAIN_ATTN[0], TRAIN_ATTN[1], seed=3, compiled=True)
     secs = time.perf_counter() - t0
     rel_loss = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, want))
@@ -2365,6 +2395,12 @@ def phase_spmd_world1_compiled():
         f"norm {rel_norm:.3e}; launches a step {launches}")
     log(f"[l-1] the compiled sharded checks (four compiles) added "
         f"{secs:.1f} s")
+    log(f"[l-1] collective report of the compiled sharded step at the bench "
+        f"widths cut to {cfg.n_layers} layer(s), world-1 mesh (bytes of "
+        f"result buffers a step, both programs): {json.dumps(report)}")
+    check(report is not None and report["all-reduce"]["count"] >= 1,
+          "the world-1 sharded step's report has no all-reduce (the global "
+          "norm's)")
     check(rel_loss <= SPMD_LOSS_REL_TOL and rel_norm <= SPMD_NORM_REL_TOL,
           "the compiled sharded bench step on a world-1 mesh differs from "
           "the compiled unsharded one")
@@ -2494,18 +2530,212 @@ def phase_spmd_world1_engine(seed):
           "engine without it")
 
 
+def phase_spmd_world1_collective(seed):
+    """(l-1), the collective groups: a world-1 "mesh" group over the world-1
+    gang, `bootstrap_mesh` of the 1 x ... x 1 mesh, and every mesh
+    collective on a tensor on the card the identity (allreduce of each op,
+    broadcast: x; allgather: x[None]; reducescatter of one chunk: the
+    chunk), eagerly and inside one fullgraph function (aot_eager: a graph
+    of functional collectives, no inductor compile); numpy values ride
+    the host path."""
+    from ray_tpu_torch.parallel import gang_cases
+    from ray_tpu_torch.parallel.mesh import MeshConfig
+    from ray_tpu_torch.util import collective as col
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-8, 9, (64, 128)).astype(
+        np.float32)).to(DEVICE)
+    chunk = torch.from_numpy(rng.integers(-8, 9, (32, 128)).astype(
+        np.float32)).to(DEVICE)
+    col.init_collective_group(1, 0, "mesh", "world1")
+    try:
+        mesh = col.bootstrap_mesh(MeshConfig(), group_name="world1")
+        t0 = time.perf_counter()
+        forms = {form: gang_cases.mesh_collectives(
+            "world1", x, [chunk], 0, form == "compiled")
+            for form in ("eager", "compiled")}
+        secs = time.perf_counter() - t0
+        host = col.allreduce({"a": np.arange(3.0)}, "world1")
+    finally:
+        col.destroy_collective_group("world1")
+    xs, cs = x.cpu().numpy(), chunk.cpu().numpy()
+    want = {"sum": xs, "product": xs, "min": xs, "max": xs,
+            "allgather": xs[None], "broadcast": xs, "reducescatter": cs,
+            "reducescatter_tree_g": cs, "reducescatter_tree_h": 2 * cs,
+            "bf16_sum": xs}
+    same = {form: all(np.array_equal(got[k], w) for k, w in want.items())
+            for form, got in forms.items()}
+    log(f"[l-1] world-1 mesh collective group on {DEVICE}, mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}: every collective the"
+        f" identity eagerly {same['eager']}, compiled (aot_eager, fullgraph) "
+        f"{same['compiled']} ({secs:.1f} s); numpy on the host path "
+        f"{host['a'].tolist()}")
+    check(all(same.values()) and np.array_equal(host["a"], np.arange(3.0)),
+          "a world-1 mesh collective is not the identity")
+
+
 def phase_spmd_cpu_ranks(n_cards):
-    """(l-2): with fewer than SPMD_CARDS cards, the 4-rank dry run on gloo
-    CPU ranks (NCCL takes one rank a card)."""
+    """(l-2): with fewer than SPMD_CARDS cards, the 4-rank dry run and
+    `cards_collective` on gloo CPU ranks (NCCL takes one rank a card)."""
     from ray_tpu_torch import graft_entry
 
     log(f"[l-2] this machine has {n_cards} GPU(s); the {SPMD_CARDS}-rank "
-        "dry run runs on CPU ranks")
+        "dry run and the collective groups run on CPU ranks")
     t0 = time.perf_counter()
     lines = graft_entry.dryrun_multichip(SPMD_CARDS, device="cpu")
     check(lines[-1].endswith("all multichip checks passed"),
           "the CPU-rank dry run did not pass")
     log(f"[l-2] the CPU-rank dry run took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cards_collective(SPMD_CARDS, None, device="cpu")
+    log(f"[l-2] the collective groups on {SPMD_CARDS} gloo CPU ranks took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def collective_inputs(seed, n_chunks):
+    """Per rank of SPMD_CARDS: x [64, 256] and n_chunks chunks [32, 256],
+    integer-valued fp32 (every sum, product, min and max exact in fp32 and
+    the sums in bf16)."""
+    rng = np.random.default_rng(seed)
+    xs = [rng.integers(-3, 4, (64, 256)).astype(np.float32)
+          for _ in range(SPMD_CARDS)]
+    chunks = [[rng.integers(-3, 4, (32, 256)).astype(np.float32)
+               for _ in range(n_chunks)] for _ in range(SPMD_CARDS)]
+    return xs, chunks
+
+
+def collective_expected(xs, chunks, src, spans):
+    """Rank r's results of `gang_cases.mesh_collectives` from numpy, where
+    spans[r] lists the ranks of r's span in position order."""
+    out = []
+    for r, span in enumerate(spans):
+        x = np.stack([xs[q] for q in span])
+        mine = span.index(r)
+        ch = np.stack([chunks[q][mine] for q in span])
+        out.append({"sum": x.sum(0), "product": x.prod(0), "min": x.min(0),
+                    "max": x.max(0), "allgather": x, "broadcast": x[src],
+                    "reducescatter": ch.sum(0),
+                    "reducescatter_tree_g": ch.sum(0),
+                    "reducescatter_tree_h": 2 * ch.sum(0),
+                    "bf16_sum": x.sum(0)})
+    return out
+
+
+def cards_collective(n, launches, device=None):
+    """(l-3) the collective groups (`ray_tpu_torch.util.collective`) on n
+    ranks over NCCL (gloo CPU ranks with device="cpu", (l-2)): mesh groups
+    over dp=4, over tp of dp=2 x tp=2 and over both dims of dp=2 x tp=2,
+    each collective eagerly and inside an aot_eager fullgraph function on
+    tensors on the rank's device, exactly against numpy on integer-valued
+    fp32 (and the bf16 sum); the typed errors; the host path on numpy
+    values (the four reductions of a pytree, allgather, broadcast,
+    reducescatter, a send/recv ring on one tag and two tags received in the
+    other order); and, on the card, one 1 GiB bf16 all-reduce's bus
+    bandwidth."""
+    from ray_tpu_torch.parallel import gang_cases
+    from ray_tpu_torch.train.backend import launch_gang
+
+    device = device or DEVICE
+    plans = {"dp4": ({"dp": 4}, None, [[0, 1, 2, 3]] * 4),
+             "tp_of_2x2": ({"dp": 2, "tp": 2}, ("tp",),
+                           [[0, 1], [0, 1], [2, 3], [2, 3]]),
+             "2x2": ({"dp": 2, "tp": 2}, None, [[0, 1, 2, 3]] * 4)}
+    groups, want = {}, {}
+    for i, (name, (mesh_kw, axes, spans)) in enumerate(plans.items()):
+        xs, chunks = collective_inputs(31 + i, len(spans[0]))
+        groups[name] = (mesh_kw, axes, xs, chunks, 1)
+        want[name] = collective_expected(xs, chunks, 1, spans)
+    rng = np.random.default_rng(37)
+    host = [{"tree": {"a": rng.normal(size=5), "b": [rng.normal(size=(2, 3)),
+                                                     rng.integers(1, 5, 4)]},
+             "gather": {"r": np.array([r])}, "payload": np.arange(4.0),
+             "chunks": [rng.normal(size=3) for _ in range(n)]}
+            for r in range(n)]
+    cases = [("collective_cases", (groups, host, "dp4"))]
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        cases.append(("allreduce_busbw", (COLLECTIVE_BUSBW_BYTES,
+                                          COLLECTIVE_BUSBW_ITERS)))
+    where = (f"{n} ranks over NCCL" if on_card
+             else f"{n} gloo CPU ranks, no GPU")
+    res = launch_gang(gang_cases.run_cases, n, device, SPMD_TIMEOUT_S,
+                      args=(cases,))
+    bad = []
+    for r, ranks in enumerate(res):
+        got = ranks[0]
+        for name in plans:
+            for form in ("eager", "compiled"):
+                for k, w in want[name][r].items():
+                    if not np.array_equal(got["mesh"][name][form][k], w):
+                        bad.append((r, name, form, k))
+    log(f"[l-3] collective groups ({where}): mesh collectives eager and "
+        f"compiled over {list(plans)}, exact against numpy on every rank: "
+        f"{not bad} {bad[:8]}")
+    check(not bad, f"mesh collectives differ from numpy: {bad[:8]}")
+    errors = res[0][0]["errors"]
+    keys = {"chunks_eager": "one chunk per",
+            "chunks_compiled": "one chunk per",
+            "src_eager": "out of range", "src_compiled": "out of range",
+            "send_compiled": "custom operator",
+            "recv_compiled": "custom operator",
+            "noaxes_compiled": "no mesh axes", "dtensor_eager": "DTensor"}
+    typed = {k: errors[k].startswith("MeshCollectiveError") and w in errors[k]
+             for k, w in keys.items()}
+    log(f"[l-3] collective groups: typed errors {typed}; a group of another"
+        f" world: {res[0][0]['mismatch'][:60]}")
+    check(all(typed.values())
+          and res[0][0]["mismatch"].startswith("CollectiveGroupError"),
+          f"a typed collective error is missing: {errors}")
+    host_ok = _host_path_ok(host, [x[0] for x in res], n)
+    log(f"[l-3] collective groups: the host path (numpy over gloo; a "
+        f"'host' group and a mesh group's numpy path) against numpy, the "
+        f"ring on tag 7 and tags 9 then 8: {host_ok}")
+    check(host_ok, "the host path differs from numpy")
+    if on_card:
+        bw = res[0][1]
+        log(f"[l-3] one NCCL all-reduce of {bw['bytes'] / 2**30:.0f} GiB of "
+            f"bf16 over {bw['ranks']} GPUs ({nvidia_smi_line()}): "
+            f"{bw['ms']:.3f} ms, algbw {bw['algbw'] / 1e9:.2f} GB/s, busbw "
+            f"{bw['busbw'] / 1e9:.2f} GB/s")
+
+
+def _host_path_ok(host, results, n) -> bool:
+    """Every rank's host-path results (both groups) against numpy in rank
+    order, as the coordinator reduces them."""
+    def reduce(op, trees):
+        out = trees[0]
+        for t in trees[1:]:
+            out = {"a": op(out["a"], t["a"]),
+                   "b": [op(out["b"][0], t["b"][0]),
+                         op(out["b"][1], t["b"][1])]}
+        return out
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        return np.array_equal(np.asarray(a), np.asarray(b))
+
+    trees = [v["tree"] for v in host]
+    ops = {"sum": np.add, "product": np.multiply, "min": np.minimum,
+           "max": np.maximum}
+    reduced = {op: reduce(f, trees) for op, f in ops.items()}
+    for r, got in enumerate(results):
+        for path in ("host", "host_on_mesh"):
+            g = got[path]
+            want = dict(reduced)
+            want.update({
+                "allgather": [v["gather"] for v in host],
+                "broadcast": host[2]["payload"],
+                "reducescatter": functools.reduce(
+                    np.add, [v["chunks"][r] for v in host]),
+                "ring": (r - 1) % n,
+                "tags": [{"tag": 9, "from": (r - 1) % n},
+                         {"tag": 8, "from": (r - 1) % n}]})
+            if not all(same(g[k], w) for k, w in want.items()):
+                return False
+    return True
 
 
 def spmd_tokens(cfg, batch, seq, seed):
@@ -2598,12 +2828,47 @@ def cards_bench(n, launches):
         f"S={det['seq_len']} (form: ms a step, tok/s per GPU, MFU, scaling, "
         f"peak GiB per GPU, NCCL ms / compute ms on rank 0, warm-up s): "
         + "; ".join(rows))
+    comp = det["sharded"]["compiled"]
+    log_report(f"spmd_bench {det['mesh_axes']} compiled",
+               comp["collectives_rank0"], comp["nccl_ms_rank0"])
     rel_loss, rel_norm = first_step_rel(det["sharded"]["compiled"],
                                         det["sharded"]["eager"])
     log(f"[l-3] compiled vs eager sharded step, first step from the same "
         f"state: rel loss {rel_loss:.3e}, grad norm {rel_norm:.3e}")
     check(rel_loss <= SPMD_LOSS_REL_TOL and rel_norm <= SPMD_NORM_REL_TOL,
           "the compiled sharded bench step differs from the eager one")
+
+
+def log_report(tag, report, nccl_ms):
+    """Rank 0's collective report of a compiled sharded step (result-buffer
+    bytes by kind, a step), beside its NCCL ms and the bytes a second they
+    make."""
+    from ray_tpu_torch.train.spmd_bench import nccl_split
+
+    if isinstance(nccl_ms, dict):
+        nccl_ms = nccl_split(nccl_ms)[0]
+    kinds = {k: (v["count"], v["bytes"]) for k, v in report.items()}
+    rate = (f"{report['total']['bytes'] / (nccl_ms / 1e3) / 1e9:.2f} GB/s"
+            if nccl_ms else "not measured")
+    log(f"[l-3] {tag}, rank 0's collectives a step (count, result bytes) "
+        f"{kinds}; NCCL {nccl_ms if nccl_ms is None else round(nccl_ms, 2)} "
+        f"ms: {rate} ({nvidia_smi_line() if DEVICE == 'cuda' else DEVICE})")
+    check(report["total"]["count"] > 0, f"{tag}: no collective reported")
+
+
+def llama_fsdp_gather_bytes(cfg):
+    """The all-gather bytes (result buffers) of one sharded Llama step over
+    fsdp alone, from the parameters' shapes and the remat policy: each
+    layer's seven matrices gathered in the forward and, under remat, again
+    in the backward's rerun (the gathers sit inside the layer's
+    checkpoint), the embedding and the lm_head once; the norms are not
+    sharded."""
+    d, hd = cfg.d_model, cfg.d_head
+    layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+             + 3 * d * cfg.d_ff)
+    elems = ((2 if cfg.remat else 1) * cfg.n_layers * layer
+             + 2 * cfg.vocab_size * d)
+    return elems * torch.empty((), dtype=cfg.dtype).element_size()
 
 
 def cards_ring(n, launches):
@@ -2693,16 +2958,24 @@ def cards_mixtral(n, launches):
           "from the eager one")
 
 
-def cards_versus_one(tag, family, cfg, plan, batch_np, logical, items):
+def cards_versus_one(tag, family, cfg, plan, batch_np, logical, items,
+                     first_step_and_fp32=False):
     """(l-3) `family`'s sharded eager step on the mesh `plan` against the
-    one-card step on the same global batch: three steps each."""
+    one-card step on the same global batch: three steps each, their losses
+    within SPMD_ZOO_REL_TOL. With first_step_and_fp32 the three bf16 steps
+    are a reading, and the checks are (a) the first step in bf16, the loss
+    and every gradient leaf after the data-parallel reduction, before any
+    update (loss SPMD_LOSS_REL_TOL, global gradient norm SPMD_NORM_REL_TOL;
+    the largest per-leaf relative L2 logged), and (b) the same three steps
+    in fp32, TF32 off, within SPMD_ZOO_REL_TOL."""
     from ray_tpu_torch.train import spmd_bench
     from ray_tpu_torch.train.backend import launch_gang
 
     n = SPMD_CARDS
     res = launch_gang(spmd_bench.versus_one, n, DEVICE, SPMD_TIMEOUT_S,
                       args=(family, cfg, plan, batch_np, logical,
-                            SPMD_ZOO_STEPS))
+                            SPMD_ZOO_STEPS, 0, 3e-4, False,
+                            first_step_and_fp32))
     one, ranks = res[0]["one"], [r["mesh"] for r in res]
     step_n = max(r["step_s"] for r in ranks)
     rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
@@ -2717,12 +2990,38 @@ def cards_versus_one(tag, family, cfg, plan, batch_np, logical, items):
         f"{one['losses']}: rel {rel:.3e}; grad norms "
         f"{ranks[0]['grad_norms']} vs {one['grad_norms']}; collectives ms "
         f"(rank 0, one step) {ranks[0].get('collectives_ms')}")
-    check(rel <= SPMD_ZOO_REL_TOL, f"{tag} on the mesh differs from the "
-          "one-card step")
+    if not first_step_and_fp32:
+        check(rel <= SPMD_ZOO_REL_TOL, f"{tag} on the mesh differs from the "
+              "one-card step")
+        return
+    log(f"[l-3] {tag} bf16, {len(one['losses'])} steps: rel gap {rel:.3e} "
+        f"(a reading, not a check: one card fed the same batch in another "
+        f"order moves {ONE_CARD_REORDER_SPREAD:.3e}, PERF.md)")
+    first = res[0]["first"]
+    log(f"[l-3] {tag} (a) first step, bf16, after the dp reduction: loss "
+        f"{first['loss'][0]} vs {first['loss'][1]} (rel "
+        f"{first['loss_rel']:.3e}, bound {SPMD_LOSS_REL_TOL}); global grad "
+        f"norm {first['grad_norm'][0]} vs {first['grad_norm'][1]} (rel "
+        f"{first['grad_norm_rel']:.3e}, bound {SPMD_NORM_REL_TOL}); largest "
+        f"per-leaf rel L2 {first['leaf_rel_max']:.3e} ({first['leaf']})")
+    check(first["loss_rel"] <= SPMD_LOSS_REL_TOL
+          and first["grad_norm_rel"] <= SPMD_NORM_REL_TOL,
+          f"{tag}'s first sharded step differs from the one-card step")
+    f32 = res[0]["fp32"]
+    rel32 = max(abs(a - b) / abs(b) for a, b in zip(
+        f32["mesh"]["losses"], f32["one"]["losses"]))
+    log(f"[l-3] {tag} (b) fp32, TF32 off, {len(f32['one']['losses'])} "
+        f"steps: losses {f32['mesh']['losses']} vs {f32['one']['losses']}: "
+        f"rel {rel32:.3e} (bound {SPMD_ZOO_REL_TOL}); "
+        f"{max(r['fp32']['mesh']['step_s'] for r in res) * 1e3:.2f} ms a "
+        f"step on {n} GPUs vs {f32['one']['step_s'] * 1e3:.2f} on one")
+    check(rel32 <= SPMD_ZOO_REL_TOL, f"{tag}'s fp32 steps on the mesh differ "
+          "from the one-card fp32 steps")
 
 
 def cards_vit(n, launches):
-    """(l-3) ViT-B/16 over dp=4 against the one-card step."""
+    """(l-3) ViT-B/16 over dp=4 against the one-card step: the first bf16
+    step's loss and gradients, and three fp32 steps."""
     import dataclasses
 
     from ray_tpu_torch.models import vit
@@ -2735,7 +3034,7 @@ def cards_vit(n, launches):
             np.float32), "labels": rng.integers(0, cfg.num_classes, b)}
     cards_versus_one("ViT-B/16", "vit", cfg, SPMD_VIT["plan"], batch,
                      {"images": ("batch", None, None, None),
-                      "labels": ("batch",)}, b)
+                      "labels": ("batch",)}, b, first_step_and_fp32=True)
 
 
 def cards_t5(n, launches):
@@ -2833,6 +3132,15 @@ def cards_llama8b(n, launches):
     rel_loss, rel_norm = first_step_rel(res[0]["compiled"], res[0]["eager"])
     log(f"[l-3] Llama-3-8B compiled vs eager, first step from the same "
         f"state: rel loss {rel_loss:.3e}, grad norm {rel_norm:.3e}")
+    report = res[0]["compiled"]["collectives"]
+    log_report(f"Llama-3-8B {f['plan']} compiled", report,
+               res[0]["compiled"].get("collectives_ms"))
+    want = llama_fsdp_gather_bytes(cfg)
+    log(f"[l-3] Llama-3-8B {f['plan']}: all-gather bytes a step "
+        f"{report['all-gather']['bytes']} vs {want} from the parameters' "
+        f"shapes and remat {cfg.remat_policy!r}")
+    check(report["all-gather"]["bytes"] == want, "the 8B step's all-gather "
+          "bytes differ from its parameters' shapes and remat policy")
     check(rel_loss <= SPMD_LOSS_REL_TOL and rel_norm <= SPMD_NORM_REL_TOL,
           "the compiled Llama-3-8B step differs from the eager one")
 
@@ -2874,8 +3182,9 @@ def phase_spmd_cards():
     return launches
 
 
-CARDS_PARTS = (cards_bench, cards_ring, cards_mixtral, cards_vit, cards_t5,
-               cards_pipeline, cards_engine, cards_llama8b)
+CARDS_PARTS = (cards_collective, cards_bench, cards_ring, cards_mixtral,
+               cards_vit, cards_t5, cards_pipeline, cards_engine,
+               cards_llama8b)
 
 
 def spmd_launches():
@@ -4162,11 +4471,25 @@ def main(argv=()) -> int:
         f"; peaks {PEAKS[0] / 1e12:.0f} TFLOP/s bf16, {PEAKS[1] / 1e12:.2f}"
         " TB/s")
     t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(tag):
+        """Note the seconds of the phase(s) `tag` that just ended."""
+        now = time.perf_counter()
+        laps[tag] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
+    def log_laps():
+        log(f"[phases] seconds by phase {laps}; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
 
     phase_build()
+    lap("a")
     if args.only == "l":
         spmd = (phase_spmd_part(args.part) if args.part is not None
                 else phase_spmd())
+        lap("l")
+        log_laps()
         log(f"[l] {time.perf_counter() - t_start:.1f} s in all")
         print(card)
         print(json.dumps({"spmd_launches": spmd}))
@@ -4177,6 +4500,8 @@ def main(argv=()) -> int:
     if args.only == "m":
         reset_kernel_counts()
         rl = phase_rl(card)
+        lap("m")
+        log_laps()
         log(f"[m] launches of the flash kernels on the RL path: "
             f"{kernel_counts()} (it runs none); "
             f"{time.perf_counter() - t_start:.1f} s in all")
@@ -4188,6 +4513,8 @@ def main(argv=()) -> int:
         return 0
     if args.only == "o":
         ckpt, predict = phase_train_io(card, compare=True)
+        lap("o")
+        log_laps()
         log(f"[o] launches on the checkpointed training path: {ckpt}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         print(card)
@@ -4199,6 +4526,8 @@ def main(argv=()) -> int:
         return 0
     if args.only == "n":
         feed = phase_dataplane(card)
+        lap("n")
+        log_laps()
         log(f"[n] launches on the fed training path: {feed}; "
             f"{time.perf_counter() - t_start:.1f} s in all")
         print(card)
@@ -4213,6 +4542,7 @@ def main(argv=()) -> int:
     max_err.update(phase_bwd_check())
     timing.update(phase_bwd_time())
     timing["flash_fwd"]["train_shape"] = timing.pop("flash_fwd_train_shape")
+    lap("b+c+f+g")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4234,6 +4564,7 @@ def main(argv=()) -> int:
     phase_decode(cfg, params, seed=5)
     serve = kernel_counts()
     check(serve["flash_fwd"] > 0, "the serving path never launched flash_fwd")
+    lap("d+e")
     log(f"[d+e] launches on the serving path: {serve}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"{time.perf_counter() - t_start:.1f} s so far")
@@ -4242,6 +4573,7 @@ def main(argv=()) -> int:
     phase_paged_forward(cfg, params, seed=6)
     phase_paged_serve(cfg, params, seed=8)
     phase_paged_tiny()
+    lap("i")
     log(f"[i] launches on the paged serving path: {kernel_counts()} (it "
         f"attends through the cache attention, not the flash kernel); "
         f"{time.perf_counter() - t_start:.1f} s so far")
@@ -4252,6 +4584,7 @@ def main(argv=()) -> int:
     cfg = bench_config()
     train, eager = phase_train(cfg, batch=TRAIN_ATTN[0], seq=TRAIN_ATTN[1],
                                steps=10, seed=3)
+    lap("h")
     log(f"[h] launches on the training path: {train}; "
         f"{time.perf_counter() - t_start:.1f} s so far")
     gc.collect()
@@ -4260,37 +4593,45 @@ def main(argv=()) -> int:
     compiled = phase_train_compiled(cfg, batch=TRAIN_ATTN[0],
                                     seq=TRAIN_ATTN[1], steps=10, seed=3,
                                     eager=eager)
+    lap("h-2")
     log(f"[h-2] launches on the compiled training path: {compiled}; "
         f"{time.perf_counter() - t_start:.1f} s so far")
     phase_train_tiny()
     phase_bench()
     phase_entry()
+    lap("h-2 tiny+bench+j")
     log(f"[bench+j] {time.perf_counter() - t_start:.1f} s so far")
     gc.collect()
     torch.cuda.empty_cache()
     zoo = phase_zoo(t_start)
+    lap("k")
     log(f"[k] {time.perf_counter() - t_start:.1f} s so far")
     gc.collect()
     torch.cuda.empty_cache()
     spmd = phase_spmd(eager["first"])
+    lap("l")
     log(f"[l] {time.perf_counter() - t_start:.1f} s so far")
     gc.collect()
     torch.cuda.empty_cache()
     reset_kernel_counts()
     phase_rl(card)
+    lap("m")
     log(f"[m] launches of the flash kernels on the RL path: "
         f"{kernel_counts()} (it runs none); "
         f"{time.perf_counter() - t_start:.1f} s so far")
     gc.collect()
     torch.cuda.empty_cache()
     feed = phase_dataplane(card)
+    lap("n")
     log(f"[n] launches on the fed training path: {feed}; "
         f"{time.perf_counter() - t_start:.1f} s so far")
     gc.collect()
     torch.cuda.empty_cache()
     ckpt, _ = phase_train_io(card)
+    lap("o")
     log(f"[o] launches on the checkpointed training path: {ckpt}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
+    log_laps()
 
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu", 45),
                "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu", 151),

@@ -469,6 +469,45 @@ def zoo_train_steps(family, params_np, batches_np, logical, cfg_kw, mesh_kw,
             "calls": dict(counts)}
 
 
+def report_case(family, cfg_kw, mesh_kw, batch_np, logical, lr=1e-3
+                ) -> Dict[str, Any]:
+    """`collective_report` of `family`'s compiled sharded step (aot_eager,
+    fullgraph) on its tiny fp32 config from a seeded init, before any step:
+    -> the report, the collectives by node ({"op", "kind", "count",
+    "bytes", "numel"}), whether the state is bit for bit what it was
+    (parameters, moments, counts) and the parameters' whole element count
+    and bytes."""
+    from ray_tpu_torch.parallel.hlo_report import collective_report, collectives
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+    from ray_tpu_torch.train.optim import tree_leaves
+
+    mod, cfg = _family(family, cfg_kw)
+    mesh = _mesh(mesh_kw)
+    torch._dynamo.reset()
+    opt = adamw(lr)
+    state = init_train_state(
+        functools.partial(mod.init, cfg, torch.Generator().manual_seed(0)),
+        opt, device="cpu", param_logical_axes=mod.param_logical_axes(cfg),
+        mesh=mesh)
+    step = make_train_step(functools.partial(mod.loss_fn, config=cfg,
+                                             mesh=mesh), opt,
+                           backend="aot_eager")
+    batch = _shard_batch(batch_np, logical, mesh)
+    leaves = [tree_leaves(t) for t in (state.params, state.opt_state.mu,
+                                       state.opt_state.nu)]
+    before = [[x.to_local().clone() for x in ls] for ls in leaves]
+    report = collective_report(step, state, batch)
+    nodes = collectives(step, state, batch)
+    same = (state.opt_state.count == 0 and int(state.step) == 0 and all(
+        torch.equal(x.to_local(), y) for ls, bs in zip(leaves, before)
+        for x, y in zip(ls, bs)))
+    torch._dynamo.reset()
+    return {"report": report, "nodes": nodes, "state_unchanged": same,
+            "params": sum(x.numel() for x in leaves[0]),
+            "param_bytes": sum(x.numel() * x.element_size()
+                               for x in leaves[0])}
+
+
 # -- pipeline, experts, tp serving ---------------------------------------------
 
 def pipeline_case(ws, xs, ct, mesh_kw) -> Dict[str, Any]:
@@ -568,6 +607,190 @@ def dense_tp_case(params_np, cfg_kw, mesh_kw, engine_kw, prompts,
     return {"streams": streams,
             "cache_local_shape": tuple(eng.cache["k"].shape),
             "cache_placements": [repr(p) for p in eng.cache_placements]}
+
+
+# -- collective groups ---------------------------------------------------------
+
+def _error(fn) -> str:
+    """'TypeName: message' of what fn() raises, or '' when it returns."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the caller checks the type
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+def mesh_collectives(name, x, chunks, src, compiled):
+    """Every mesh collective of the group `name` on this rank's x and
+    chunks (torch tensors): the four reductions, allgather, broadcast from
+    position src, reducescatter of the chunk list and of a pytree chunk
+    list, and a bf16 sum; eagerly, or inside one aot_eager fullgraph
+    function. -> {result name: numpy}."""
+    from ray_tpu_torch.util import collective as col
+
+    def fn(x, chunks):
+        out = {op: col.allreduce(x, name, op) for op in (
+            col.ReduceOp.SUM, col.ReduceOp.PRODUCT, col.ReduceOp.MIN,
+            col.ReduceOp.MAX)}
+        out["allgather"] = col.allgather(x, name)
+        out["broadcast"] = col.broadcast(x, src, name)
+        out["reducescatter"] = col.reducescatter(list(chunks), name)
+        tree = col.reducescatter([{"g": c, "h": [c * 2]} for c in chunks],
+                                 name)
+        out["reducescatter_tree_g"] = tree["g"]
+        out["reducescatter_tree_h"] = tree["h"][0]
+        out["bf16_sum"] = col.allreduce(x.to(torch.bfloat16), name).float()
+        return out
+
+    if compiled:
+        torch._dynamo.reset()
+        fn = torch.compile(fn, backend="aot_eager", fullgraph=True)
+    out = fn(x, tuple(chunks))
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def mesh_collective_errors(name, noaxes_name, x, chunks, n):
+    """The typed errors of the mesh group `name` (n positions) on this
+    rank's tensors, each eagerly and inside an aot_eager fullgraph
+    function: a chunk list one short, a broadcast source n, send and recv
+    inside a compiled region, a group with no axes and no mesh while
+    compiling (`noaxes_name`), a DTensor that spans the gang. ->
+    {case: 'TypeName: message'}."""
+    from torch.distributed.tensor import Replicate
+
+    from ray_tpu_torch.parallel.sharding import distribute_full
+    from ray_tpu_torch.util import collective as col
+
+    def compiled(fn):
+        torch._dynamo.reset()
+        return _error(lambda: torch.compile(
+            fn, backend="aot_eager", fullgraph=True)(x))
+
+    short = list(chunks)[:-1]
+    mesh = col.get_group_mesh(name)
+    spread = distribute_full(x, mesh, [Replicate()] * mesh.ndim)
+    return {
+        "chunks_eager": _error(lambda: col.reducescatter(short, name)),
+        "chunks_compiled": compiled(
+            lambda v: col.reducescatter([v] * (n - 1), name)),
+        "src_eager": _error(lambda: col.broadcast(x, n, name)),
+        "src_compiled": compiled(lambda v: col.broadcast(v, n, name)),
+        "send_compiled": compiled(lambda v: (col.send(v, 0, name), v)[1]),
+        "recv_compiled": compiled(lambda v: (col.recv(0, name), v)[1]),
+        "noaxes_compiled": compiled(
+            lambda v: col.allreduce(v, noaxes_name)),
+        "dtensor_eager": _error(lambda: col.allreduce(spread, name)),
+    }
+
+
+def collective_cases(groups, host, errors):
+    """On this rank, its tensors on its device: each mesh group of `groups`
+    ({name: (mesh config kwargs, mesh_axes, per-rank x, per-rank chunks,
+    broadcast src)}) bootstrapped and run eagerly and compiled
+    (`mesh_collectives`); the host path on `host` (per-rank values: a
+    pytree, a gather value, the broadcast payload on its source, chunks)
+    over a "host" group and over a mesh group's numpy path, with a
+    send/recv ring and interleaved tags (`host_collectives`); the typed
+    errors of the mesh group `errors`; and a group whose world is not the
+    gang's. -> {...} of numpy."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import MeshConfig
+    from ray_tpu_torch.train.backend import rank_device
+    from ray_tpu_torch.util import collective as col
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = rank_device()
+
+    def on_dev(x):
+        return torch.from_numpy(x).to(dev)
+
+    out = {"mesh": {}, "rank": rank}
+    for name, (mesh_kw, axes, xs, chunks, src) in groups.items():
+        col.init_collective_group(world, rank, "mesh", name, mesh_axes=axes)
+        col.bootstrap_mesh(MeshConfig(**mesh_kw), group_name=name)
+        x = on_dev(xs[rank])
+        ch = [on_dev(c) for c in chunks[rank]]
+        out["mesh"][name] = {
+            form: mesh_collectives(name, x, ch, src, form == "compiled")
+            for form in ("eager", "compiled")}
+    col.init_collective_group(world, rank, "mesh", "noaxes")
+    name = errors
+    n = len(groups[name][3][rank])
+    out["errors"] = mesh_collective_errors(
+        name, "noaxes", on_dev(groups[name][2][rank]),
+        [on_dev(c) for c in groups[name][3][rank]], n)
+    out["mismatch"] = _error(lambda: col.init_collective_group(
+        world - 1, rank % (world - 1), "host", "wrong_world"))
+    col.init_collective_group(world, rank, "host", "host")
+    out["host"] = host_collectives("host", host, rank, world)
+    out["host_on_mesh"] = host_collectives("noaxes", host, rank, world)
+    out["info"] = col.get_group_info("host")
+    for name in list(groups) + ["noaxes", "host"]:
+        col.destroy_collective_group(name)
+    out["left"] = [col.is_group_initialized(n) for n in groups]
+    return out
+
+
+def allreduce_busbw(nbytes, iters) -> Dict[str, Any]:
+    """One NCCL all-reduce of `nbytes` of bf16 over the gang, timed on the
+    card with CUDA events over `iters` calls after two warm-up calls: ->
+    rank 0: ms a call, the algorithm bandwidth (bytes / s) and the bus
+    bandwidth (algbw * 2(n - 1) / n); the other ranks {}."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.train.backend import rank_device
+
+    n = dist.get_world_size()
+    x = torch.zeros(nbytes // 2, dtype=torch.bfloat16, device=rank_device())
+    for _ in range(2):
+        dist.all_reduce(x)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        dist.all_reduce(x)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    if dist.get_rank() != 0:
+        return {}
+    algbw = nbytes / (ms / 1e3)
+    return {"bytes": nbytes, "ms": ms, "algbw": algbw,
+            "busbw": algbw * 2 * (n - 1) / n, "ranks": n}
+
+
+def spmd_versus_one(*args) -> Dict[str, Any]:
+    """`train.spmd_bench.versus_one(*args)` on this rank."""
+    from ray_tpu_torch.train import spmd_bench
+
+    return spmd_bench.versus_one(*args)
+
+
+def host_collectives(name, values, rank, world):
+    """The host path of group `name` on this rank's numpy values: each
+    reduction of a pytree, allgather, broadcast from rank 2, reducescatter,
+    a send/recv ring on tag 7, two messages on tags 8 and 9 received in the
+    other order, and a barrier. -> {result name: numpy or pytree}."""
+    from ray_tpu_torch.util import collective as col
+
+    v = values[rank]
+    out = {op: col.allreduce(v["tree"], name, op) for op in (
+        col.ReduceOp.SUM, col.ReduceOp.PRODUCT, col.ReduceOp.MIN,
+        col.ReduceOp.MAX)}
+    out["allgather"] = col.allgather(v["gather"], name)
+    out["broadcast"] = col.broadcast(v["payload"] if rank == 2 else None, 2,
+                                     name)
+    out["reducescatter"] = col.reducescatter(v["chunks"], name)
+    col.send(np.array([rank]), (rank + 1) % world, name, tag=7)
+    out["ring"] = int(col.recv((rank - 1) % world, name, tag=7)[0])
+    peer = (rank + 1) % world
+    col.send({"tag": 8, "from": rank}, peer, name, tag=8)
+    col.send({"tag": 9, "from": rank}, peer, name, tag=9)
+    prev = (rank - 1) % world
+    out["tags"] = [col.recv(prev, name, tag=9), col.recv(prev, name, tag=8)]
+    col.barrier(name)
+    return out
 
 
 # -- on the card: each rank on its device ---------------------------------------

@@ -179,31 +179,50 @@ class AdamW:
         """-> update(grads, state, params) -> global_norm(grads): one AdamW
         update of `params` and `state` in place. With a backend the norm
         and the update run as one program that torch.compile builds with
-        it (fullgraph, static shapes); without one they run eagerly."""
+        it (fullgraph, static shapes); without one they run eagerly. The
+        function's `lower(grads, state, params)` hands the collectives of
+        the compiled program to `parallel.hlo_report`."""
         hyper = (self.learning_rate, self.b1, self.b2, self.eps,
                  self.weight_decay)
         fn = _norm_and_adamw_
+        programs: list = []  # per compile, its collectives
         if backend is not None:
+            from ray_tpu_torch.parallel.hlo_report import recording
+
             # Inductor's loop reordering after fusion fails an internal
             # assertion on this program at some shapes (torch 2.11, the tiny
             # fp32 config); it only picks loop orders, so it is turned off.
-            options = ({"loop_ordering_after_fusion": False}
-                       if backend == "inductor" else None)
-            fn = torch.compile(fn, backend=backend, fullgraph=True,
-                               dynamic=False, options=options)
+            fn = torch.compile(fn, backend=recording(
+                backend, programs, {"loop_ordering_after_fusion": False}),
+                fullgraph=True, dynamic=False)
 
-        def update(grads, state: AdamWState, params) -> torch.Tensor:
+        def run(grads, state: AdamWState, params, count: int, copy):
             p, g = tree_leaves(params), tree_leaves(grads)
-            state.count += 1
-            count = torch.full((), state.count, dtype=torch.float32,
+            count = torch.full((), count, dtype=torch.float32,
                                device=_local(p[0]).device)
             if any(_is_dtensor(x) for x in p):
-                return fn(local_leaves(p), local_leaves(g),
-                          local_leaves(state.mu), local_leaves(state.nu),
-                          count, _counted(p), *hyper)
-            return fn(p, g, tree_leaves(state.mu), tree_leaves(state.nu),
-                      count, None, *hyper)
+                return fn(copy(local_leaves(p)), local_leaves(g),
+                          copy(local_leaves(state.mu)),
+                          copy(local_leaves(state.nu)), count, _counted(p),
+                          *hyper)
+            return fn(copy(p), g, copy(tree_leaves(state.mu)),
+                      copy(tree_leaves(state.nu)), count, None, *hyper)
 
+        def update(grads, state: AdamWState, params) -> torch.Tensor:
+            state.count += 1
+            return run(grads, state, params, state.count, lambda xs: xs)
+
+        def lower(grads, state: AdamWState, params) -> list:
+            """The collectives of the compiled program (none eagerly),
+            compiled first on copies of the parameters and moments if it
+            has not been: `params` and `state` stay as they were."""
+            if backend is not None and not programs:
+                with torch.no_grad():
+                    run(grads, state, params, state.count + 1,
+                        lambda xs: [x.clone() for x in xs])
+            return programs[-1] if programs else []
+
+        update.programs, update.lower = programs, lower
         return update
 
     def update_(self, grads, state: AdamWState, params) -> None:

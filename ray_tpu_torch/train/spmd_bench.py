@@ -10,7 +10,8 @@ spanning N ranks (one per GPU, NCCL), and prints ONE JSON line: tokens/s
 per GPU, MFU per GPU (against the part's dense bf16 peak,
 `_private/accelerators/nvidia.py`), scaling efficiency (per-GPU throughput
 kept going from 1 to N GPUs), peak device memory per GPU, the device time
-of the mesh step's NCCL kernels by name against the rest, and the largest
+of the mesh step's NCCL kernels by name against the rest, the compiled
+mesh step's collectives by kind (`parallel.hlo_report`), and the largest
 loss difference between the two trajectories (the mesh program must be a
 re-partitioning of the same arithmetic).
 
@@ -93,7 +94,8 @@ def model_run(family: str, cfg, plan: Optional[Dict[str, int]],
     -> {"step_s", "compile_s" (the warm-up step's seconds), "losses",
     "grad_norms" (warm-up first), "peak_gib" (None on the CPU),
     "launches" (per timed step, this rank's), and on the card with a
-    mesh "collectives_ms"}."""
+    mesh "collectives_ms"; compiled with a mesh, "collectives": the step's
+    `collective_report`}."""
     import importlib
 
     from ray_tpu_torch.parallel.mesh import MeshConfig, build_multislice_mesh
@@ -153,6 +155,11 @@ def model_run(family: str, cfg, plan: Optional[Dict[str, int]],
            "launches": launches}
     if dev.type == "cuda" and plan is not None:
         out["collectives_ms"] = _profile_collectives(step, state, batch)
+    if compiled and plan is not None:
+        from ray_tpu_torch.parallel.hlo_report import collective_report
+
+        # from the programs the steps above compiled: nothing runs
+        out["collectives"] = collective_report(step, state, batch)
     del state, step
     if compiled:
         torch._dynamo.reset()
@@ -186,20 +193,99 @@ def model_forms(family: str, cfg, plan: Optional[Dict[str, int]],
 
 def versus_one(family: str, cfg, plan: Dict[str, int], batch_np, logical,
                steps: int, seed: int = 0, lr: float = 3e-4,
-               compiled: bool = False) -> Dict[str, Any]:
+               compiled: bool = False, first_step_and_fp32: bool = False
+               ) -> Dict[str, Any]:
     """The unsharded step on rank 0 alone (the others wait), then the
     sharded step on every rank, from the same seeded state on the same
     global batch; -> {"one": rank 0's result or None, "mesh": this
-    rank's}."""
+    rank's}. first_step_and_fp32: also "first", `first_step` of cfg (rank
+    0's comparison), and "fp32", {"one", "mesh"}: the same runs with cfg
+    in fp32, TF32 off."""
     import torch.distributed as dist
 
-    one = (model_run(family, cfg, None, batch_np, logical, steps, seed, lr,
-                     compiled=compiled)
-           if dist.get_rank() == 0 else None)
+    def both(config):
+        one = (model_run(family, config, None, batch_np, logical, steps,
+                         seed, lr, compiled=compiled)
+               if dist.get_rank() == 0 else None)
+        dist.barrier()
+        return {"one": one, "mesh": model_run(family, config, plan, batch_np,
+                                              logical, steps, seed, lr,
+                                              compiled=compiled)}
+
+    out = both(cfg)
+    if first_step_and_fp32:
+        out["first"] = first_step(family, cfg, plan, batch_np, logical, seed)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out["fp32"] = both(dataclasses.replace(cfg, dtype=torch.float32))
+    return out
+
+
+def first_step(family: str, cfg, plan: Dict[str, int], batch_np, logical,
+               seed: int = 0) -> Dict[str, Any]:
+    """The loss and the gradients of `family`'s seeded state on the global
+    batch, before any update: the unsharded step's on rank 0 alone (the
+    others wait), then the sharded step's on every rank, its gradients
+    after the data-parallel reduction. -> rank 0: both losses and global
+    gradient norms, their relative differences, and the largest relative
+    L2 difference of a gradient leaf with its name; the other ranks {}."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ray_tpu_torch.parallel.sharding import (LogicalAxisRules,
+                                                 full_tensor, shard_params)
+    from ray_tpu_torch.train.backend import rank_device
+    from ray_tpu_torch.train.optim import global_norm, tree_leaves
+    from ray_tpu_torch.train.spmd import shard_local_batch
+
+    mod = importlib.import_module(f"ray_tpu_torch.models.{family}")
+    dev = rank_device()
+
+    def loss_and_grads(mesh):
+        params = mod.init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+        batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+                 for k, v in batch_np.items()}
+        if mesh is not None:
+            rules = LogicalAxisRules()
+            params = shard_params(params, mod.param_logical_axes(cfg), mesh,
+                                  rules)
+            batch = {k: shard_local_batch({k: v}, rules.to_physical(
+                logical[k], mesh), mesh, dev)[k] for k, v in batch_np.items()}
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = mod.loss_fn(params, batch, cfg, mesh=mesh)
+        grads = torch.autograd.grad(loss, leaves)
+        return (float(full_tensor(loss)),
+                [full_tensor(g).detach() for g in grads],
+                list(_leaf_names(params)))
+
+    one = loss_and_grads(None) if dist.get_rank() == 0 else None
     dist.barrier()
-    return {"one": one, "mesh": model_run(family, cfg, plan, batch_np,
-                                          logical, steps, seed, lr,
-                                          compiled=compiled)}
+    loss, grads, names = loss_and_grads(build_mesh(MeshConfig(**plan),
+                                                   device_type=dev.type))
+    if one is None:
+        return {}
+    norms = float(global_norm(grads)), float(global_norm(one[1]))
+    leaf_rel = [float((a.float() - b.float()).norm() / b.float().norm())
+                for a, b in zip(grads, one[1])]
+    worst = int(np.argmax(leaf_rel))
+    return {"loss": (loss, one[0]),
+            "loss_rel": abs(loss - one[0]) / abs(one[0]),
+            "grad_norm": norms,
+            "grad_norm_rel": abs(norms[0] - norms[1]) / abs(norms[1]),
+            "leaf_rel_max": leaf_rel[worst], "leaf": names[worst]}
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_names(v, f"{prefix}{k}/")
+    else:
+        yield prefix.rstrip("/")
 
 
 def _profile_collectives(step, state, batch) -> Dict[str, float]:
@@ -299,6 +385,7 @@ def run(n_devices: int, steps: int = 3, device=None,
             "peak_gib_per_gpu": [m["peak_gib"] for m in meshes],
             "collectives_ms_rank0": meshes[0].get("collectives_ms"),
             "nccl_ms_rank0": nccl_ms, "compute_ms_rank0": compute_ms,
+            "collectives_rank0": meshes[0].get("collectives"),
             "losses": meshes[0]["losses"],
             "grad_norms": meshes[0]["grad_norms"],
         }

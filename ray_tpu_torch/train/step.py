@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.parallel import hlo_report
 from ray_tpu_torch.train.optim import AdamW, tree_leaves
 
 
@@ -71,13 +72,15 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     the first program takes the DTensor parameters and holds the
     collectives the sharded loss says, and the second updates each rank's
     local blocks, the global norm's all-reduce inside it. compiled=False
-    runs the same functions eagerly."""
+    runs the same functions eagerly. The compiled step's `lower(state,
+    batch)` hands `parallel.hlo_report` the collectives of its programs."""
+    programs: list = []  # per compile of the loss, its collectives
     if compiled:
-        loss_fn = torch.compile(loss_fn, backend=backend, fullgraph=True,
-                                dynamic=False)
+        loss_fn = torch.compile(loss_fn, backend=hlo_report.recording(
+            backend, programs), fullgraph=True, dynamic=False)
     update = optimizer.updater(backend if compiled else None)
 
-    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
+    def loss_and_grads(state: TrainState, batch):
         leaves = tree_leaves(state.params)
         for p in leaves:
             p.requires_grad_(True)
@@ -88,10 +91,30 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
         finally:
             for p in leaves:
                 p.requires_grad_(False)
+        return loss, grads
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
+        loss, grads = loss_and_grads(state, batch)
         grad_norm = update(grads, state.opt_state, state.params)
         new_step = state.step + 1
         return (TrainState(state.params, state.opt_state, new_step),
                 {"loss": loss.detach(), "grad_norm": grad_norm,
                  "step": new_step})
 
+    def lower(state: TrainState, batch) -> list:
+        """The collectives of the step's two compiled programs on (state,
+        batch) (`parallel.hlo_report.collectives`), as their last compile
+        noted them; a program the step has not compiled yet is compiled
+        here on a run that leaves the state as it was (the loss and its
+        gradients; the update on copies of the state)."""
+        if not compiled:
+            raise ValueError("a collective report reads the compiled "
+                             "step's programs; this step is eager")
+        grads = None
+        if not programs or not update.programs:
+            grads = loss_and_grads(state, batch)[1]
+        return programs[-1] + update.lower(grads, state.opt_state,
+                                           state.params)
+
+    step.lower = lower
     return step

@@ -185,17 +185,25 @@ def test_chip_smoke_phase_l_rehearsed_on_the_cpu(monkeypatch, capsys,
         return ["[dryrun stub] all multichip checks passed"]
 
     monkeypatch.setattr(graft_entry, "dryrun_multichip", dry_run)
+    monkeypatch.setattr(smoke, "cards_collective",
+                        lambda n, launches, device=None: asked.append(
+                            ("collective", n, device)))
     counts = smoke.phase_spmd()
     assert not dist.is_initialized()
-    assert asked == [(4, "cpu")]
+    assert asked == [(4, "cpu"), ("collective", 4, "cpu")]
     lines = capsys.readouterr().out.strip().splitlines()
     for text in ("[l] 1 GPU(s) visible: (l-1), then (l-2)",
                  "[l-1] tiny fp32, world-1 mesh, 3 steps",
                  "[l-1] bench config (B=2 S=64",
-                 "[l-2] this machine has 1 GPU(s); the 4-rank dry run runs "
-                 "on CPU ranks", "[l-2] the CPU-rank dry run took",
+                 "[l-1] world-1 mesh collective group on cpu",
+                 "[l-2] this machine has 1 GPU(s); the 4-rank dry run and "
+                 "the collective groups run on CPU ranks",
+                 "[l-2] the CPU-rank dry run took",
+                 "[l-2] the collective groups on 4 gloo CPU ranks took",
                  "[l] launches on the SPMD paths"):
         assert any(line.startswith(text) for line in lines), text
+    assert any("identity eagerly True, compiled (aot_eager, fullgraph) True"
+               in line for line in lines)
     layers = smoke.tiny_train_config().n_layers
     # (l-1)'s sharded steps: 3 of the tiny config and 3 of the bench
     # config (tiny here), 2L / L / L each; the unsharded steps they are
@@ -216,10 +224,14 @@ def test_chip_smoke_phase_l2_dry_run_rehearsed_on_the_cpu(monkeypatch, capsys,
     decode) passes and says so."""
     t0 = time.perf_counter()
     smoke = _rehearse_phase_l(monkeypatch, tmp_path, request)
+    # The collective groups' part is rehearsed on its own below.
+    monkeypatch.setattr(smoke, "cards_collective",
+                        lambda n, launches, device=None: None)
     smoke.phase_spmd_cpu_ranks(1)
     lines = capsys.readouterr().out.strip().splitlines()
     assert any(line.startswith("[l-2] this machine has 1 GPU(s); the 4-rank "
-                               "dry run runs on CPU ranks") for line in lines)
+                               "dry run and the collective groups run on CPU "
+                               "ranks") for line in lines)
     dry = [line for line in lines if line.startswith("[dryrun")]
     assert len(dry) == 10 and all(
         line.startswith("[dryrun cpu-ranks: 4 gloo CPU ranks, no GPU]")
@@ -255,8 +267,16 @@ def test_chip_smoke_phase_l1_compiled_rehearsed_on_the_cpu(
     lines = capsys.readouterr().out.strip().splitlines()
     for text in ("[l-1] compiled (aot_eager) tiny fp32, world-1 mesh",
                  "[l-1] compiled (aot_eager) bench widths cut to 2 layer(s)",
-                 "[l-1] the compiled sharded checks"):
+                 "[l-1] the compiled sharded checks",
+                 "[l-1] collective report of the compiled sharded step"):
         assert any(line.startswith(text) for line in lines), text
+    report = json.loads(next(
+        line for line in lines if line.startswith("[l-1] collective report")
+    ).split("both programs): ")[1])
+    # one world-1 rank: the global norm's all-reduce and the loss's
+    assert report["all-reduce"]["count"] >= 1
+    assert report["total"]["count"] == sum(
+        report[k]["count"] for k in report if k != "total")
     layers = smoke.tiny_train_config().n_layers
     # 3 steps of the tiny config and 3 at the bench widths cut to
     # SPMD_COMPILED_LAYERS (the tiny config cut so here), 2L / L / L each.
@@ -316,4 +336,28 @@ def test_chip_smoke_only_l_part_runs_one_four_card_part_on_the_cpu(
     assert json.loads(lines[-1])["ok"] is True
     with pytest.raises(SystemExit):
         smoke.main(["--part", "pipeline"])
+    assert time.perf_counter() - t0 < 60
+
+
+def test_chip_smoke_only_l_part_collective_rehearsed_on_the_cpu(
+        monkeypatch, capsys, tmp_path, request):
+    """`chip_smoke.py --only l --part collective` with four cards (stubbed;
+    gloo CPU ranks here, so no bus bandwidth is timed): the mesh groups'
+    collectives eagerly and compiled exact against numpy on every rank, the
+    typed errors and the host path, and the last line's ok object."""
+    t0 = time.perf_counter()
+    smoke = _rehearse_phase_l(monkeypatch, tmp_path, request)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert smoke.main(["--only", "l", "--part", "collective"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    for text in ("[l-3] collective groups (4 gloo CPU ranks, no GPU): mesh "
+                 "collectives eager and compiled over ['dp4', 'tp_of_2x2', "
+                 "'2x2'], exact against numpy on every rank: True",
+                 "[l-3] collective groups: typed errors",
+                 "[l-3] collective groups: the host path",
+                 "[l-3] cards_collective:", "[phases] seconds by phase"):
+        assert any(line.startswith(text) for line in lines), text
+    assert not any("False" in line for line in lines
+                   if line.startswith("[l-3] collective groups"))
+    assert json.loads(lines[-1])["ok"] is True
     assert time.perf_counter() - t0 < 60

@@ -31,6 +31,7 @@ from ray_tpu_torch import graft_entry
 from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.models.convert import (adamw_state_from_jax_numpy,
                                           params_from_jax_numpy)
+from ray_tpu_torch.parallel import hlo_report
 from ray_tpu_torch.train import adamw, init_train_state, make_train_step
 from ray_tpu_torch.train.optim import tree_leaves
 
@@ -156,18 +157,28 @@ def test_train_step_compiles_by_default_and_eager_is_a_choice(monkeypatch):
     """make_train_step builds both halves with torch.compile unless asked
     for the eager step; each compile asks for one full graph at static
     shapes, so a graph break raises instead of splitting the step."""
-    seen = []
+    seen, backends = [], []
 
     def record(fn, **kw):
         seen.append(kw)
         return fn
 
+    def recording(backend, programs, options=None):
+        backends.append((backend, options))
+        return real(backend, programs, options)
+
+    real = hlo_report.recording
     monkeypatch.setattr(torch, "compile", record)
+    monkeypatch.setattr(hlo_report, "recording", recording)
     _, tcfg = _configs()
     make_train_step(partial(tl.loss_fn, config=tcfg), adamw(LR))
-    assert seen == [dict(backend="inductor", fullgraph=True, dynamic=False),
-                    dict(backend="inductor", fullgraph=True, dynamic=False,
-                         options={"loop_ordering_after_fusion": False})]
+    # inductor, through the backend that notes each program's collectives
+    # for parallel.hlo_report
+    assert [{k: v for k, v in kw.items() if k != "backend"} for kw in seen] \
+        == [dict(fullgraph=True, dynamic=False)] * 2
+    assert all(callable(kw["backend"]) for kw in seen)
+    assert backends == [("inductor", None),
+                        ("inductor", {"loop_ordering_after_fusion": False})]
     seen.clear()
     make_train_step(partial(tl.loss_fn, config=tcfg), adamw(LR),
                     compiled=False)

@@ -83,7 +83,10 @@ def test_importing_the_port_loads_no_jax():
             "ray_tpu_torch.rllib.benchmarks, "
             "ray_tpu_torch._private.serialization, "
             "ray_tpu_torch._private.dataplane_bench, ray_tpu_torch.data, "
-            "ray_tpu_torch.data.dataset; "
+            "ray_tpu_torch.data.dataset, ray_tpu_torch.util, "
+            "ray_tpu_torch.util.collective, "
+            "ray_tpu_torch.util.collective.collective, "
+            "ray_tpu_torch.parallel.hlo_report; "
             "print(sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

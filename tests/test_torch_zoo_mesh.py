@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from ray_tpu.models import mixtral as jmx
@@ -87,6 +88,13 @@ FAMILIES = {
            {"src": ("batch", None), "tgt": ("batch", None)}, False),
 }
 PORT = {"mixtral": tmx, "vit": tvit, "t5": tt5}
+# chip_smoke.py's ViT-over-dp=4 checks on CPU ranks, the tiny ViT in bf16:
+# `spmd_bench.versus_one(family, cfg, plan, batch, logical, steps, seed, lr,
+# compiled, first_step_and_fp32)`.
+VIT_VERSUS_ONE = ("vit", dataclasses.replace(tvit.ViTConfig.tiny(),
+                                             dtype=torch.bfloat16),
+                  {"dp": 4}, _vit_batch(5), FAMILIES["vit"][5], 2, 0, LR,
+                  False, True)
 
 
 def _jmesh(mesh_kw):
@@ -146,6 +154,7 @@ def gang(tmp_path_factory, jax_runs):
         cases.append(("zoo_train_steps", (family, run["init"],
                                           run["batches"], logical, cfg_kw,
                                           mesh_kw, LR, 1e-4, compiled)))
+    cases.append(("spmd_versus_one", VIT_VERSUS_ONE))
     store = tmp_path_factory.mktemp("gang") / "store"
     return launch_gang(gang_cases.run_cases, WORLD, "cpu", GANG_TIMEOUT_S,
                        args=(cases,), init_method=f"file://{store}")
@@ -227,3 +236,21 @@ def test_mixtral_attention_runs_the_flash_kernels_on_every_rank(gang):
     for rank in range(WORLD):
         assert gang[rank][1]["calls"] == {"flash_fwd": 3 * 2 * layers,
                                           "flash_bwd": 3 * layers}
+
+
+def test_vit_over_dp4_first_step_and_fp32_steps_match_one_rank(gang):
+    """chip_smoke.py's ViT-over-dp=4 checks, rehearsed on CPU ranks: (a)
+    the first bf16 step's loss (1e-3) and global gradient norm (1e-2),
+    after the dp reduction, against rank 0 alone on the same batch, and
+    (b) three fp32 steps' losses within 1e-3 of rank 0's alone."""
+    got = gang[0][2 * len(FAMILIES)]
+    first = got["first"]
+    assert first["loss_rel"] <= 1e-3, first
+    assert first["grad_norm_rel"] <= 1e-2, first
+    assert np.isfinite(first["leaf_rel_max"]) and first["leaf"]
+    f32 = got["fp32"]
+    assert len(f32["one"]["losses"]) == len(f32["mesh"]["losses"]) == 3
+    np.testing.assert_allclose(f32["mesh"]["losses"], f32["one"]["losses"],
+                               rtol=1e-3)
+    for rank in range(1, WORLD):
+        assert gang[rank][2 * len(FAMILIES)]["first"] == {}
