@@ -155,7 +155,9 @@ Phases, in order; any failure raises and the script exits non-zero:
       `--only l` runs (l) alone after (a); `python3 chip_smoke.py --only l`
       on a host with four cards is the four-card run, and `--only l
       --part NAME` runs one of its parts (collective, bench, ring, mixtral,
-      vit, t5, pipeline, engine, llama8b) alone;
+      vit, t5, pipeline, engine, llama8b, train_gang) alone. The ring's
+      and Mixtral's compiled steps log rank 0's collective report beside
+      their NCCL ms, as the bench's and Llama-3-8B's do;
   (m) RLlib's one-process path (`ray_tpu_torch.rllib`), fp32 with TF32
       off: (m-1) the Nature-CNN actor-critic at full width on a seeded
       [128, 84, 84, 4] uint8 minibatch, `forward_train` and one PPO update
@@ -218,14 +220,37 @@ Phases, in order; any failure raises and the script exits non-zero:
       are printed beside the card's name and power limit. `--only o` runs
       (o) alone after (a), and (o-2) there also with inductor on the same
       batches, timed and held against eager beside the default (about a
-      minute of compile a bucket).
+      minute of compile a bucket);
+  (p) the worker side of Train's gang (`ray_tpu_torch.train.backend`'s
+      `TorchBackend`: `bind_card`, `join_gang`, `train.spmd.
+      setup_worker_mesh`), in this process at world 1 as a runtime worker
+      runs it (`parallel.train_gang_cases.train_run`): the card at local
+      rank 0, the NCCL gang at this host's name and a free port, a world-1
+      mesh built through a "mesh" collective group; the compiled bench
+      step at the bench widths cut to 1 layer (B=4, S=2048, bf16, "dots")
+      fed seeded numpy rows through the per-position feed
+      (`iter_device_batches(local_rows=True)`): three steps, the whole
+      state saved after two, the gang torn down (group and process group);
+      then the join again, the state restored onto the mesh (`place_like`)
+      bit for bit as saved, and step 3 again within 1e-4 of the first
+      gang's, 2L / L / L launches a step (the join's and the mesh's
+      seconds, the save and restore seconds). `--only p` runs (p) alone
+      after (a). On four cards, `--only l --part train_gang` runs the same
+      on four spawned ranks that see every card and bind themselves by
+      local rank, over fsdp=2 x tp=2 (the bench widths cut to 2 layers,
+      B=16): three steps, the state saved after two, every rank exits; a
+      second gang restores it and runs step 3. Each rank on its own card
+      (PCI bus id), the global batch each step assembles equal to the
+      seeded one, the restored state bit for bit the saved one on every
+      rank, step 3 within 1e-4 of the first gang's.
 
 The launch counts are set to 0 just before each main path (serving: (d)
 and (e); paged serving: (i), which runs no flash kernel; training: (h);
 compiled training: (h-2); Mixtral: (k-1) and (k-2); the SPMD path's
 eager sharded steps, its compiled sharded steps and the zoo on the mesh:
 (l), each on its own; the fed training path: (n-1)'s fed runs; the
-checkpointed training path: (o-1)) and read just after it. Each phase's
+checkpointed training path: (o-1); the gang's training path: (p)) and
+read just after it. Each phase's
 seconds are logged at the end ("[phases]"). The last
 three lines of stdout are the card's `nvidia-smi` name and power limit, one
 JSON object on the kernels, and `{"ok": true, "device": ...}`. Without
@@ -2228,6 +2253,17 @@ ONE_CARD_REORDER_SPREAD = 1.267e-03
 SPMD_VIT = dict(plan={"dp": 4}, batch=32)
 SPMD_T5 = dict(plan={"dp": 2, "tp": 2})
 SPMD_PIPE = dict(m=8, mb=(2, 256), rel_tol=1e-4)   # fp32
+# Train's gang ((p) and `cards_train_gang`): GANG_STEPS steps fed per
+# data position, the state saved after GANG_SAVE_AFTER, the gang left and
+# joined again, the state restored and the next step run again within
+# GANG_REL_TOL of the first gang's ((o-1)'s bound on the compiled step's
+# run-to-run drift). (p): the bench widths cut to GANG_LAYERS layer(s) at
+# world 1, B and S of TRAIN_ATTN; four cards: GANG_CARDS.
+GANG_STEPS = 3
+GANG_SAVE_AFTER = 2
+GANG_REL_TOL = 1e-4
+GANG_LAYERS = 1
+GANG_CARDS = dict(plan={"fsdp": 2, "tp": 2}, layers=2, batch=16, seq=2048)
 SPMD_ENGINE = dict(prompts=4, prompt_len=(96, 400), new_tokens=32,
                    max_len=512, logits_rel_tol=2e-2)
 # (l-3), the collective groups: one all-reduce of 1 GiB of bf16, timed.
@@ -2910,6 +2946,8 @@ def cards_ring(n, launches):
         cfg, r["plan"], tokens, SPMD_STEPS, 0, 3e-4, 1, True))
     log_mesh_run(f"l-3 ring compiled {r['plan']} B={r['batch']} "
                  f"S={r['seq']}", cfg, comp, r["batch"], r["seq"])
+    log_report(f"ring {r['plan']} compiled", comp[0]["collectives"],
+               comp[0].get("collectives_ms"))
     rel_loss, rel_norm = first_step_rel(comp[0], res[0])
     log(f"[l-3] compiled ring vs eager ring, first step from the same "
         f"state: rel loss {rel_loss:.3e}, grad norm {rel_norm:.3e}; losses "
@@ -2949,6 +2987,9 @@ def cards_mixtral(n, launches):
         log(f"[l-3] Mixtral {form}: the all-to-all's device ms (rank 0, one "
             f"step) {a2a}")
         add_launches(launches["zoo_mesh"], ranks)
+    log_report(f"Mixtral {x['plan']} compiled",
+               forms["compiled"][0]["collectives"],
+               forms["compiled"][0].get("collectives_ms"))
     rel = abs(forms["compiled"][0]["losses"][0]
               - forms["eager"][0]["losses"][0]) / abs(
         forms["eager"][0]["losses"][0])
@@ -3145,6 +3186,120 @@ def cards_llama8b(n, launches):
           "the compiled Llama-3-8B step differs from the eager one")
 
 
+def run_train_gang(n, cfg, mesh_kw, tokens, save_after, ckpt_dir, restore,
+                   seed, compiled=True):
+    """One gang of `parallel.train_gang_cases.train_run` on n ranks that
+    join by themselves, as `TorchBackend.on_start` has its workers join:
+    each sees every card of this host and binds the one at its local rank
+    (all n on this node), they meet at this host's name and a free port,
+    and they build the mesh through a fresh "mesh" group, each step and
+    then the train function on a thread of its own, as in a runtime worker.
+    n == 1 runs in this process. -> the ranks' results."""
+    import uuid
+
+    from ray_tpu_torch._private import gang
+    from ray_tpu_torch.parallel import train_gang_cases
+    from ray_tpu_torch.train import backend
+
+    addr = gang.gang_address()
+    init_method = f"tcp://{addr['hostname']}:{addr['port']}"
+    group = f"rt_train_mesh:{uuid.uuid4().hex[:8]}"
+    args = (cfg, mesh_kw, tokens, tokens.shape[0], save_after, ckpt_dir,
+            restore)
+    kw = dict(seed=seed, device=DEVICE, compiled=compiled,
+              timeout_s=SPMD_TIMEOUT_S)
+    if n == 1:
+        return [train_gang_cases.train_run(0, 1, init_method, 0, 1, group,
+                                           *args, **kw)]
+    local = gang.local_ranks([addr["hostname"]] * n)
+    return backend.spawn_ranks(train_gang_cases.gang_ranks, n, DEVICE,
+                               SPMD_TIMEOUT_S, args=(
+                                   n, init_method, local, [n] * n, group,
+                                   args, kw))
+
+
+def check_train_gang(tag, cfg, first, second, tokens):
+    """Both gangs' checks: every rank on its own card, the train thread's
+    state and batches on that card, the global batch each step assembled
+    equal to the seeded one, the restored state (its step counts too) bit
+    for bit the saved one on every rank, the restarted step within GANG_REL_TOL of
+    the first gang's, 2L / L / L launches a step. -> rank 0's relative
+    gap."""
+    n = len(first)
+    for res in (first, second):
+        cards = [r["card"] for r in res]
+        check(DEVICE != "cuda" or len(set(cards)) == n,
+              f"{tag}: ranks share a card: {cards}")
+        check(all(all(r["global_equal"]) for r in res),
+              f"{tag}: an assembled global batch differs from the seeded "
+              "one")
+        # The train function runs on a thread of its own and names no
+        # device: its state and batches must still be on the bound card.
+        on = [r["step_cards"] for r in res]
+        check(all(c == [str(r["card"])] for c, r in zip(on, res)),
+              f"{tag}: the train thread's tensors lie on cards {on}, not "
+              f"on the bound {cards}")
+    same = [a["saved"] == b["restored"] for a, b in zip(first, second)]
+    check(all(same), f"{tag}: the restored state differs from the saved "
+          f"one on ranks {[r for r, ok in enumerate(same) if not ok]}")
+    k = second[0]["first_step"]
+    rel = [abs(b["losses"][0] - a["losses"][k]) / abs(a["losses"][k])
+           for a, b in zip(first, second)]
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    launches = [x for res in (first, second) for r in res
+                for x in r["launches"]]
+    log(f"[{tag}] {n} rank(s) on cards {[r['card'] for r in first]} then "
+        f"{[r['card'] for r in second]} ({nvidia_smi_line() if DEVICE == 'cuda' else DEVICE}); "
+        f"mesh {first[0]['mesh']}, data positions "
+        f"{[r['position'] for r in first]}; bind s (the first CUDA call) "
+        f"{[round(r['bind_s'], 3) for r in first]} then "
+        f"{[round(r['bind_s'], 3) for r in second]}, join s (the "
+        f"rendezvous, waiting for the last rank) "
+        f"{[round(r['join_s'], 3) for r in first]} then "
+        f"{[round(r['join_s'], 3) for r in second]}, mesh bootstrap s "
+        f"{[round(r['mesh_s'], 3) for r in first]} then "
+        f"{[round(r['mesh_s'], 3) for r in second]}; save s "
+        f"{round(first[0]['save_s'], 2)}, restore s "
+        f"{[round(r['restore_s'], 2) for r in second]}; rank 0's step s (the "
+        f"first with its compile) {[round(x, 4) for x in first[0]['step_s']]}"
+        f" then {[round(x, 4) for x in second[0]['step_s']]}; losses "
+        f"{first[0]['losses']}, restarted step {k + 1} "
+        f"{[r['losses'][0] for r in second]}: rel {max(rel):.3e} (bound "
+        f"{GANG_REL_TOL}); restored bit for bit on every rank {all(same)}; "
+        f"launches a step {launches[0]}")
+    check(max(rel) <= GANG_REL_TOL, f"{tag}: the restarted step {k + 1} "
+          "differs from the first gang's")
+    check(DEVICE != "cuda" or all(x == want for x in launches),
+          f"{tag}: launches a step {launches}, not {want}")
+    return max(rel)
+
+
+def cards_train_gang(n, launches):
+    """(l-3) Train's gang on n cards: two gangs of spawned ranks that join
+    by themselves over fsdp=2 x tp=2, the second restoring the first's
+    checkpoint (`check_train_gang`)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    g = GANG_CARDS
+    cfg = dataclasses.replace(bench_config(), n_layers=g["layers"])
+    tokens = np.stack([spmd_tokens(cfg, g["batch"], g["seq"], 41 + i)
+                       for i in range(GANG_STEPS)])
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_gang_")
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        first = run_train_gang(n, cfg, g["plan"], tokens, GANG_SAVE_AFTER,
+                               ckpt, False, seed=43)
+        second = run_train_gang(n, cfg, g["plan"], tokens, GANG_SAVE_AFTER,
+                                ckpt, True, seed=44)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check_train_gang("l-3 train_gang", cfg, first, second, tokens)
+    add_launches(launches["spmd_compiled"], first + second)
+
+
 def phase_spmd_cards():
     """(l-3): on SPMD_CARDS cards, one rank a card over NCCL: the dry run,
     then each part in turn (a part that fails is logged and the next one
@@ -3184,7 +3339,7 @@ def phase_spmd_cards():
 
 CARDS_PARTS = (cards_collective, cards_bench, cards_ring, cards_mixtral,
                cards_vit, cards_t5, cards_pipeline, cards_engine,
-               cards_llama8b)
+               cards_llama8b, cards_train_gang)
 
 
 def spmd_launches():
@@ -4427,6 +4582,50 @@ def phase_train_io(card, compare=False):
     return launches, predict
 
 
+# -- (p) Train's gang -----------------------------------------------------------
+
+def phase_train_gang(card):
+    """(p) The worker side of Train's gang at world 1 in this process
+    (`run_train_gang`, `check_train_gang`): the compiled bench step at
+    GANG_LAYERS layer(s), GANG_STEPS steps fed per data position, the state
+    saved after GANG_SAVE_AFTER, the gang left, joined again, the state
+    restored and the next step run again. -> the kernels' launches (set to
+    0 just before, read just after)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    cfg = dataclasses.replace(bench_config(), n_layers=GANG_LAYERS)
+    b, s = TRAIN_ATTN[0], TRAIN_ATTN[1]
+    tokens = np.stack([spmd_tokens(cfg, b, s, 51 + i)
+                       for i in range(GANG_STEPS)])
+    root = tempfile.mkdtemp(prefix="chip_smoke_gang_")
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        first = run_train_gang(1, cfg, {}, tokens, GANG_SAVE_AFTER, ckpt,
+                               False, seed=53)
+        second = run_train_gang(1, cfg, {}, tokens, GANG_SAVE_AFTER, ckpt,
+                                True, seed=54)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts = kernel_counts()
+    check_train_gang("p", cfg, first, second, tokens)
+    steps = len(first[0]["losses"]) + len(second[0]["losses"])
+    want = {"flash_fwd": 2 * cfg.n_layers * steps,
+            "flash_bwd_dq": cfg.n_layers * steps,
+            "flash_bwd_dkv": cfg.n_layers * steps}
+    log(f"[p] ({card}) the gang's training path at world 1, {cfg.n_layers} "
+        f"layer(s), B={b} S={s}: {steps} steps, launches {counts} (want "
+        f"{want}); {time.perf_counter() - t0:.1f} s")
+    check(DEVICE != "cuda" or counts == want,
+          f"(p) launches {counts}, not {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4440,11 +4639,13 @@ def main(argv=()) -> int:
 
     parser = argparse.ArgumentParser(description="Drive ray_tpu_torch on the "
                                      "card(s); see the module docstring.")
-    parser.add_argument("--only", choices=("l", "m", "n", "o"), default=None,
+    parser.add_argument("--only", choices=("l", "m", "n", "o", "p"),
+                        default=None,
                         help="run phase (l), the SPMD path (with 4 cards its "
                         "4-card part), (m), RLlib's one-process path, (n), "
-                        "the data plane, or (o), Train's checkpoint and "
-                        "predictor, alone after the kernel build")
+                        "the data plane, (o), Train's checkpoint and "
+                        "predictor, or (p), Train's gang at world 1, alone "
+                        "after the kernel build")
     parser.add_argument("--part", default=None, choices=[
         p.__name__[len("cards_"):] for p in CARDS_PARTS],
         help="with --only l on 4 cards: this (l-3) part alone")
@@ -4520,6 +4721,16 @@ def main(argv=()) -> int:
         print(card)
         print(json.dumps({"checkpoint_launches": ckpt,
                           "predictor": predict}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": info["platform"], "kind": info["kind"],
+            "count": info["count"]}}))
+        return 0
+    if args.only == "p":
+        gang = phase_train_gang(card)
+        lap("p")
+        log_laps()
+        print(card)
+        print(json.dumps({"train_gang_launches": gang}))
         print(json.dumps({"ok": True, "device": {
             "platform": info["platform"], "kind": info["kind"],
             "count": info["count"]}}))
@@ -4630,6 +4841,12 @@ def main(argv=()) -> int:
     ckpt, _ = phase_train_io(card)
     lap("o")
     log(f"[o] launches on the checkpointed training path: {ckpt}; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gang = phase_train_gang(card)
+    lap("p")
+    log(f"[p] launches on the gang's training path: {gang}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
     log_laps()
 
@@ -4643,7 +4860,7 @@ def main(argv=()) -> int:
                    "spmd": spmd["spmd"][name],
                    "spmd_compiled": spmd["spmd_compiled"][name],
                    "zoo_mesh": spmd["zoo_mesh"][name], "feed": feed[name],
-                   "checkpoint": ckpt[name]}
+                   "checkpoint": ckpt[name], "train_gang": gang[name]}
         check(all(v > 0 for path, v in by_path.items() if path != "serve"),
               f"a training path never launched {name}: {by_path}")
         kernels.append({

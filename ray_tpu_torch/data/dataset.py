@@ -27,6 +27,7 @@ from typing import Any, Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import gang
 from ray_tpu_torch._private.device import resolve_device
 
 _FEED_DONE = object()
@@ -44,11 +45,12 @@ class _Stager:
     of its copies or None); `deliver` runs on the consumer's thread."""
 
     def __init__(self, device: torch.device, dtypes, sharding, mesh,
-                 slots: int):
+                 slots: int, local_rows: bool = False):
         self.device = device
         self.dtypes = dtypes or {}
         self.sharding = sharding
         self.mesh = mesh
+        self.local_rows = local_rows
         self.slots = slots
         self.stream = None
         # column -> [[pinned buffer, event of its last copy], ...]; position
@@ -108,9 +110,11 @@ class _Stager:
         return out, event
 
     def _sharded(self, batch):
-        from ray_tpu_torch.train.spmd import shard_local_batch
+        from ray_tpu_torch.train import spmd
 
-        return shard_local_batch(batch, self.sharding, self.mesh, self.device)
+        place = (spmd.shard_position_batch if self.local_rows
+                 else spmd.shard_local_batch)
+        return place(batch, self.sharding, self.mesh, self.device)
 
     def deliver(self, item):
         out, event = item
@@ -233,20 +237,43 @@ def _sync_device_feed(src: Iterable, stager: _Stager,
         _finish_stats(stats, acc, overlap=False)
 
 
+def _feed_device(device, sharding) -> torch.device:
+    """The feed's device: `device`; with none, under a `sharding` the
+    rank's (`_private.gang.rank_device`: the card its process is bound to,
+    whichever thread feeds, or the CPU under gloo), else the card; a card
+    without an index is the one the process is bound to, else the calling
+    thread's current card."""
+    if device is None and sharding is not None:
+        return gang.rank_device()
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        card = gang.bind_thread()
+        dev = (card if card is not None
+               else torch.device("cuda", torch.cuda.current_device()))
+    return dev
+
+
 def iter_device_batches(batches: Iterable[Dict[str, np.ndarray]], *,
                         device=None, dtypes: Optional[Dict] = None,
-                        sharding=None, mesh=None, prefetch: int = 1,
-                        stats: Optional[Dict] = None,
+                        sharding=None, mesh=None, local_rows: bool = False,
+                        prefetch: int = 1, stats: Optional[Dict] = None,
                         scope: Any = None) -> Iterator[Dict[str, Any]]:
     """Numpy batches -> {name: tensor on `device`}, the counterpart of
     `Dataset.iter_jax_batches`.
 
-    `device`: None is the card (raises without CUDA); "cpu" yields CPU
+    `device`: None is the card (raises without CUDA), or with a `sharding`
+    the rank's device: the card its process is bound to in a gang
+    (`_private.gang.bind_card`), whichever thread feeds; "cpu" yields CPU
     tensors (copies of the batch). `dtypes` ({name: numpy dtype}) casts on
     the host before the copy, as the JAX feed does. With `sharding` (the
     placements of `ray_tpu_torch.train.spmd.batch_sharding`) and `mesh`,
     each column is a DTensor made by `shard_local_batch`: each batch of
     `batches` is the global batch, and this rank copies only its block.
+    With `local_rows` as well, each batch holds only the rows of this
+    rank's data position (`split_by_data_position` gives a dataset of
+    them), the global batch being every position's rows in position order
+    (`train.spmd.shard_position_batch`), as each JAX process of a
+    multi-host gang feeds only its own rows.
 
     `prefetch` (default 1) is the number of batches staged ahead on a
     producer thread and its own CUDA stream while the caller's step runs;
@@ -255,10 +282,29 @@ def iter_device_batches(batches: Iterable[Dict[str, np.ndarray]], *,
     overlap_frac when the feed ends. `scope`, a `DeviceStepProfiler.step()`
     scope or a callable returning the scope of the step now running, gets
     each pull's wait as its `input_wait` phase (`_StepScope.external`)."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    stager = _Stager(dev, dtypes, sharding, mesh, max(0, prefetch) + 1)
+    dev = _feed_device(device, sharding)
+    if local_rows and sharding is None:
+        raise ValueError("local_rows needs the batch's sharding and mesh")
+    stager = _Stager(dev, dtypes, sharding, mesh, max(0, prefetch) + 1,
+                     local_rows)
     if prefetch <= 0:
         return _sync_device_feed(batches, stager, stats, scope)
     return _prefetch_device_feed(batches, stager, prefetch, stats, scope)
+
+
+def split_by_data_position(dataset, mesh=None, sharding=None):
+    """This rank's share of `dataset` (anything with `split_shard(rank,
+    world_size)`, as the runtime's Dataset has): the split of its data
+    position over the data dims that the batch's `sharding` (default
+    `train.spmd.batch_sharding(mesh)`) cuts the batch over, dp x fsdp under
+    the default rules. The ranks of one position (its tp and sp peers) get
+    the same rows, which a split by rank in the gang (the runtime's
+    `get_dataset_shard`) would not give them."""
+    from ray_tpu_torch.train.spmd import (batch_sharding, data_position,
+                                          get_mesh)
+
+    mesh = mesh if mesh is not None else get_mesh()
+    if sharding is None:
+        sharding = batch_sharding(mesh)
+    pos, n = data_position(sharding, mesh)
+    return dataset.split_shard(pos, n)

@@ -237,6 +237,38 @@ def feed_blocks(mesh_kw, slices, batches_np, prefetch) -> Dict[str, Any]:
             "fed": stats["batches"], "coord": list(mesh.get_coordinate())}
 
 
+def position_feed_blocks(mesh_kw, slices, batches_np, prefetch
+                         ) -> Dict[str, Any]:
+    """The sharded device feed over only this rank's data position's rows
+    of each global batch ({name: numpy}; `local_rows`): per batch and
+    column, the local block of the DTensor it yields, the block
+    shard_local_batch gives the whole global batch, the DTensor's global
+    shape and its value gathered whole; this rank's (position, count)."""
+    from ray_tpu_torch.data import iter_device_batches
+    from ray_tpu_torch.train.spmd import (batch_sharding, data_position,
+                                          shard_local_batch)
+
+    mesh = _mesh(mesh_kw, slices)
+    sharding = batch_sharding(mesh)
+    pos, n = data_position(sharding, mesh)
+
+    def mine(batch):
+        return {k: v[pos * (len(v) // n):(pos + 1) * (len(v) // n)]
+                for k, v in batch.items()}
+
+    fed = iter_device_batches((mine(b) for b in batches_np), device="cpu",
+                              sharding=sharding, mesh=mesh, local_rows=True,
+                              prefetch=prefetch)
+    out = []
+    for got, src in zip(fed, batches_np):
+        want = shard_local_batch(src, sharding, mesh, torch.device("cpu"))
+        out.append({k: {"local": got[k].to_local().numpy(),
+                        "want": want[k].to_local().numpy(),
+                        "shape": tuple(got[k].shape),
+                        "full": got[k].full_tensor().numpy()} for k in src})
+    return {"batches": out, "position": [pos, n]}
+
+
 # -- ring and sharded flash attention -------------------------------------------
 
 def attention_cases(cases: List[Dict[str, Any]]) -> List[Dict[str, Any]]:

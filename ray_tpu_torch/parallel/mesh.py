@@ -130,17 +130,16 @@ def initialize_distributed(init_method: str, num_processes: int,
     A process already in a gang of the same world size and rank stays in
     it (a gang restarted inside a surviving worker must not fail on a
     second init); one bound otherwise leaves it first. -> this rank's
-    device (see `train.backend.init_process_group`)."""
-    from ray_tpu_torch.train import backend
+    device (see `_private.gang.init_process_group`)."""
+    from ray_tpu_torch._private import gang
 
     if dist.is_initialized():
         if (dist.get_world_size(), dist.get_rank()) == (num_processes,
                                                         process_id):
-            return (torch.device("cuda", torch.cuda.current_device())
-                    if dist.get_backend() == "nccl" else torch.device("cpu"))
-        backend.destroy_process_group()
-    return backend.init_process_group(process_id, num_processes, init_method,
-                                      device)
+            return gang.rank_device()
+        gang.destroy_process_group()
+    return gang.init_process_group(process_id, num_processes, init_method,
+                                   device)
 
 
 def best_mesh_for(n_devices: int, model_axis_max: int = 8) -> MeshConfig:

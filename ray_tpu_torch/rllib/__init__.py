@@ -10,7 +10,7 @@ MARWIL/BC, SAC and DreamerV3; `multi_agent` runs PPO over a
 `MultiAgentEnv`, one learner per policy. `convert` carries the JAX
 modules' parameters and Adam state across. Remote env runners and
 learners, and the decoupled dataflow, wait for the actor runtime and
-raise (ROADMAP.md queue 1, item 5).
+raise (ROADMAP.md queue 1, item 1).
 """
 
 from ray_tpu_torch.rllib.algorithm import Algorithm  # noqa: F401

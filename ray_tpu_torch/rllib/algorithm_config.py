@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional, Type
 
 # What the port's one-process path cannot run yet: remote env runners and
 # learners are actors of the runtime, which the port has not ported.
-RUNTIME_ITEM = ("ROADMAP.md queue 1, item 5: remote env runners and "
+RUNTIME_ITEM = ("ROADMAP.md queue 1, item 1: remote env runners and "
                 "learners wait for the port of the actor runtime")
 
 

@@ -9,7 +9,7 @@ the same recursion, vs_t - V(x_t) = delta_t + gamma_t c_t (vs_{t+1} -
 V(x_{t+1})). APPO (`appo_clip`) takes PPO's clipped surrogate on the
 V-trace advantages in place of the plain policy gradient. The
 asynchronous in-flight pipeline and the decoupled dataflow need the actor
-runtime and are not ported (ROADMAP.md queue 1, item 5); neither is the
+runtime and are not ported (ROADMAP.md queue 1, item 1); neither is the
 `rl.learner_step` event, which waits for the port of the event log.
 """
 

@@ -1,25 +1,35 @@
-"""The rank side of a torch.distributed gang, and a local launcher.
+"""A torch.distributed gang: the trainer's side over the runtime's actors,
+and a local launcher.
 
-Counterpart of `ray_tpu/train/backend.py`'s `TorchConfig` and
-`_init_torch_pg`, for ranks that compute on the card: one process per GPU,
-NCCL between them, each bound to its card before its first CUDA call; or
-gloo between CPU ranks when the caller asks for the CPU (the tests, a dry
-run on a host with too few cards). Nothing falls back from one to the
-other. The half that runs in the trainer's own process
-(`TorchBackend.on_start` over a `WorkerGroup` of actors) needs the port of
-the actor runtime and waits for it.
+Counterpart of `ray_tpu/train/backend.py`: one process per GPU, NCCL
+between them, each bound to its card before its first CUDA call; or gloo
+between CPU ranks when the caller asks for the CPU (the tests, a dry run on
+a host with too few cards). Nothing falls back from one to the other.
 
-`launch_gang` runs a function on N local ranks (spawned, never forked: a
-parent with threads, as a test process with JAX's, cannot fork safely),
-returns what each rank returned, and kills every rank and raises as soon as
-one fails or the timeout passes, so that a hung collective fails one call
-instead of hanging its caller.
+- `TorchConfig` and `TorchBackend`, the counterparts of `JaxConfig` and
+  `JaxBackend`: the runtime's `DataParallelTrainer` takes the config as
+  its `backend_config` and calls the backend's hooks with its
+  `WorkerGroup`. `on_start` binds each worker to the card at its local
+  rank, gathers the workers at rank 0's host and a free port, and in mesh
+  mode builds the mesh through a collective group (`train.spmd`). What
+  each worker runs for it (`bind_card`, `join_gang`, ...) lives in
+  `_private.gang`, which the collective groups declared over actors share.
+- `launch_gang` runs a function on N local ranks that have joined one gang,
+  `spawn_ranks` on N local ranks that join by themselves (spawned, never
+  forked: a parent with threads, as a test process with JAX's, cannot fork
+  safely). Each returns what each rank returned, and kills every rank and
+  raises as soon as one fails or the timeout passes, so that a hung
+  collective fails one call instead of hanging its caller.
+
+The port reaches the runtime only through what the runtime hands it: the
+`WorkerGroup`, its actor handles, and the `ObjectRef`s their `.remote()`
+calls return, each resolved through its own `future()` (`gang.resolve`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import datetime
+import logging
 import multiprocessing
 import os
 import queue as queue_mod
@@ -27,87 +37,165 @@ import shutil
 import tempfile
 import time
 import traceback
+import uuid
 from typing import Any, Callable, List, Optional, Sequence
 
 import torch
-import torch.distributed as dist
 
-from ray_tpu_torch._private import backend_probe
+from ray_tpu_torch._private import backend_probe, gang
 from ray_tpu_torch._private.accelerators.nvidia import visible_devices_env
+from ray_tpu_torch._private.gang import (bind_card, destroy_process_group,  # noqa: F401
+                                         join_gang, rank_device, resolve)
+from ray_tpu_torch._private.rpc import find_free_port
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
 class TorchConfig:
-    """How a rank joins its gang: `backend` None picks NCCL for cuda and
-    gloo for cpu; the rendezvous gives up after init_timeout_s, and so
-    does every collective after it."""
+    """How a gang of workers joins, the counterpart of `JaxConfig` (the
+    runtime's `DataParallelTrainer` takes it as `backend_config`).
+
+    `device` takes the place of JaxConfig's `platform`: None is the card
+    (NCCL; each worker bound to the card at its local rank, raising without
+    CUDA), "cpu" gloo. `backend` None picks NCCL for the card and gloo for
+    the CPU; the rendezvous gives up after init_timeout_s, and so does every
+    collective after it. `distributed=True` gathers the workers into one
+    gang at rank 0's host and a free port (`coordinator_port` when set);
+    False leaves each worker alone on its card, as JaxConfig's default does.
+    `env_vars` are set in each worker before its first CUDA call.
+    `mesh_config` (a `parallel.mesh.MeshConfig`) switches to mesh-native
+    mode: every worker builds the named mesh through a collective group,
+    and train functions reach it with `train.spmd.get_mesh()`; with more
+    than one worker it needs distributed=True, as JaxConfig's does.
+    `num_slices` > 1 puts a leading `dcn` dim on that mesh."""
     backend: Optional[str] = None
     init_timeout_s: int = 300
+    distributed: bool = False
+    coordinator_port: int = 0
+    env_vars: Optional[dict] = None
+    mesh_config: Optional[Any] = None
+    num_slices: int = 1
+    device: Optional[str] = None
+
+    @property
+    def backend_cls(self):
+        return TorchBackend
 
     def backend_for(self, device_type: str) -> str:
-        if self.backend is not None:
-            return self.backend
-        if device_type == "cuda":
-            return "nccl"
-        if device_type == "cpu":
-            return "gloo"
-        raise ValueError(f"no process-group backend for {device_type}")
+        return gang.process_group_backend(self.backend, device_type)
 
 
 def init_process_group(rank: int, world_size: int, init_method: str,
                        device=None, config: TorchConfig = TorchConfig()
                        ) -> torch.device:
     """Join the gang as `rank` of `world_size` through `init_method`
-    (`tcp://localhost:<port>` or `file://<path>`). device None or "cuda":
-    NCCL, this rank on `torch.cuda.current_device()` (the launcher binds
-    each rank to one card, which it then sees as cuda:0); "cpu": gloo.
-    Returns the rank's device. A process already in a gang raises."""
-    dev_type = "cuda" if device is None else torch.device(device).type
-    if dist.is_initialized():
-        raise RuntimeError("this process is already in a torch.distributed "
-                           "gang; destroy_process_group() first")
-    kw = {}
-    if dev_type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("an NCCL rank needs a CUDA card and none is "
-                               "visible; ask for device='cpu' to run gloo")
-        dev = torch.device("cuda", torch.cuda.current_device())
-        torch.cuda.set_device(dev)
-        kw["device_id"] = dev
-    elif dev_type == "cpu":
-        dev = torch.device("cpu")
-    else:
-        raise ValueError(f"unsupported device {device} (use 'cuda' or 'cpu')")
-    dist.init_process_group(
-        backend=config.backend_for(dev_type), init_method=init_method,
-        world_size=world_size, rank=rank,
-        timeout=datetime.timedelta(seconds=config.init_timeout_s), **kw)
-    return dev
+    (`tcp://<host>:<port>` or `file://<path>`) with `config`'s backend and
+    timeout (`_private.gang.init_process_group`). device None or "cuda":
+    NCCL, this rank on the card `bind_card` bound it to, else on
+    `torch.cuda.current_device()` (`launch_gang` binds each rank to one
+    card, which it then sees as cuda:0); "cpu": gloo. Returns the rank's
+    device. A process already in a gang raises."""
+    return gang.init_process_group(rank, world_size, init_method, device,
+                                   config.backend, config.init_timeout_s)
 
 
-def rank_device() -> torch.device:
-    """This rank's device in its gang: its card under NCCL, the CPU under
-    gloo."""
-    if dist.get_backend() == "nccl":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+def leave_gang() -> None:
+    """Tear down this worker's mesh (`train.spmd.teardown_worker_mesh`,
+    which destroys its collective group), then leave the gang."""
+    from ray_tpu_torch.train.spmd import teardown_worker_mesh
+
+    teardown_worker_mesh()
+    destroy_process_group()
 
 
-def destroy_process_group() -> None:
-    """Leave the gang, if this process is in one."""
-    if dist.is_initialized():
-        dist.destroy_process_group()
+_MESH_NEEDS_DISTRIBUTED = (
+    "mesh_config with num_workers>1 requires "
+    "TorchConfig(distributed=True): a multi-worker gang must "
+    "rendezvous into ONE global mesh; distributed=False would "
+    "give {world} workers {world} independent local meshes "
+    "with no gradient sync")
 
+
+class TorchBackend:
+    """The hooks the runtime's `BackendExecutor` calls around its gang of
+    workers, the counterpart of `JaxBackend` (ray_tpu/train/backend.py). It
+    has the runtime's `Backend` interface and does not subclass it: the
+    port imports nothing of `ray_tpu`."""
+
+    def on_start(self, worker_group, config: TorchConfig) -> None:
+        world = worker_group.num_workers
+        mesh_mode = config.mesh_config is not None
+        if mesh_mode and world > 1 and not config.distributed:
+            # As JaxBackend: each worker would build its own local mesh and
+            # train a copy of the model with no gradient sync.
+            raise ValueError(_MESH_NEEDS_DISTRIBUTED.format(world=world))
+        workers = worker_group.workers
+        meta = worker_group.group_metadata()
+        timeout = config.init_timeout_s
+        join = None
+        if config.distributed or mesh_mode:
+            port = config.coordinator_port or worker_group.execute_single(
+                0, find_free_port)
+            init_method = f"tcp://{meta[0]['hostname']}:{port}"
+            logger.info("torch.distributed gang of %d at %s", world,
+                        init_method)
+
+            def join(r):
+                return workers[r].execute.remote(
+                    join_gang, init_method, world, r, config.device, timeout,
+                    config.backend)
+
+        gang.gather_gang([m["node_id"] for m in meta],
+                         lambda r, local, n: workers[r].execute.remote(
+                             bind_card, local, config.device,
+                             config.env_vars, n),
+                         join, timeout)
+        if mesh_mode:
+            from ray_tpu_torch.train.spmd import setup_worker_mesh
+
+            group = f"rt_train_mesh:{uuid.uuid4().hex[:8]}"
+            shapes = resolve([w.execute.remote(
+                setup_worker_mesh, config.mesh_config, group_name=group,
+                world_size=world, rank=r, distributed=config.distributed,
+                num_slices=config.num_slices)
+                for r, w in enumerate(workers)], list(range(world)),
+                "build the mesh", timeout)
+            if len(set(map(str, shapes))) != 1:
+                raise RuntimeError(
+                    f"gang workers disagree on mesh shape: {shapes}")
+            logger.info("gang mesh established: %s", shapes[0])
+
+    def on_training_start(self, worker_group, config: TorchConfig) -> None:
+        pass
+
+    def on_shutdown(self, worker_group, config: TorchConfig) -> None:
+        """Every worker leaves its mesh's group and the gang; best-effort,
+        as JaxBackend's teardown (a worker that is gone or stuck is left
+        to the runtime, which kills the gang's actors next)."""
+        workers = worker_group.workers
+        try:
+            resolve([w.execute.remote(leave_gang) for w in workers],
+                    list(range(len(workers))), "leave the gang", 30.0)
+        except Exception:  # noqa: BLE001 - teardown is best-effort
+            logger.debug("gang teardown failed", exc_info=True)
+
+
+# -- local launchers ---------------------------------------------------------------
 
 def _rank_main(fn, rank, world, dev_type, init_method, env, config, args,
                results) -> None:
-    """A spawned rank: bind, join, run fn(*args), report, leave."""
+    """A spawned rank: bind, join, run fn(*args), report, leave; with no
+    `init_method`, run fn(rank, *args), which joins by itself."""
     os.environ.update(env)  # before this process's first CUDA call
     if dev_type == "cpu":
         torch.set_num_threads(1)
     try:
-        init_process_group(rank, world, init_method, dev_type, config)
-        out = fn(*args)
+        if init_method is None:
+            out = fn(rank, *args)
+        else:
+            init_process_group(rank, world, init_method, dev_type, config)
+            out = fn(*args)
         destroy_process_group()
         results.put((rank, True, out))
     except BaseException:  # reported to the parent, which raises it
@@ -133,44 +221,25 @@ def _stop(procs) -> None:
         p.join(timeout=30)
 
 
-def launch_gang(fn: Callable, world: int, device=None,
-                timeout_s: float = 600.0, args: Sequence[Any] = (),
-                init_method: Optional[str] = None) -> List[Any]:
-    """Run fn(*args) on `world` spawned ranks that have joined one gang;
-    -> the ranks' return values in rank order.
-
-    device None or "cuda": one rank per card, rank r bound by
-    CUDA_VISIBLE_DEVICES to the r-th card this process may use (the r-th
-    entry of its own CUDA_VISIBLE_DEVICES when that is set) before its
-    first CUDA call, NCCL between them;
-    raises if this host has fewer than `world` cards (two ranks on one card
-    is not a gang NCCL runs). "cpu": gloo ranks that see no card. fn and
-    args go to the ranks by pickle: fn must be importable by name, from a
-    module that does not import what the ranks must not load. The
-    rendezvous is a file store in a fresh temporary directory unless
-    `init_method` names one. If a rank raises, dies or the gang has not
-    finished after timeout_s, every rank is killed and this raises."""
-    dev_type = "cuda" if device is None else torch.device(device).type
+def _need_cards(world: int, dev_type: str) -> None:
     if dev_type == "cuda":
         have = backend_probe.cuda_device_count()
         if have < world:
             raise RuntimeError(f"a {world}-rank NCCL gang needs {world} "
                                f"CUDA cards; this host has {have}")
-    elif dev_type != "cpu":
-        raise ValueError(f"unsupported device {device} (use 'cuda' or 'cpu')")
-    config = TorchConfig(init_timeout_s=max(60, int(timeout_s)))
-    tmpdir = None
-    if init_method is None:
-        tmpdir = tempfile.mkdtemp(prefix="ray_tpu_torch_gang_")
-        init_method = "file://" + os.path.join(tmpdir, "store")
+
+
+def _run_ranks(fn, world, dev_type, init_method, envs, config, args,
+               timeout_s) -> List[Any]:
+    """Spawn `world` ranks of `_rank_main`, wait for their results; kill
+    them all and raise on the first failure, death or the timeout."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     procs = []
     try:
         for rank in range(world):
             p = ctx.Process(target=_rank_main, daemon=True, args=(
-                fn, rank, world, dev_type, init_method,
-                _rank_env(rank, dev_type), config,
+                fn, rank, world, dev_type, init_method, envs[rank], config,
                 tuple(args), results))
             p.start()
             procs.append(p)
@@ -211,5 +280,52 @@ def launch_gang(fn: Callable, world: int, device=None,
         _stop(procs)
         results.close()
         results.join_thread()
+
+
+def launch_gang(fn: Callable, world: int, device=None,
+                timeout_s: float = 600.0, args: Sequence[Any] = (),
+                init_method: Optional[str] = None) -> List[Any]:
+    """Run fn(*args) on `world` spawned ranks that have joined one gang;
+    -> the ranks' return values in rank order.
+
+    device None or "cuda": one rank per card, rank r bound by
+    CUDA_VISIBLE_DEVICES to the r-th card this process may use (the r-th
+    entry of its own CUDA_VISIBLE_DEVICES when that is set) before its
+    first CUDA call, NCCL between them;
+    raises if this host has fewer than `world` cards (two ranks on one card
+    is not a gang NCCL runs). "cpu": gloo ranks that see no card. fn and
+    args go to the ranks by pickle: fn must be importable by name, from a
+    module that does not import what the ranks must not load. The
+    rendezvous is a file store in a fresh temporary directory unless
+    `init_method` names one. If a rank raises, dies or the gang has not
+    finished after timeout_s, every rank is killed and this raises."""
+    dev_type = gang.device_type(device)
+    _need_cards(world, dev_type)
+    config = TorchConfig(init_timeout_s=max(60, int(timeout_s)))
+    tmpdir = None
+    if init_method is None:
+        tmpdir = tempfile.mkdtemp(prefix="ray_tpu_torch_gang_")
+        init_method = "file://" + os.path.join(tmpdir, "store")
+    try:
+        return _run_ranks(fn, world, dev_type, init_method,
+                          [_rank_env(r, dev_type) for r in range(world)],
+                          config, args, timeout_s)
+    finally:
         if tmpdir is not None:
             shutil.rmtree(tmpdir, ignore_errors=True)
+
+
+def spawn_ranks(fn: Callable, world: int, device=None,
+                timeout_s: float = 600.0, args: Sequence[Any] = ()
+                ) -> List[Any]:
+    """Run fn(rank, *args) on `world` spawned processes that join their gang
+    by themselves, as the runtime's workers do under `TorchBackend`: on the
+    card each sees every card of this host (and binds itself, `bind_card`),
+    on the CPU none. -> their return values in rank order; a rank that is
+    still in a gang when fn returns leaves it. Failures and the timeout as
+    `launch_gang`."""
+    dev_type = gang.device_type(device)
+    _need_cards(world, dev_type)
+    env = backend_probe.force_cpu_env({}) if dev_type == "cpu" else {}
+    return _run_ranks(fn, world, dev_type, None, [env] * world, None, args,
+                      timeout_s)

@@ -18,7 +18,10 @@ writes its own format:
     its dtype) or a numpy array.
 
 `to_arrays` gives the tree back with host tensors (numpy leaves as numpy),
-every dtype as it was saved.
+every dtype as it was saved, and `place_like` puts such a tree back on a
+mesh's placements, as JAX's `device_put` against a tree of shardings does.
+In a gang, every rank takes part in fetching a sharded tree whole
+(`host_tree`), and one of them writes it.
 """
 
 from __future__ import annotations
@@ -187,3 +190,60 @@ def _decode(node, leaves: List[np.ndarray]):
     if kind == "numpy":
         return leaves[body]
     raise ValueError(f"unknown node {kind!r} in the tree")
+
+
+def _map_tree(fn, tree, like):
+    """fn(leaf of tree, leaf of like) over two trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, like[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        if len(tree) != len(like):
+            raise ValueError(f"a sequence of {len(tree)} against one of "
+                             f"{len(like)}")
+        return type(tree)(_map_tree(fn, a, b) for a, b in zip(tree, like))
+    if type(tree) in _DATACLASSES.values():
+        return type(tree)(**{f: _map_tree(fn, getattr(tree, f),
+                                          getattr(like, f))
+                             for f in tree.__dataclass_fields__})
+    return fn(tree, like)
+
+
+def host_tree(tree: Any) -> Any:
+    """The tree with every tensor fetched to the host, a DTensor whole (a
+    collective that every rank of its mesh takes part in, leaf by leaf in
+    the order `from_arrays` walks them). In a gang every rank calls this and
+    one writes `Checkpoint.from_arrays` of the result, which then fetches
+    nothing."""
+    return _map_tree(lambda x, _: _host_tensor(x)
+                     if isinstance(x, torch.Tensor) else x, tree, tree)
+
+
+def _place(x, like):
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel.sharding import local_slices
+
+    if not isinstance(x, torch.Tensor) or not isinstance(like, torch.Tensor):
+        return x
+    if tuple(x.shape) != tuple(like.shape):
+        raise ValueError(f"a saved leaf of shape {tuple(x.shape)} against "
+                         f"one of {tuple(like.shape)}")
+    if not isinstance(like, DTensor):
+        return x.to(like.device)
+    mesh, placements = like.device_mesh, like.placements
+    block = x[local_slices(x.shape, placements, mesh)].contiguous()
+    return DTensor.from_local(block.to(like.to_local().device), mesh,
+                              placements, run_check=False, shape=x.shape,
+                              stride=x.contiguous().stride())
+
+
+def place_like(tree: Any, like: Any) -> Any:
+    """A host tree (`Checkpoint.to_arrays`'s) placed as the tensors of
+    `like` (a state of the same structure, e.g. a freshly initialised one
+    on the mesh) are: where `like` has a DTensor, each rank copies only its
+    block, on the mesh and placements of that DTensor, to its device (the
+    counterpart of JAX's `device_put` against a tree of shardings); where
+    it has a tensor, to that tensor's device. Dtypes and values are the
+    saved ones, bit for bit; leaves that are not tensors come from
+    `tree`."""
+    return _map_tree(_place, tree, like)

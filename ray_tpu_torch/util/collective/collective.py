@@ -35,9 +35,13 @@ groups coexist, and `destroy_collective_group` releases a group's.
   that raises the error when the program runs, before any collective of
   the call.
 
-What takes actor handles (`create_collective_group(actors, ...)`,
-`CollectiveActorMixin`) needs the port of the actor runtime and waits for
-it.
+The declaring side: `create_collective_group(actors, ...)` declares a group
+over the runtime's actors (each mixes in `CollectiveActorMixin`). It makes
+them one torch.distributed gang, each bound to its card (NCCL), or gloo
+when the caller asks for the CPU, meeting at the host of the actor of rank
+0 and a free port there, and then has each actor join the group. It
+reaches the runtime only through the handles it is given and the
+ObjectRefs their calls return (`_private.gang.resolve`).
 """
 
 from __future__ import annotations
@@ -54,6 +58,10 @@ from torch.distributed import _functional_collectives as funcol
 from torch.distributed.tensor import DTensor
 from torch.fx.node import has_side_effect
 
+from ray_tpu_torch._private import gang
+from ray_tpu_torch._private.gang import CollectiveGroupError  # noqa: F401
+from ray_tpu_torch._private.gang import check_gang as _check_gang
+
 
 class ReduceOp:
     SUM = "sum"
@@ -68,11 +76,6 @@ class MeshCollectiveError(RuntimeError):
     outside the axes, point-to-point inside a compiled region, a DTensor
     spanning ranks). The message says what is missing and what to do
     instead."""
-
-
-class CollectiveGroupError(RuntimeError):
-    """A group of world > 1, or a mesh, was asked for where this process is
-    in no torch.distributed gang, or in one of another world or rank."""
 
 
 _REDUCERS = {
@@ -160,27 +163,7 @@ class _GroupHandle:
 
 _groups: Dict[str, _GroupHandle] = {}
 _groups_lock = threading.Lock()
-
-_WAY_IN = ("join the gang first: train.backend.launch_gang runs a function "
-           "on N ranks that have joined one, and a process joins one by "
-           "train.backend.init_process_group or "
-           "parallel.mesh.initialize_distributed")
-
-
-def _check_gang(world_size: int, rank: int) -> None:
-    if not dist.is_initialized():
-        raise CollectiveGroupError(
-            f"a collective group of world {world_size} runs over the "
-            "torch.distributed gang this process is in, and it is in none: "
-            + _WAY_IN)
-    have = (dist.get_world_size(), dist.get_rank())
-    if have != (world_size, rank):
-        raise CollectiveGroupError(
-            f"a collective group of world {world_size} with this process as "
-            f"rank {rank} spans its gang, but this process is rank {have[1]} "
-            f"of a gang of {have[0]}: " + _WAY_IN + " with that world and "
-            "rank")
-
+_declared: set = set()  # groups this process declared over actors
 
 def init_collective_group(
     world_size: int,
@@ -218,6 +201,79 @@ def init_collective_group(
         _groups[group_name] = g
 
 
+def create_collective_group(actors, world_size: int, ranks: List[int],
+                            backend: str = "host",
+                            group_name: str = "default", *, device=None,
+                            init_timeout_s: int = 300) -> None:
+    """Declaration over actors (collective.py:52): make the runtime's
+    `actors` (each a `CollectiveActorMixin`) one torch.distributed gang,
+    then have each join the group as its rank in `ranks`.
+
+    The actor of rank 0 (the one whose entry in `ranks` is 0) gives its
+    host's name and a free port; every actor then joins the gang there at
+    once (an actor in a gang of this world and rank keeps it, one in a gang
+    of another raises `CollectiveGroupError`) and calls
+    `init_collective_group`. `device` has no counterpart in the JAX
+    package, whose processes have one kind of device: None is the card
+    (NCCL, each actor bound to the card at its position among the group's
+    actors on its node, by rank, before its first CUDA call; two actors on
+    one card, or fewer visible cards than actors on a node, raise), "cpu"
+    gloo. Nothing falls back from the card to gloo. A call that fails on
+    one actor fails the declaration at once, naming the actor's rank; the
+    gang's rendezvous gives up after `init_timeout_s`, and so does this."""
+    actors = list(actors)
+    if not (len(actors) == len(ranks) == world_size
+            and sorted(ranks) == list(range(world_size))):
+        raise ValueError(f"{len(actors)} actors and ranks {list(ranks)} do "
+                         f"not make a group of world size {world_size}")
+    with _groups_lock:
+        if group_name in _declared:
+            raise RuntimeError(f"group {group_name!r} already declared; "
+                               "destroy_collective_group() first")
+        _declared.add(group_name)
+    try:
+        by_rank = [actors[ranks.index(r)] for r in range(world_size)]
+        addresses = gang.resolve(
+            [a._rt_collective_address.remote() for a in by_rank],
+            list(range(world_size)), "give its address", init_timeout_s)
+        init_method = (f"tcp://{addresses[0]['hostname']}:"
+                       f"{addresses[0]['port']}")
+        gang.gather_gang(
+            [a["hostname"] for a in addresses],
+            lambda r, local, n: by_rank[r]._rt_collective_bind.remote(
+                local, device, n),
+            lambda r: by_rank[r]._rt_collective_join.remote(
+                world_size, r, backend, group_name, init_method=init_method,
+                device=device, init_timeout_s=init_timeout_s),
+            init_timeout_s)
+    except BaseException:
+        with _groups_lock:
+            _declared.discard(group_name)
+        raise
+
+
+class CollectiveActorMixin:
+    """Mix into an actor class to make it joinable via
+    ``create_collective_group`` (groups declared over actors,
+    collective.py:52): the calls the declaration makes on each actor."""
+
+    def _rt_collective_address(self) -> dict:
+        return gang.gang_address()
+
+    def _rt_collective_bind(self, local_rank: int, device=None,
+                            node_ranks=None):
+        return gang.bind_card(local_rank, device, node_ranks=node_ranks)
+
+    def _rt_collective_join(self, world_size: int, rank: int, backend: str,
+                            group_name: str, init_method=None, device=None,
+                            init_timeout_s: int = 300) -> bool:
+        if init_method is not None:
+            gang.join_gang(init_method, world_size, rank, device,
+                           init_timeout_s)
+        init_collective_group(world_size, rank, backend, group_name)
+        return True
+
+
 def is_group_initialized(group_name: str = "default") -> bool:
     with _groups_lock:
         return group_name in _groups
@@ -230,9 +286,12 @@ def get_group_info(group_name: str = "default") -> dict:
 
 def destroy_collective_group(group_name: str = "default") -> None:
     """Leave the group and release the process groups it cut from the gang
-    (those of its mesh belong to the mesh)."""
+    (those of its mesh belong to the mesh). In the process that declared
+    it over actors, forget the declaration: the actors leave through their
+    own destroy_collective_group."""
     with _groups_lock:
         g = _groups.pop(group_name, None)
+        _declared.discard(group_name)
     if g is None:
         return
     for work, _ in g._sends:

@@ -382,6 +382,10 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
         return llama_step("[o] one tiny Llama step in place of phase (o)"), {}
 
     monkeypatch.setattr(smoke, "phase_train_io", train_io)
+    # (p), Train's gang, is rehearsed on its own by
+    # tests/test_torch_train_gang.py; here one tiny Llama step stands in.
+    monkeypatch.setattr(smoke, "phase_train_gang", lambda card: llama_step(
+        "[p] one tiny Llama step in place of phase (p)"))
     # The bench at (h-2)'s batch, as on the card.
     from ray_tpu_torch import bench
     monkeypatch.setattr(bench, "CPU_BATCH", 2)
@@ -492,10 +496,11 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
         assert by_path[name] == {"serve": 0, "train": 13 * layers,
                                  "train_compiled": 30 * layers,
                                  "mixtral": 2, "spmd": 2, "spmd_compiled": 2,
-                                 "zoo_mesh": 2, "feed": 2, "checkpoint": 2}
+                                 "zoo_mesh": 2, "feed": 2, "checkpoint": 2,
+                                 "train_gang": 2}
     # 2 layers under "dots" for each stand-in step
     for path in ("mixtral", "spmd", "spmd_compiled", "zoo_mesh", "feed",
-                 "checkpoint"):
+                 "checkpoint", "train_gang"):
         assert by_path["flash_fwd"][path] == 4, path
     assert by_path["flash_fwd"]["serve"] >= 2 * layers
     assert [k["launches"] for k in kernels] == [

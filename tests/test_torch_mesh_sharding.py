@@ -59,6 +59,12 @@ BATCH_MESHES = [(dict(dp=2, fsdp=2), 1), (dict(sp=2, fsdp=2), 1),
                 (dict(tp=2), 2), (dict(sp=4), 1)]
 # (mesh config, slices, prefetch) of the sharded device feed.
 FEED_MESHES = [(dict(dp=2, fsdp=2), 1, 1), (dict(sp=2, fsdp=2), 1, 0)]
+# (mesh config, slices, prefetch, each rank's data position) of the feed of
+# this position's rows alone (`local_rows`).
+POSITION_MESHES = [(dict(dp=2, tp=2), 1, 1, [0, 0, 1, 1]),
+                   (dict(sp=2, fsdp=2), 1, 0, [0, 0, 1, 1]),
+                   (dict(dp=2, fsdp=2), 1, 1, [0, 1, 2, 3]),
+                   (dict(tp=2), 2, 1, [0, 0, 1, 1])]
 # The gradient reduction of a gathered bf16 parameter, the tp sums, and a
 # DTensor checkpointed whole.
 REDUCE_CASE = (dict(dp=2, fsdp=2), (8, 6), ("embed", "mlp"), 41)
@@ -80,6 +86,8 @@ def _cases():
     cases += [("batch_blocks", (m, n, batch)) for m, n in BATCH_MESHES]
     cases += [("feed_blocks", (m, n, _feed_batches(), p))
               for m, n, p in FEED_MESHES]
+    cases += [("position_feed_blocks", (m, n, _feed_batches(), p))
+              for m, n, p, _ in POSITION_MESHES]
     cases += [("grad_reduce_case", REDUCE_CASE), ("tp_sum_case", TP_SUM_CASE),
               ("checkpoint_case", CHECKPOINT_CASE)]
     return cases
@@ -260,6 +268,28 @@ def test_gang_sharded_feed_yields_shard_local_batch_blocks(gang):
                                 if s.device == dev)
                     np.testing.assert_array_equal(b[k]["local"],
                                                   np.asarray(want))
+
+
+def test_gang_position_feed_assembles_the_global_batch(gang):
+    """iter_device_batches(local_rows=True), each rank given only its data
+    position's rows (the ranks of one position, its tp or sp peers, the
+    same rows): each rank's DTensor block equals shard_local_batch's of the
+    global batch, every position's rows in position order, and the DTensor
+    gathered whole is that global batch."""
+    batches = _feed_batches()
+    first = 1 + len(BATCH_MESHES) + len(FEED_MESHES)
+    for i, (cfg, n, _, positions) in enumerate(POSITION_MESHES):
+        got = [res[first + i] for res in gang]
+        count = len(set(positions))
+        assert [g["position"] for g in got] == [[p, count]
+                                                for p in positions], cfg
+        for g in got:
+            for b, src in zip(g["batches"], batches):
+                for k, v in src.items():
+                    assert b[k]["shape"] == v.shape
+                    np.testing.assert_array_equal(b[k]["local"],
+                                                  b[k]["want"])
+                    np.testing.assert_array_equal(b[k]["full"], v)
 
 
 def test_mesh_needs_a_gang():

@@ -297,7 +297,7 @@ def test_runtime_options_raise(name, option):
     cfg = (getattr(talgos, f"{name}Config")().environment("CartPole-v1")
            .resources(device="cpu"))
     setattr(cfg, option, 2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
         cfg.build()
 
 

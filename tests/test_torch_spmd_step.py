@@ -200,7 +200,9 @@ def test_world1_mesh_equals_the_unsharded_step(tmp_path):
     backend.init_process_group(0, 1, f"file://{tmp_path}/store", "cpu")
     try:
         assert spmd.get_mesh() is None
-        assert spmd.setup_worker_mesh(MeshConfig()) == {
+        assert spmd.setup_worker_mesh(
+            MeshConfig(), group_name="world1", world_size=1, rank=0,
+            distributed=False) == {
             a: 1 for a in ("pp", "dp", "fsdp", "ep", "sp", "tp")}
         mesh = spmd.get_mesh()
         assert mesh.mesh_dim_names == build_mesh(MeshConfig()).mesh_dim_names
