@@ -242,15 +242,41 @@ Phases, in order; any failure raises and the script exits non-zero:
       second gang restores it and runs step 3. Each rank on its own card
       (PCI bus id), the global batch each step assembles equal to the
       seeded one, the restored state bit for bit the saved one on every
-      rank, step 3 within 1e-4 of the first gang's.
+      rank, step 3 within 1e-4 of the first gang's;
+  (q) the work of RLlib's remote env runners and learners
+      (`ray_tpu_torch.rllib.remote_cases`), in fp32 at the algorithms'
+      default widths on CartPole, the runtime's actors stood in for by
+      threads of this process that take their arguments by value through
+      the port's pickler (the runtime half is held on the CPU by
+      tests/test_torch_rl_remote*.py):
+      (q-1) a `LearnerGroup` of two PPO learners, each bound to the card at
+      its position, updates once on its half of a seeded 128-row batch and
+      takes the parameter mean; the mean weights and the averaged metrics
+      against the same steps on the CPU (1e-5 + 1e-4 |ref|); (q-2) the
+      mean state dict through the typed tensor wire as the groups ship it
+      (host copies), bit for bit, then bit for bit on each runner's card;
+      two remote runners (worker_index 1 and 2) sample 64 steps each
+      with it, their obs, actions and rewards equal to in-process runners'
+      of the same index and weights; (q-3) IMPALA over two remote runners
+      with two sample calls in flight each: 6 updates, each from one armed
+      call, the runners on the learner's policy_version after every
+      broadcast; then the runner of the oldest armed call fails with
+      `RayActorError` after that call finished: the next step drops its
+      fragment, replaces the slot and re-arms it to two, and two more
+      updates follow. It logs one
+      learner's update ms, the mean's gather / mean / set ms, the wire's
+      ms for the state dict and each IMPALA iteration's seconds waiting
+      for a fragment and learning, beside the card's name and power limit.
+      `--only q` runs (q) alone after (a). It launches none of the flash
+      kernels.
 
 The launch counts are set to 0 just before each main path (serving: (d)
 and (e); paged serving: (i), which runs no flash kernel; training: (h);
 compiled training: (h-2); Mixtral: (k-1) and (k-2); the SPMD path's
 eager sharded steps, its compiled sharded steps and the zoo on the mesh:
 (l), each on its own; the fed training path: (n-1)'s fed runs; the
-checkpointed training path: (o-1); the gang's training path: (p)) and
-read just after it. Each phase's
+checkpointed training path: (o-1); the gang's training path: (p); the
+remote RL groups: (q), which runs no flash kernel) and read just after it. Each phase's
 seconds are logged at the end ("[phases]"). The last
 three lines of stdout are the card's `nvidia-smi` name and power limit, one
 JSON object on the kernels, and `{"ok": true, "device": ...}`. Without
@@ -4626,6 +4652,56 @@ def phase_train_gang(card):
     return counts
 
 
+# -- (q) RLlib's remote env runners and learners --------------------------------
+
+def phase_rl_remote(card):
+    """(q) The remote RL groups' work on the card, through the stand-in
+    actors of `rllib.remote_cases`: (q-1) the learners' update and
+    parameter mean against the CPU, (q-2) the weights on the wire and two
+    remote runners against in-process ones, (q-3) IMPALA's in-flight
+    pipeline and a runner's failure. -> its numbers."""
+    from ray_tpu_torch.rllib import remote_cases as rc
+
+    t0 = time.perf_counter()
+    learners = rc.learner_case(DEVICE)
+    log(f"[q-1] ({card}) LearnerGroup of 2 PPO learners (fp32, CartPole at "
+        f"PPO's default widths) on {rc.LEARNER_ROWS} seeded rows: the mean "
+        f"weights and the averaged metrics against the CPU within "
+        f"{rc.ATOL:g} + {rc.RTOL:g} |ref|, largest differences "
+        f"{learners['max_abs_err_weights']:.3e} / "
+        f"{learners['max_abs_err_metrics']:.3e}; one learner's update "
+        f"{learners['update_ms']:.3f} ms; the mean: gather "
+        f"{learners['gather_ms']:.3f} ms, mean {learners['mean_ms']:.3f} ms,"
+        f" set {learners['set_ms']:.3f} ms")
+    runners = rc.runner_case(DEVICE, learners["mean"])
+    log(f"[q-2] ({card}) the mean state dict ({runners['tensors']} tensors, "
+        f"{runners['bytes']} B) bit for bit through the typed tensor wire "
+        f"({runners['wire_ms']:.3f} ms a round trip); 2 remote runners x "
+        f"{rc.RUNNER_STEPS} steps: {runners['transitions']} transitions, "
+        f"obs, actions and rewards equal to in-process runners', logp and "
+        f"vf_preds within {runners['max_abs_err_logp_vf']:.3e}")
+    pipeline = rc.pipeline_case(DEVICE)
+    rows = pipeline["iterations"]
+    log(f"[q-3] ({card}) IMPALA over 2 remote runners, {rc.IN_FLIGHT} calls "
+        f"in flight each: {pipeline['updates']} updates from armed calls; "
+        f"runner {pipeline['failed_slot']} failed with armed calls: "
+        f"{pipeline['dropped']} failed calls dropped by the pipeline, slot "
+        f"replaced and re-armed, policy_version "
+        f"{pipeline['policy_version']}, membership {pipeline['membership']};"
+        f" seconds per iteration (waiting for a fragment, learning): "
+        f"{[(round(w, 6), round(l, 6)) for w, l in rows]}")
+    log(f"[q] the remote RL groups: {time.perf_counter() - t0:.1f} s")
+    return {"learners": {k: v for k, v in learners.items()
+                         if k not in ("mean", "metrics")},
+            "runners": runners,
+            "pipeline": {"wait_s": [w for w, _ in rows],
+                         "learn_s": [l for _, l in rows],
+                         "updates": pipeline["updates"],
+                         "dropped": pipeline["dropped"],
+                         "failed_slot": pipeline["failed_slot"],
+                         "membership": pipeline["membership"]}}
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4639,13 +4715,14 @@ def main(argv=()) -> int:
 
     parser = argparse.ArgumentParser(description="Drive ray_tpu_torch on the "
                                      "card(s); see the module docstring.")
-    parser.add_argument("--only", choices=("l", "m", "n", "o", "p"),
+    parser.add_argument("--only", choices=("l", "m", "n", "o", "p", "q"),
                         default=None,
                         help="run phase (l), the SPMD path (with 4 cards its "
                         "4-card part), (m), RLlib's one-process path, (n), "
                         "the data plane, (o), Train's checkpoint and "
-                        "predictor, or (p), Train's gang at world 1, alone "
-                        "after the kernel build")
+                        "predictor, (p), Train's gang at world 1, or (q), "
+                        "RLlib's remote groups, alone after the kernel "
+                        "build")
     parser.add_argument("--part", default=None, choices=[
         p.__name__[len("cards_"):] for p in CARDS_PARTS],
         help="with --only l on 4 cards: this (l-3) part alone")
@@ -4731,6 +4808,19 @@ def main(argv=()) -> int:
         log_laps()
         print(card)
         print(json.dumps({"train_gang_launches": gang}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": info["platform"], "kind": info["kind"],
+            "count": info["count"]}}))
+        return 0
+    if args.only == "q":
+        reset_kernel_counts()
+        remote = phase_rl_remote(card)
+        lap("q")
+        log_laps()
+        log(f"[q] launches of the flash kernels on the remote RL groups: "
+            f"{kernel_counts()} (they run none)")
+        print(card)
+        print(json.dumps({"rl_remote": remote}))
         print(json.dumps({"ok": True, "device": {
             "platform": info["platform"], "kind": info["kind"],
             "count": info["count"]}}))
@@ -4847,6 +4937,14 @@ def main(argv=()) -> int:
     gang = phase_train_gang(card)
     lap("p")
     log(f"[p] launches on the gang's training path: {gang}; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_kernel_counts()
+    phase_rl_remote(card)
+    lap("q")
+    log(f"[q] launches of the flash kernels on the remote RL groups: "
+        f"{kernel_counts()} (they run none); "
         f"{time.perf_counter() - t_start:.1f} s in all")
     log_laps()
 

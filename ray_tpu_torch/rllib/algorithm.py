@@ -3,7 +3,8 @@ a Tune Trainable whose step() (:818) runs one training_step and returns a
 result dict; save/restore via checkpoint dirs).
 
 The port's copy of `ray_tpu/rllib/algorithm.py` (which imports no JAX; the
-port imports nothing of `ray_tpu`).
+port imports nothing of `ray_tpu`). `remote_options` names the groups an
+algorithm runs as actors of the runtime; `check_local` refuses the rest.
 """
 
 from __future__ import annotations
@@ -17,11 +18,15 @@ from ray_tpu_torch.rllib.algorithm_config import AlgorithmConfig
 
 
 class Algorithm:
+    # the config options whose actors this algorithm runs (num_env_runners,
+    # num_learners); the others must be 0
+    remote_options: tuple = ()
+
     def __init__(self, config: AlgorithmConfig):
         from ray_tpu_torch.rllib.algorithm_config import check_local
         from ray_tpu_torch.rllib.callbacks import make_callbacks
 
-        check_local(config.to_dict())
+        check_local(config.to_dict(), config.remote, self.remote_options)
         self.config = config
         self.iteration = 0
         self._num_env_steps_sampled_lifetime = 0

@@ -4,10 +4,15 @@ rllib/algorithms/algorithm_config.py — AlgorithmConfig with chained
 .build()).
 
 The port's copy of `ray_tpu/rllib/algorithm_config.py` (which imports no
-JAX; the port imports nothing of `ray_tpu`), without the runner resources
-and with the port's `device`. `fault_tolerance()` and `dataflow()` store
-what the JAX config stores, so a config written for the JAX package builds
-here; both act only with remote env runners, which `check_local` refuses.
+JAX; the port imports nothing of `ray_tpu`), with the port's `device` and
+one setter the JAX config lacks: `runtime(remote=...)`, which hands the
+port the runtime's actor decorator. Remote env runners (PPO, IMPALA, APPO)
+and remote learners (PPO) are the runtime's actors, so they need it;
+`check_local` refuses them without it, refuses them for an algorithm that
+runs no actors, and refuses the decoupled dataflow, which waits for the
+port of the runtime's event log. `fault_tolerance()` acts on the remote env
+runners; `dataflow()` stores what the JAX config stores, so a config written
+for the JAX package builds here.
 """
 
 from __future__ import annotations
@@ -15,20 +20,38 @@ from __future__ import annotations
 import copy
 from typing import Any, Dict, Optional, Type
 
-# What the port's one-process path cannot run yet: remote env runners and
-# learners are actors of the runtime, which the port has not ported.
-RUNTIME_ITEM = ("ROADMAP.md queue 1, item 1: remote env runners and "
-                "learners wait for the port of the actor runtime")
+from ray_tpu_torch._private.actors import NEEDS_RUNTIME
+
+# What the port cannot run yet: the decoupled dataflow emits and reads the
+# runtime's event log and exports its metrics.
+DATAFLOW_ITEM = ("ROADMAP.md queue 1, item 4: the decoupled dataflow waits "
+                 "for the port of the runtime's metrics and events (item 3)")
 
 
-def check_local(config: Dict[str, Any]) -> None:
-    """Raise NotImplementedError for num_env_runners > 0 or num_learners
-    > 0 (never fall back to sampling or learning in this process)."""
+def check_local(options: Dict[str, Any], remote=None,
+                remote_options=("num_env_runners", "num_learners")) -> None:
+    """Refuse what the caller cannot run, the same from every entry point
+    (`Algorithm`, `EnvRunnerGroup`, `LearnerGroup`): in `options` (a
+    config's `to_dict()`, or the share of it a group reads)
+    num_env_runners > 0 or num_learners > 0 without the runtime's actor
+    decorator `remote` (ValueError naming `runtime(remote=...)`), either of
+    them where the caller does not run that group as actors
+    (`remote_options`; NotImplementedError), and the decoupled dataflow
+    over remote env runners (NotImplementedError naming its ROADMAP item).
+    Nothing falls back to sampling or learning in this process."""
     for key in ("num_env_runners", "num_learners"):
-        if (config.get(key) or 0) > 0:
+        n = options.get(key) or 0
+        if n <= 0:
+            continue
+        if remote is None:
+            raise ValueError(f"{key}={n} {NEEDS_RUNTIME}")
+        if key not in remote_options:
             raise NotImplementedError(
-                f"{key}={config[key]}: the port runs the one-process path "
-                f"only ({key}=0); {RUNTIME_ITEM}")
+                f"{key}={n}: this algorithm samples and learns in this "
+                f"process only (the JAX package's ignores {key}); set "
+                f"{key}=0")
+    if options.get("decoupled") and (options.get("num_env_runners") or 0) > 0:
+        raise NotImplementedError(f"decoupled=True: {DATAFLOW_ITEM}")
 
 
 class AlgorithmConfig:
@@ -41,8 +64,12 @@ class AlgorithmConfig:
         self.num_env_runners: int = 0  # 0 = sample in this process
         self.num_envs_per_env_runner: int = 1
         self.rollout_fragment_length: int = 200
-        # the decoupled dataflow and the crashable fleet, as the JAX config
-        # stores them (read only by remote env runners)
+        self.num_cpus_per_env_runner: float = 1.0
+        self.custom_resources_per_env_runner: Dict[str, float] = {}
+        # the runtime's actor decorator (`runtime()`), never sent to actors
+        self.remote = None
+        # the decoupled dataflow (stored; refused with remote env runners)
+        # and the crashable fleet of remote env runners
         self.decoupled: bool = False
         self.sample_queue_size: Optional[int] = None
         self.sample_queue_resources: Optional[Dict[str, float]] = None
@@ -100,6 +127,8 @@ class AlgorithmConfig:
     def env_runners(self, *, num_env_runners: Optional[int] = None,
                     num_envs_per_env_runner: Optional[int] = None,
                     rollout_fragment_length: Optional[int] = None,
+                    num_cpus_per_env_runner: Optional[float] = None,
+                    custom_resources_per_env_runner: Optional[dict] = None,
                     **_kw) -> "AlgorithmConfig":
         if num_env_runners is not None:
             self.num_env_runners = num_env_runners
@@ -107,6 +136,21 @@ class AlgorithmConfig:
             self.num_envs_per_env_runner = num_envs_per_env_runner
         if rollout_fragment_length is not None:
             self.rollout_fragment_length = rollout_fragment_length
+        if num_cpus_per_env_runner is not None:
+            self.num_cpus_per_env_runner = num_cpus_per_env_runner
+        if custom_resources_per_env_runner is not None:
+            self.custom_resources_per_env_runner = dict(
+                custom_resources_per_env_runner)
+        return self
+
+    def runtime(self, *, remote=None) -> "AlgorithmConfig":
+        """The runtime's actor decorator (`ray_tpu.remote`), which remote
+        env runners and learners are built with. The JAX config has no such
+        setter: the JAX package calls its runtime directly, and the port
+        imports nothing of it, so the decorator comes in as a value. It is
+        kept out of `to_dict()`, which is what the actors receive."""
+        if remote is not None:
+            self.remote = remote
         return self
 
     def fault_tolerance(
@@ -114,7 +158,9 @@ class AlgorithmConfig:
             max_env_runner_restarts: Optional[int] = None,
             **_kw) -> "AlgorithmConfig":
         """Crashable-fleet policy (reference: algorithm_config.py
-        fault_tolerance()); stored for remote env runners."""
+        fault_tolerance()): a dead remote env runner is replaced, carrying
+        the last weights, until max_env_runner_restarts; with
+        restart_failed_env_runners=False the loop fails at once."""
         if restart_failed_env_runners is not None:
             self.restart_failed_env_runners = restart_failed_env_runners
         if max_env_runner_restarts is not None:
@@ -129,7 +175,8 @@ class AlgorithmConfig:
                  elastic_max_env_runners: Optional[int] = None,
                  **_kw) -> "AlgorithmConfig":
         """The decoupled rollout/learner dataflow's settings (JAX:
-        rllib/dataflow.py); stored for remote env runners."""
+        rllib/dataflow.py); stored, and refused with remote env runners
+        (`check_local`)."""
         if decoupled is not None:
             self.decoupled = decoupled
         if sample_queue_size is not None:
@@ -193,11 +240,12 @@ class AlgorithmConfig:
         return self
 
     def copy(self) -> "AlgorithmConfig":
-        return copy.deepcopy(self)
+        """A deep copy that shares the actor decorator."""
+        return copy.deepcopy(self, {id(self.remote): self.remote})
 
     def to_dict(self) -> Dict[str, Any]:
         return {k: v for k, v in self.__dict__.items()
-                if k != "algo_class"}
+                if k not in ("algo_class", "remote")}
 
     def build(self):
         if self.algo_class is None:

@@ -1,25 +1,35 @@
-"""IMPALA's and APPO's V-trace update and their synchronous loop, the
-port's counterpart of `ray_tpu/rllib/algorithms/impala.py`
-(`make_vtrace_update` :39-123, `IMPALA` with num_env_runners = 0,
-:291-295, and `APPOConfig` / `APPO`, :370-381).
+"""IMPALA's and APPO's V-trace update and their loop, the port's
+counterpart of `ray_tpu/rllib/algorithms/impala.py` (`make_vtrace_update`
+:39-123, `IMPALA` :126-367, and `APPOConfig` / `APPO`, :370-381).
 
 V-trace (Espeholt et al. 2018): JAX runs the recursion as a `lax.scan`
 over the reversed time axis; here it is a reversed loop over T computing
 the same recursion, vs_t - V(x_t) = delta_t + gamma_t c_t (vs_{t+1} -
 V(x_{t+1})). APPO (`appo_clip`) takes PPO's clipped surrogate on the
-V-trace advantages in place of the plain policy gradient. The
-asynchronous in-flight pipeline and the decoupled dataflow need the actor
-runtime and are not ported (ROADMAP.md queue 1, item 1); neither is the
-`rl.learner_step` event, which waits for the port of the event log.
+V-trace advantages in place of the plain policy gradient.
+
+With remote env runners (the default, two, as in JAX) the loop is JAX's
+in-flight pipeline: `max_requests_in_flight_per_env_runner` sample calls
+stay armed per runner, each step learns on the first fragment that comes
+back (the oldest armed call among those done), a dead runner's fragment is
+dropped and its slot replaced, every runner is re-armed by its deficit, and
+the weights are broadcast every `broadcast_interval` updates. With
+num_env_runners = 0 it samples inline. The decoupled dataflow and its
+`rl.learner_step` event wait for the port of the runtime's event log
+(`algorithm_config.DATAFLOW_ITEM`).
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
+import time
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import actors
 from ray_tpu_torch.rllib.algorithm import Algorithm
 from ray_tpu_torch.rllib.algorithm_config import AlgorithmConfig
 from ray_tpu_torch.rllib.env_runner import EnvRunnerGroup, obs_to_device
@@ -32,14 +42,13 @@ class IMPALAConfig(AlgorithmConfig):
         super().__init__(algo_class=IMPALA)
         self.lr = 5e-4
         self.rollout_fragment_length = 50
-        # The JAX config defaults to 2 remote runners; the port runs the
-        # synchronous path only.
-        self.num_env_runners = 0
+        self.num_env_runners = 2
         self.vtrace_clip_rho_threshold = 1.0
         self.vtrace_clip_c_threshold = 1.0
         self.vf_loss_coeff = 0.5
         self.entropy_coeff = 0.01
         self.broadcast_interval = 1   # learner steps between weight pushes
+        self.max_requests_in_flight_per_env_runner = 2
         self.normalize_advantages = True
 
 
@@ -115,16 +124,73 @@ class VTraceLearner(TorchLearner):
                        "mean_rho": torch.sum(rhos * mask) / denom}
 
 
+# How long a pipelined step waits for a fragment before it returns empty.
+FRAGMENT_WAIT_S = 60
+
+
 class IMPALA(Algorithm):
+    remote_options = ("num_env_runners",)
+
     def setup(self, config: AlgorithmConfig) -> None:
         self.module_spec = self._actor_critic_spec(config)
         cfg = config.to_dict()
         self.learner = VTraceLearner(self.module_spec, cfg)
         self.policy_version = 0
-        self.runner_group = EnvRunnerGroup(cfg, self.module_spec)
+        self.runner_group = EnvRunnerGroup(cfg, self.module_spec,
+                                           config.remote)
         self.runner_group.sync_weights(self.learner.get_weights(),
                                        self.policy_version)
         self._steps_since_broadcast = 0
+        # the armed sample calls: future -> the runner handle it went to
+        self._inflight: Dict[Any, Any] = {}
+        if self.runner_group.remotes:
+            self._replenish_pipeline()
+
+    def _replenish_pipeline(self) -> None:
+        """Keep max_requests_in_flight_per_env_runner sample calls armed
+        per runner of the fleet as it stands: the deficit counted per live
+        handle, so a slot replaced by any path (the broadcast's repair
+        included) is re-armed to its full count. A runner dead at submit is
+        replaced in place and its replacement armed."""
+        per = max(1, self.config.max_requests_in_flight_per_env_runner)
+        n = self.config.rollout_fragment_length
+        counts = collections.Counter(id(h) for h in self._inflight.values())
+        for slot in range(len(self.runner_group.remotes)):
+            h = self.runner_group.remotes[slot]
+            deficit = per - counts[id(h)]
+            while deficit > 0:
+                try:
+                    ref = h.sample.remote(num_steps=n)
+                except Exception as err:  # noqa: BLE001 — dead at submit
+                    actors.check_gone(err)
+                    h = self.runner_group.replace_runner(h, "actor_died",
+                                                         err)
+                    if h is None:
+                        break
+                    deficit = per
+                    continue
+                self._inflight[ref.future()] = h
+                deficit -= 1
+
+    def _next_fragment(self):
+        """The pipelined path's episodes: the oldest armed call among those
+        done within FRAGMENT_WAIT_S (none: an empty list). A dead runner's
+        fragment is dropped and its slot replaced; then every runner is
+        re-armed."""
+        done, _ = concurrent.futures.wait(
+            list(self._inflight), timeout=FRAGMENT_WAIT_S,
+            return_when=concurrent.futures.FIRST_COMPLETED)
+        episodes = []
+        ready = next((f for f in self._inflight if f in done), None)
+        if ready is not None:
+            runner = self._inflight.pop(ready)
+            try:
+                episodes = ready.result()
+            except Exception as err:  # noqa: BLE001
+                actors.check_gone(err)
+                self.runner_group.replace_runner(runner, "actor_died", err)
+        self._replenish_pipeline()
+        return episodes
 
     @torch.no_grad()
     def _values(self, obs: np.ndarray) -> np.ndarray:
@@ -191,10 +257,15 @@ class IMPALA(Algorithm):
 
     def training_step(self) -> Dict[str, Any]:
         cfg = self.config
-        episodes = self.runner_group.sample(
-            num_steps=cfg.rollout_fragment_length)
+        t0 = time.perf_counter()
+        if self.runner_group.remotes:
+            episodes = self._next_fragment()
+        else:
+            episodes = self.runner_group.sample(
+                num_steps=cfg.rollout_fragment_length)
+        t1 = time.perf_counter()
         if not episodes:
-            return {"num_episodes": 0}
+            return {"num_episodes": 0, "wait_seconds": t1 - t0}
         self._record_episodes(episodes)
         out = self.learner.update_from_batch(self._episodes_to_batch(episodes))
         self.policy_version += 1
@@ -204,7 +275,12 @@ class IMPALA(Algorithm):
                                            self.policy_version)
             self._steps_since_broadcast = 0
         out["num_episodes"] = len(episodes)
+        out["num_env_steps_sampled"] = sum(len(e) for e in episodes)
         out["policy_version"] = self.policy_version
+        # the port's loop timings (host clock): waiting for the fragment
+        # (sampling, inline), then learning and the broadcast
+        out["wait_seconds"] = t1 - t0
+        out["learn_seconds"] = time.perf_counter() - t1
         return out
 
     def stop(self) -> None:
@@ -221,6 +297,5 @@ class APPOConfig(IMPALAConfig):
 
 class APPO(IMPALA):
     """Asynchronous PPO (reference: ray rllib/algorithms/appo/appo.py):
-    IMPALA's loop with the PPO clipped surrogate on the V-trace-corrected
-    advantages. Here it runs IMPALA's synchronous path (num_env_runners =
-    0); the asynchronous one waits for the actor runtime."""
+    IMPALA's loop, the in-flight pipeline included, with the PPO clipped
+    surrogate on the V-trace-corrected advantages."""

@@ -1,7 +1,10 @@
 """PPO, the port's counterpart of `ray_tpu/rllib/algorithms/ppo.py`.
 
 Synchronous sample -> GAE per episode fragment on the host -> minibatch
-Adam epochs -> weight broadcast to the runner. The loss (clipped surrogate
+Adam epochs -> weight broadcast to the runners: the inline one, or
+`num_env_runners` runner actors, with one learner or `num_learners` learner
+actors under the parameter mean (the groups of `env_runner` and
+`learner`). The loss (clipped surrogate
 + value loss - entropy bonus, advantages normalised per minibatch) is the
 JAX learner's, computed eagerly on the learner's device. The minibatch
 permutations come from `np.random.default_rng(iteration)`, as in JAX, so
@@ -75,11 +78,15 @@ class PPOLearner(TorchLearner):
 
 
 class PPO(Algorithm):
+    remote_options = ("num_env_runners", "num_learners")
+
     def setup(self, config: AlgorithmConfig) -> None:
         self.module_spec = self._actor_critic_spec(config)
         cfg = config.to_dict()
-        self.env_runner_group = EnvRunnerGroup(cfg, self.module_spec)
-        self.learner_group = LearnerGroup(PPOLearner, self.module_spec, cfg)
+        self.env_runner_group = EnvRunnerGroup(cfg, self.module_spec,
+                                               config.remote)
+        self.learner_group = LearnerGroup(PPOLearner, self.module_spec, cfg,
+                                          config.remote)
         self.env_runner_group.sync_weights(
             self.learner_group.get_weights(),
             self.learner_group.policy_version)

@@ -2,7 +2,7 @@
 on the device.
 
 Counterpart of `ray_tpu/rllib/env_runner.py`'s EnvRunner (:47-218) and
-of its EnvRunnerGroup with no remote runners. Each env step is one
+EnvRunnerGroup (:223-369). Each env step is one
 `forward_exploration` of the module on the device (eval mode, no
 autograd), its actions drawn from the runner's `torch.Generator`, seeded
 seed * 1000 + worker_index as the JAX runner seeds its key; the actions,
@@ -10,7 +10,14 @@ logp and value predictions come back to the host for the envs. Continuous
 actions stay in module space ([-1, 1]) in the episodes and are rescaled
 into the action space's bounds at the env boundary.
 
-`num_env_runners > 0` (runner actors) needs the actor runtime and raises.
+With `num_env_runners > 0` the group runs its runners as actors of the
+runtime, built with the actor decorator the config carries
+(`AlgorithmConfig.runtime(remote=...)`): each on the card at its position
+among the group's runners on its node (`_private/actors.py`), the weights
+shipped by value on the typed tensor wire, a dead runner replaced in
+place. The sync group's membership changes are kept on the group
+(`membership`), where JAX emits them as the `rl.runner_dead` and
+`rl.runner_respawn` events; those wait for the port of the event log.
 """
 
 from __future__ import annotations
@@ -21,7 +28,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import actors
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch._private.serialization import install_tensor_wire
 from ray_tpu_torch.rllib.algorithm_config import check_local
 from ray_tpu_torch.rllib.envs import SyncVectorEnv, make_env
 from ray_tpu_torch.rllib.episode import SingleAgentEpisode
@@ -45,7 +54,8 @@ def obs_to_device(obs, device):
 
 
 class EnvRunner:
-    """One sampling worker in the algorithm's own process."""
+    """One sampling worker: in the algorithm's own process, or in an actor
+    of an EnvRunnerGroup."""
 
     def __init__(self, config: Dict[str, Any], module_spec: Dict[str, Any],
                  worker_index: int = 0):
@@ -158,17 +168,129 @@ class EnvRunner:
 
 
 class EnvRunnerGroup:
-    """The one inline runner (num_env_runners = 0)."""
+    """The one inline runner (num_env_runners = 0), or `num_env_runners`
+    runner actors of the runtime, built with its actor decorator `remote`.
 
-    def __init__(self, config: Dict[str, Any], module_spec: Dict[str, Any]):
-        check_local({"num_env_runners": config.get("num_env_runners", 0)})
-        self.local = EnvRunner(config, module_spec, worker_index=0)
+    Fault-tolerant as JAX's: a runner that dies during a weight push or a
+    `sample` (its future raises one of `actors.RUNNER_GONE`) is replaced
+    in place, carrying the last weights pushed, while the restart budget
+    lasts; its fragment is dropped and the caller's batch-size loop tops
+    up. With restart_failed_env_runners=False, or the budget spent, the
+    runtime's own exception is raised again. Any other exception is the
+    runner's own error and propagates. `membership` records each change as
+    (event, runner slot, incarnation, reason)."""
+
+    def __init__(self, config: Dict[str, Any], module_spec: Dict[str, Any],
+                 remote=None):
+        self.num_remote = config.get("num_env_runners", 0) or 0
+        self._config = config
+        self._module_spec = module_spec
+        self._restart = config.get("restart_failed_env_runners", True)
+        self._restart_budget = int(config.get("max_env_runner_restarts", 20))
+        self.restarts = 0
+        self.membership: List[tuple] = []
+        self._last_weights = None
+        if self.num_remote == 0:
+            self.local = EnvRunner(config, module_spec, worker_index=0)
+            self.remotes = []
+            return
+        check_local({k: config.get(k) for k in ("num_env_runners",
+                                                 "decoupled")},
+                    remote, ("num_env_runners",))
+        self.local = None
+        self._cls = remote(actors.CardActor)
+        self.remotes = [self._spawn(i + 1) for i in range(self.num_remote)]
+        self._nodes = actors.place_actors(self.remotes, config.get("device"))
+        self._incarnations = [0] * self.num_remote
+
+    def _spawn(self, worker_index: int):
+        opts: Dict[str, Any] = {
+            "num_cpus": self._config.get("num_cpus_per_env_runner", 1)}
+        custom = self._config.get("custom_resources_per_env_runner")
+        if custom:
+            opts["resources"] = dict(custom)
+        return self._cls.options(**opts).remote(
+            EnvRunner, self._config, self._module_spec, worker_index)
+
+    def _call_each(self, method: str, *args, **kwargs) -> List[Any]:
+        """`method` on every runner; -> the values of those that answered.
+        A runner gone before or during the call is replaced in place."""
+        calls, dead = [], []
+        for w in self.remotes:
+            try:
+                calls.append((w, getattr(w, method).remote(*args, **kwargs)))
+            except Exception as err:  # noqa: BLE001 — dead at submit
+                actors.check_gone(err)
+                dead.append((w, err))
+        out = []
+        for w, ref in calls:
+            try:
+                out.append(ref.future().result())
+            except Exception as err:  # noqa: BLE001
+                actors.check_gone(err)
+                dead.append((w, err))
+        for w, err in dead:
+            self.replace_runner(w, "actor_died", err)
+        return out
 
     def sync_weights(self, weights, version: Optional[int] = None) -> None:
-        self.local.set_weights(weights, version)
+        """Push `weights` (a state dict) to every runner; a runner that
+        dies during the push is replaced carrying them. They travel as host
+        copies, which each runner copies onto its own card: a CUDA tensor
+        on the wire would be rebuilt on the sender's card index."""
+        if self.local is not None:
+            self.local.set_weights(weights, version)
+            return
+        install_tensor_wire()
+        # a copy that the learner's next updates leave as it is, for the
+        # replacements
+        weights = {k: v.detach().to("cpu", copy=True)
+                   for k, v in weights.items()}
+        self._last_weights = (weights, version)
+        self._call_each("set_weights", weights, version)
+
+    def replace_runner(self, handle, reason: str = "actor_died",
+                       error: Optional[BaseException] = None):
+        """Replace the dead runner `handle` in place; -> the replacement,
+        which carries the last weights pushed, or None when the handle has
+        already left the fleet. With restarts off or the budget spent,
+        raise `error` (the runtime's exception that told of the death).
+        The old actor is stopped first: a lost object can be reported while
+        its actor lives on, holding its CPUs and its card."""
+        try:
+            index = self.remotes.index(handle)
+        except ValueError:
+            return None
+        self.membership.append(("rl.runner_dead", index,
+                                self._incarnations[index], reason))
+        if not self._restart or self.restarts >= self._restart_budget:
+            if error is not None:
+                raise error
+            raise RuntimeError(f"env runner {index} died ({reason}) and "
+                               "restarts are off or spent")
+        actors.terminate(handle)
+        replacement = self._spawn(index + 1)
+        self._nodes = actors.place_actors(
+            [replacement], self._config.get("device"), self._nodes, [index])
+        if self._last_weights is not None:
+            replacement.set_weights.remote(*self._last_weights
+                                           ).future().result()
+        self.remotes[index] = replacement
+        self.restarts += 1
+        self._incarnations[index] = self.restarts
+        self.membership.append(("rl.runner_respawn", index, self.restarts,
+                                reason))
+        return replacement
 
     def sample(self, **kw) -> List[SingleAgentEpisode]:
-        return self.local.sample(**kw)
+        """Every runner's episodes; a dead runner's fragment is dropped and
+        its slot replaced."""
+        if self.local is not None:
+            return self.local.sample(**kw)
+        return [ep for eps in self._call_each("sample", **kw) for ep in eps]
 
     def stop(self) -> None:
-        self.local.stop()
+        if self.local is not None:
+            self.local.stop()
+        for w in self.remotes:
+            actors.terminate(w)

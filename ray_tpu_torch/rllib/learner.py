@@ -9,19 +9,29 @@ gradients are scaled by max_norm / ‖g‖ only where ‖g‖ ≥ max_norm (it i
 not `clip_grad_norm_`, which divides by ‖g‖ + 1e-6 and always
 multiplies).
 
-`LearnerGroup` is local only: `num_learners > 0` needs the actor runtime
-and raises.
+`LearnerGroup` holds one local learner, or `num_learners` learner actors
+of the runtime, built with the actor decorator the config carries
+(`AlgorithmConfig.runtime(remote=...)`), each on the card at its position
+among the group's learners on its node (`_private/actors.py`). An update
+cuts the batch into contiguous shards, one an actor; the driver then sets
+the parameter mean of their weights (`parameter_mean`, over host copies,
+so that learners on different cards meet on the CPU) on every actor and
+averages the metrics, as JAX's group does (`ray_tpu/rllib/learner.py:
+89-165`). Each actor keeps its own Adam moments: only the parameters are
+averaged.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ray_tpu_torch._private import actors
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch._private.serialization import install_tensor_wire
 from ray_tpu_torch.rllib.algorithm_config import check_local
 from ray_tpu_torch.train.optim import AdamW, AdamWState, global_norm
 
@@ -129,6 +139,14 @@ class TorchLearner:
         """The module's state dict (the live tensors: a reader copies)."""
         return self.module.state_dict()
 
+    def get_host_weights(self) -> Dict[str, torch.Tensor]:
+        """CPU copies of the module's state dict: what a group ships
+        between processes. A CUDA tensor on the wire is rebuilt on the
+        sender's card index, so each receiver takes host tensors and copies
+        them onto its own card (`set_weights`)."""
+        return {k: v.detach().to("cpu", copy=True)
+                for k, v in self.module.state_dict().items()}
+
     def set_weights(self, weights) -> None:
         self.module.load_state_dict(weights)
 
@@ -151,29 +169,80 @@ class TorchLearner:
         self.policy_version = int(state.get("policy_version", 0))
 
 
+def parameter_mean(weights: Sequence[Dict[str, torch.Tensor]]
+                   ) -> Dict[str, torch.Tensor]:
+    """The mean of the learners' state dicts, key by key, summed in the
+    learners' order as JAX's `sum(xs) / len(xs)` sums, on the device of the
+    first learner's leaf (the group's are host copies)."""
+    return {k: sum(w[k].to(weights[0][k].device) for w in weights)
+            / len(weights) for k in weights[0]}
+
+
 class LearnerGroup:
-    """One local learner (num_learners = 0)."""
+    """One local learner (num_learners = 0), or `num_learners` learner
+    actors of the runtime, built with its actor decorator `remote`, with
+    the parameter mean after every update. `policy_version` is the
+    driver's mirror of the update count."""
 
     def __init__(self, learner_cls, module_spec: Dict[str, Any],
-                 config: Dict[str, Any]):
-        check_local({"num_learners": config.get("num_learners", 0)})
-        self.local = learner_cls(module_spec, config)
+                 config: Dict[str, Any], remote=None):
+        self.num_remote = config.get("num_learners", 0) or 0
+        self._version = 0
+        if self.num_remote == 0:
+            self.local = learner_cls(module_spec, config)
+            self.remotes = []
+            return
+        check_local({"num_learners": self.num_remote}, remote,
+                    ("num_learners",))
+        self.local = None
+        install_tensor_wire()
+        cls = remote(actors.CardActor).options(num_cpus=1)
+        self.remotes = [cls.remote(learner_cls, module_spec, config)
+                        for _ in range(self.num_remote)]
+        actors.place_actors(self.remotes, config.get("device"))
 
     def update_from_batch(self, batch: Dict[str, Any]) -> Dict[str, float]:
-        return self.local.update_from_batch(batch)
+        if self.local is not None:
+            return self.local.update_from_batch(batch)
+        n = len(self.remotes)
+        size = len(next(iter(batch.values())))
+        shards = [{k: v[i * size // n:(i + 1) * size // n]
+                   for k, v in batch.items()} for i in range(n)]
+        metrics = actors.results([w.update_from_batch.remote(s)
+                                  for w, s in zip(self.remotes, shards)])
+        self._version += 1
+        mean = parameter_mean(actors.results(
+            [w.get_host_weights.remote() for w in self.remotes]))
+        actors.results([w.set_weights.remote(mean) for w in self.remotes])
+        out: Dict[str, float] = {}
+        for m in metrics:
+            for k, v in m.items():
+                out[k] = out.get(k, 0.0) + v / len(metrics)
+        return out
 
     def get_weights(self):
-        return self.local.get_weights()
+        if self.local is not None:
+            return self.local.get_weights()
+        return actors.results([self.remotes[0].get_host_weights.remote()])[0]
 
     @property
     def policy_version(self) -> int:
-        return self.local.policy_version
+        if self.local is not None:
+            return self.local.policy_version
+        return self._version
 
     def get_state(self):
-        return self.local.get_state()
+        if self.local is not None:
+            return self.local.get_state()
+        return actors.results([self.remotes[0].get_state.remote()])[0]
 
     def set_state(self, state) -> None:
-        self.local.set_state(state)
+        if self.local is not None:
+            self.local.set_state(state)
+            return
+        actors.results([w.set_state.remote(state) for w in self.remotes])
+        self._version = int(state.get("policy_version", 0))
 
     def stop(self) -> None:
-        pass
+        for w in self.remotes:
+            actors.terminate(w)

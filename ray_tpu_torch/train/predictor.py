@@ -15,7 +15,7 @@ compile that fails raises: no eager path takes over (fullgraph raises at
 a graph break and at the recompile limit).
 
 `BatchPredictor` needs `Dataset.map_batches` on the actor runtime and
-waits for it (ROADMAP.md queue 1, item 3).
+waits for it (ROADMAP.md queue 1, item 2).
 """
 
 from __future__ import annotations

@@ -172,7 +172,6 @@ def test_chip_smoke_phase_l_rehearsed_on_the_cpu(monkeypatch, capsys,
     (l-1)'s compiled, zoo and engine checks by the tests after it."""
     from ray_tpu_torch import graft_entry
 
-    t0 = time.perf_counter()
     smoke = _rehearse_phase_l(monkeypatch, tmp_path, request)
     monkeypatch.setattr(smoke, "phase_spmd_world1_compiled", _no_launches)
     monkeypatch.setattr(smoke, "phase_spmd_world1_zoo",
@@ -211,7 +210,6 @@ def test_chip_smoke_phase_l_rehearsed_on_the_cpu(monkeypatch, capsys,
     assert counts["spmd"] == {"flash_fwd": 6 * 2 * layers,
                               "flash_bwd_dq": 6 * layers,
                               "flash_bwd_dkv": 6 * layers}
-    assert time.perf_counter() - t0 < 60
 
 
 def test_chip_smoke_phase_l2_dry_run_rehearsed_on_the_cpu(monkeypatch, capsys,
@@ -222,7 +220,6 @@ def test_chip_smoke_phase_l2_dry_run_rehearsed_on_the_cpu(monkeypatch, capsys,
     the compiled sharded step against the eager one, the pipeline, the MoE
     dispatch, a Mixtral step over ep, the multi-slice mesh, tp=2 paged
     decode) passes and says so."""
-    t0 = time.perf_counter()
     smoke = _rehearse_phase_l(monkeypatch, tmp_path, request)
     # The collective groups' part is rehearsed on its own below.
     monkeypatch.setattr(smoke, "cards_collective",
@@ -241,7 +238,6 @@ def test_chip_smoke_phase_l2_dry_run_rehearsed_on_the_cpu(monkeypatch, capsys,
     assert "Mixtral step (dp=2 x ep=2) OK" in "".join(dry)
     assert "tp=2 paged decode OK" in dry[-2]
     assert dry[-1].endswith("all multichip checks passed")
-    assert time.perf_counter() - t0 < 60
 
 
 def test_chip_smoke_phase_l1_compiled_rehearsed_on_the_cpu(
@@ -251,7 +247,6 @@ def test_chip_smoke_phase_l1_compiled_rehearsed_on_the_cpu(
     with 2L / L / L launches a step on their own count; the zoo and engine
     checks are rehearsed by the next test, the (l-2) dry run by the one
     above."""
-    t0 = time.perf_counter()
     smoke = _rehearse_phase_l(monkeypatch, tmp_path, request)
     # The bench widths (the tiny config here) at the tiny config's depth:
     # the cut config is then the tiny one, whose programs torch.compile
@@ -285,7 +280,6 @@ def test_chip_smoke_phase_l1_compiled_rehearsed_on_the_cpu(
         "flash_fwd": 3 * 2 * (layers + cut),
         "flash_bwd_dq": 3 * (layers + cut),
         "flash_bwd_dkv": 3 * (layers + cut)}
-    assert time.perf_counter() - t0 < 60
 
 
 def test_chip_smoke_phase_l1_zoo_and_engine_rehearsed_on_the_cpu(
@@ -294,7 +288,6 @@ def test_chip_smoke_phase_l1_zoo_and_engine_rehearsed_on_the_cpu(
     steps against their unsharded ones, Mixtral's launches on their own
     count, and the dense engine with mesh= at tp=1 giving the engine's
     tokens without it."""
-    t0 = time.perf_counter()
     smoke = _rehearse_phase_l(monkeypatch, tmp_path, request)
     monkeypatch.setattr(smoke, "phase_spmd_cpu_ranks", lambda n: None)
     monkeypatch.setattr(smoke, "phase_spmd_world1_compiled", _no_launches)
@@ -312,7 +305,6 @@ def test_chip_smoke_phase_l1_zoo_and_engine_rehearsed_on_the_cpu(
     assert counts["zoo_mesh"] == {"flash_fwd": 3 * 2 * 2,
                                   "flash_bwd_dq": 3 * 2,
                                   "flash_bwd_dkv": 3 * 2}
-    assert time.perf_counter() - t0 < 60
 
 
 def test_chip_smoke_only_l_part_runs_one_four_card_part_on_the_cpu(
@@ -322,7 +314,6 @@ def test_chip_smoke_only_l_part_runs_one_four_card_part_on_the_cpu(
     pipeline's output and gradients against the stages in sequence), its
     lines and the last line's ok object; --part without --only l is
     refused."""
-    t0 = time.perf_counter()
     smoke = _rehearse_phase_l(monkeypatch, tmp_path, request)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setattr(smoke, "SPMD_PIPE", dict(m=4, mb=(2, 8),
@@ -330,13 +321,13 @@ def test_chip_smoke_only_l_part_runs_one_four_card_part_on_the_cpu(
     assert smoke.main(["--only", "l", "--part", "pipeline"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert any(line.startswith("[l-3] pipeline pp=4 of SwiGLU stages")
+               and "4 microbatches of (2, 8) tokens" in line
                for line in lines)
     assert any(line.startswith("[l-3] cards_pipeline:") for line in lines)
     assert not any(line.startswith(("[l-1]", "[dryrun")) for line in lines)
     assert json.loads(lines[-1])["ok"] is True
     with pytest.raises(SystemExit):
         smoke.main(["--part", "pipeline"])
-    assert time.perf_counter() - t0 < 60
 
 
 def test_chip_smoke_only_l_part_collective_rehearsed_on_the_cpu(
@@ -345,7 +336,6 @@ def test_chip_smoke_only_l_part_collective_rehearsed_on_the_cpu(
     gloo CPU ranks here, so no bus bandwidth is timed): the mesh groups'
     collectives eagerly and compiled exact against numpy on every rank, the
     typed errors and the host path, and the last line's ok object."""
-    t0 = time.perf_counter()
     smoke = _rehearse_phase_l(monkeypatch, tmp_path, request)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert smoke.main(["--only", "l", "--part", "collective"]) == 0
@@ -360,4 +350,3 @@ def test_chip_smoke_only_l_part_collective_rehearsed_on_the_cpu(
     assert not any("False" in line for line in lines
                    if line.startswith("[l-3] collective groups"))
     assert json.loads(lines[-1])["ok"] is True
-    assert time.perf_counter() - t0 < 60

@@ -315,7 +315,6 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     from ray_tpu_torch.models import llama, mixtral
     from ray_tpu_torch.train.optim import tree_leaves
 
-    t0 = time.perf_counter()
     smoke = rehearse_on_the_cpu(monkeypatch, tmp_path, request)
 
     def mixtral_step(tag):
@@ -509,4 +508,3 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     assert "library_ms" in kernels[0]["train_shape"]
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
-    assert time.perf_counter() - t0 < 60

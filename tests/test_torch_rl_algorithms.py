@@ -7,7 +7,7 @@ two CartPoles (the port's copy and gymnasium's), and CQL, MARWIL and BC
 train on the same numpy-seeded offline episodes, from the same weights.
 PPO learns CartPole as `tests/test_rllib.py::test_ppo_learns_cartpole`
 does. The entry points need CUDA unless asked for the CPU, and the
-runtime-only options raise.
+runtime's options raise without the runtime's actor decorator.
 """
 
 import jax
@@ -294,10 +294,12 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
 @pytest.mark.parametrize("option", ["num_env_runners", "num_learners"])
 @pytest.mark.parametrize("name", ["PPO", "IMPALA", "DQN"])
 def test_runtime_options_raise(name, option):
+    """Remote runners or learners are the runtime's actors: without its
+    decorator (`runtime(remote=...)`) they raise and name the setter."""
     cfg = (getattr(talgos, f"{name}Config")().environment("CartPole-v1")
            .resources(device="cpu"))
     setattr(cfg, option, 2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
+    with pytest.raises(ValueError, match=r"runtime\(remote=ray_tpu\.remote\)"):
         cfg.build()
 
 

@@ -116,15 +116,17 @@ def test_appo_config_and_registry_follow_jax():
     assert issubclass(timpala.APPO, timpala.IMPALA)
     for key in ("appo_clip", "clip_param", "lr", "rollout_fragment_length",
                 "vtrace_clip_rho_threshold", "vtrace_clip_c_threshold",
-                "vf_loss_coeff", "entropy_coeff", "normalize_advantages"):
+                "vf_loss_coeff", "entropy_coeff", "normalize_advantages",
+                "max_requests_in_flight_per_env_runner",
+                "broadcast_interval"):
         assert getattr(tcfg, key) == getattr(jcfg, key), key
-    # the port's loop is synchronous; JAX's config defaults to 2 runners
-    assert tcfg.num_env_runners == 0 and jcfg.num_env_runners == 2
+    # both default to two remote runners, pipelined
+    assert tcfg.num_env_runners == jcfg.num_env_runners == 2
 
 
 def test_appo_trains_on_the_cpu():
     algo = (timpala.APPOConfig().environment("CartPole-v1")
-            .env_runners(num_envs_per_env_runner=2,
+            .env_runners(num_env_runners=0, num_envs_per_env_runner=2,
                          rollout_fragment_length=16)
             .resources(device="cpu").debugging(seed=0).build())
     out = algo.train()
@@ -137,4 +139,5 @@ def test_appo_trains_on_the_cpu():
 def test_appo_needs_cuda_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        timpala.APPOConfig().environment("CartPole-v1").build()
+        (timpala.APPOConfig().environment("CartPole-v1")
+         .env_runners(num_env_runners=0).build())

@@ -6,12 +6,11 @@ tests/test_torch_flash_sm90.py rehearses main(). Both run
 `ray_tpu_torch.parallel.train_gang_cases.train_run`, the functions a runtime
 worker runs: bind, join at a host and a free port, the mesh through a
 collective group, the per-position feed, the save and the restore onto the
-mesh. (p) takes ~17 s alone (60 s bound), the part ~40 s (120 s
-bound)."""
+mesh. (p) takes ~17 s alone, the part ~40 s; their size is pinned by
+their launch counts and lines, not by a wall-clock bound."""
 
 import json
 import threading
-import time
 
 import numpy as np
 import pytest
@@ -48,7 +47,6 @@ def test_chip_smoke_phase_p_rehearsed_on_the_cpu(monkeypatch, capsys,
     joined again, the state restored bit for bit and step 3 again within
     1e-4; 2L / L / L launches over the four steps; the last line's ok
     object."""
-    t0 = time.perf_counter()
     smoke = _rehearse(monkeypatch, tmp_path, request, 1)
     assert smoke.main(["--only", "p"]) == 0
     assert not dist.is_initialized()
@@ -62,7 +60,6 @@ def test_chip_smoke_phase_p_rehearsed_on_the_cpu(monkeypatch, capsys,
     assert json.loads(lines[-2]) == {"train_gang_launches": {
         "flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}}
     assert json.loads(lines[-1])["ok"] is True
-    assert time.perf_counter() - t0 < 60
 
 
 def test_chip_smoke_part_train_gang_rehearsed_on_the_cpu(
@@ -72,7 +69,6 @@ def test_chip_smoke_part_train_gang_rehearsed_on_the_cpu(
     fsdp=2 x tp=2, each rank at its data position, the global batches
     assembled exactly, the restored state bit for bit on every rank, the
     restarted step within 1e-4."""
-    t0 = time.perf_counter()
     smoke = _rehearse(monkeypatch, tmp_path, request, 4)
     assert smoke.main(["--only", "l", "--part", "train_gang"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
@@ -81,10 +77,11 @@ def test_chip_smoke_part_train_gang_rehearsed_on_the_cpu(
     assert ("mesh {'pp': 1, 'dp': 1, 'fsdp': 2, 'ep': 1, 'sp': 1, 'tp': 2}"
             in gang)
     assert "restored bit for bit on every rank True" in gang
+    # two gangs of four spawned ranks at GANG_CARDS' size: three steps, the
+    # third run again by the second gang
+    assert "restarted step 3" in gang
     _line(lines, "[l-3] cards_train_gang:")
     assert json.loads(lines[-1])["ok"] is True
-    # two gangs of four spawned ranks, each compiling its step (aot_eager)
-    assert time.perf_counter() - t0 < 120
 
 
 def test_local_digests_tell_states_apart():
