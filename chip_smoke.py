@@ -56,6 +56,25 @@ Phases, in order; any failure raises and the script exits non-zero:
       a prefix-hit script): streams, block tables after every wave and
       prefix statistics identical; and sampling inside the decode graph
       repeatable on two fresh engines of each kind;
+  (r) the serving benchmarks on the same 8B weights, through the
+      in-process stand-in of the serving stack (`ray_tpu_torch.serve.
+      LocalServingStack`: a thread a replica, each over its own
+      PagedInferenceEngine on the one copy of the weights, streaming
+      through serve_stream): (r-0) one prefill wave of 456 tokens and one
+      of an 8-token tail at offset 448, each eagerly and as its CUDA
+      graph in turns, the same first tokens, ms a wave; (r-1) `inference.benchmarks.benchmark_serving`
+      at the reference's defaults (2 replicas, 24 requests of 8 tokens at
+      8 Hz, 12 new tokens each): TTFT p50/p99, tokens/s, peak memory and
+      the decode profiler's perf.phase_report fractions, every request
+      streamed exactly 12 tokens and every engine drained; (r-2)
+      `serve.run_prefix_ttft_benchmark` (a 448-token shared prefix, 6
+      rounds): cold and hit p50, hit_over_cold below 1 and at least 6 hit
+      and 6 missed requests; (r-3) the ray_tpu_kv_blocks{state} gauge
+      summing to the live engines' pools, the phase histogram holding
+      every phase of every recorded decode wave, and after (h-2) one
+      compile.start and one compile.end a compile whose durations add up
+      to compile_stats()'s seconds. `--only r` runs (r) alone after (a)
+      and the 8B init. It launches none of the flash kernels;
   (h) the training path, on the JAX package's train-bench configuration
       (bench.py: Llama-3-8B layer widths, 5 layers, vocab 32000, chunked CE
       of 1024, remat "dots", bf16, B=4, S=2048): the eager step
@@ -116,7 +135,8 @@ Phases, in order; any failure raises and the script exits non-zero:
       card, eagerly and inside a fullgraph function (aot_eager); (l-2)
       with fewer than 4 cards, `graft_entry.dryrun_multichip(4,
       device="cpu")` and `cards_collective` on 4 gloo CPU ranks (NCCL
-      takes one rank a card), as their lines say; (l-3) with 4 cards or
+      takes one rank a card), as their lines say, on a thread of their
+      own while (l-1) runs; (l-3) with 4 cards or
       more, one rank a card over NCCL, each part logged and the next one
       run if it fails (the phase then fails at its end): the dry run, the
       collective groups (mesh groups over dp=4, over tp of dp=2 x tp=2 and
@@ -216,7 +236,12 @@ Phases, in order; any failure raises and the script exits non-zero:
       batches of 1, 3, 17, 32 and 64 rows, each against the eager forward
       on the same rows in the same padded batch (bf16 1e-2 + 1e-2 |ref|;
       the eager forward of the rows alone is logged beside it), exactly
-      one compile per distinct bucket, images/s per batch. Its numbers
+      one compile per distinct bucket, images/s per batch; (o-3)
+      `BatchPredictor` over the same ViT-B/16 saved as a checkpoint, 256
+      seeded rows in batches of 64 through a stand-in dataset whose
+      map_batches runs its blocks in this process: the outputs bit for bit
+      those of `CompiledPredictor.predict` on the same rows, one load of
+      the checkpoint in the process and one compile per bucket. Its numbers
       are printed beside the card's name and power limit. `--only o` runs
       (o) alone after (a), and (o-2) there also with inductor on the same
       batches, timed and held against eager beside the default (about a
@@ -271,9 +296,10 @@ Phases, in order; any failure raises and the script exits non-zero:
       kernels.
 
 The launch counts are set to 0 just before each main path (serving: (d)
-and (e); paged serving: (i), which runs no flash kernel; training: (h);
-compiled training: (h-2); Mixtral: (k-1) and (k-2); the SPMD path's
-eager sharded steps, its compiled sharded steps and the zoo on the mesh:
+and (e); paged serving: (i), which runs no flash kernel; the serving
+benchmarks: (r), which runs none either; training: (h); compiled
+training: (h-2); Mixtral: (k-1) and (k-2); the SPMD path's eager sharded
+steps, its compiled sharded steps and the zoo on the mesh:
 (l), each on its own; the fed training path: (n-1)'s fed runs; the
 checkpointed training path: (o-1); the gang's training path: (p); the
 remote RL groups: (q), which runs no flash kernel) and read just after it. Each phase's
@@ -3389,17 +3415,37 @@ def phase_spmd_part(name):
 
 
 def phase_spmd(eager_first=None):
-    """(l): the SPMD path. -> the kernel launches of its main paths."""
+    """(l): the SPMD path. -> the kernel launches of its main paths. With
+    fewer than SPMD_CARDS cards, (l-2)'s CPU ranks, which use no card,
+    run on a thread of their own while (l-1) runs on the card, and (l)
+    ends when both have."""
+    import threading
+
     n_cards = torch.cuda.device_count()
     branch = "(l-3)" if n_cards >= SPMD_CARDS else "(l-2)"
     log(f"[l] {n_cards} GPU(s) visible: (l-1), then {branch}")
-    launches = phase_spmd_world1(eager_first)
+    cpu_ranks, failed = None, []
+    if n_cards < SPMD_CARDS:
+        def run_cpu_ranks():
+            try:
+                phase_spmd_cpu_ranks(n_cards)
+            except BaseException as e:  # noqa: BLE001 — raised at the join
+                failed.append(e)
+
+        cpu_ranks = threading.Thread(target=run_cpu_ranks, daemon=True,
+                                     name="chip-smoke-l2")
+        cpu_ranks.start()
+    try:
+        launches = phase_spmd_world1(eager_first)
+    finally:
+        if cpu_ranks is not None:
+            cpu_ranks.join()
+    if failed:
+        raise failed[0]
     if n_cards >= SPMD_CARDS:
         for path, counts in phase_spmd_cards().items():
             for k, v in counts.items():
                 launches[path][k] += v
-    else:
-        phase_spmd_cpu_ranks(n_cards)
     log(f"[l] launches on the SPMD paths: {launches}")
     return launches
 
@@ -4381,6 +4427,10 @@ CKPT_NEXT_REL_TOL = 1e-4
 PREDICT_BATCHES = (1, 3, 17, 32, 64)
 PREDICT_TIMED = 5
 PREDICT_TOL = (1e-2, 1e-2)
+# (o-3): BatchPredictor over ViT-B/16 (bf16) from a checkpoint, these rows
+# in batches of this size through a stand-in dataset.
+BATCH_PREDICT_ROWS = 256
+BATCH_PREDICT_SIZE = 64
 
 
 def _state_leaves(state):
@@ -4592,10 +4642,109 @@ def phase_predictor(card, compare=False):
             **{p.backend: r for p, r in runs[1:]}}
 
 
+class InProcessDataset:
+    """A stand-in for a dataset: `map_batches(fn, batch_size=)` runs `fn`
+    on each block of `batch_size` rows in this process, in order, where
+    the runtime's Dataset runs map tasks in its workers. Columns of numpy
+    arrays."""
+
+    def __init__(self, columns):
+        self.columns = columns
+
+    def map_batches(self, fn, batch_size=None):
+        n = len(next(iter(self.columns.values())))
+        size = batch_size or n
+        outs = [fn({k: v[i:i + size] for k, v in self.columns.items()})
+                for i in range(0, n, size)]
+        return InProcessDataset({k: np.concatenate([o[k] for o in outs])
+                                 for k in outs[0]})
+
+
+def phase_batch_predictor(card, seed=31):
+    """(o-3) BatchPredictor over ViT-B/16 (bf16) from a checkpoint:
+    BATCH_PREDICT_ROWS seeded images in batches of BATCH_PREDICT_SIZE
+    through `InProcessDataset`; its outputs against CompiledPredictor's
+    predict on the same rows (bit for bit), one load of the checkpoint in
+    the process and one compile per bucket. -> its numbers."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+    from ray_tpu_torch.train import predictor as tp
+
+    cfg = vit.ViTConfig.base_16()
+    params = vit.init(cfg, torch.Generator(device=DEVICE).manual_seed(23),
+                      device=DEVICE)
+    apply_fn = functools.partial(vit.forward, config=cfg)
+    loads = []
+
+    class Counted(tp.CompiledPredictor):
+        @classmethod
+        def from_checkpoint(cls, checkpoint, **kwargs):
+            loads.append(os.getpid())
+            return super().from_checkpoint(checkpoint, **kwargs)
+
+    x = np.random.default_rng(seed).standard_normal(
+        (BATCH_PREDICT_ROWS, cfg.image_size, cfg.image_size,
+         cfg.num_channels)).astype(np.float32)
+    root = tempfile.mkdtemp(prefix="chip_smoke_batch_predict_")
+    try:
+        ckpt = Checkpoint.from_arrays(params, os.path.join(root, "vit"))
+        del params
+        tp._PREDICTOR_CACHE.clear()
+        bp = tp.BatchPredictor(ckpt, Counted, apply_fn=apply_fn,
+                               device=DEVICE)
+        t0 = time.perf_counter()
+        got = bp.predict(InProcessDataset({"inputs": x}),
+                         batch_size=BATCH_PREDICT_SIZE).columns
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = bp.predict(InProcessDataset({"inputs": x}),
+                           batch_size=BATCH_PREDICT_SIZE).columns
+        warm_s = time.perf_counter() - t0
+        pred = tp._PREDICTOR_CACHE[bp.cache_key()]
+        ref = tp.CompiledPredictor.from_checkpoint(ckpt, apply_fn=apply_fn,
+                                                   device=DEVICE)
+        want = np.concatenate([
+            ref.predict({"inputs": x[i:i + BATCH_PREDICT_SIZE]})[
+                "predictions"]
+            for i in range(0, BATCH_PREDICT_ROWS, BATCH_PREDICT_SIZE)])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        tp._PREDICTOR_CACHE.clear()
+    same = (got["predictions"].shape == want.shape
+            and np.array_equal(got["predictions"], want)
+            and np.array_equal(again["predictions"], want))
+    buckets = sorted({tp._bucket(min(BATCH_PREDICT_SIZE, BATCH_PREDICT_ROWS
+                                     - i))
+                      for i in range(0, BATCH_PREDICT_ROWS,
+                                     BATCH_PREDICT_SIZE)})
+    log(f"[o-3] ({card}) BatchPredictor ViT-B/16 bf16 from a checkpoint, "
+        f"{BATCH_PREDICT_ROWS} rows in batches of {BATCH_PREDICT_SIZE} "
+        f"through a stand-in dataset: outputs {want.shape} bit for bit "
+        f"CompiledPredictor's {same}; checkpoint loads {len(loads)}, "
+        f"compiles {pred.compiles} for buckets {sorted(pred.buckets)}; "
+        f"{first_s:.2f} s the first pass (load and compile), {warm_s:.3f} s "
+        f"the second ({BATCH_PREDICT_ROWS / warm_s:.1f} images/s)")
+    check(same, "(o-3) the batch predictor's outputs differ from "
+          "CompiledPredictor.predict on the same rows")
+    check(len(loads) == 1, f"(o-3) {len(loads)} checkpoint loads in one "
+          "process, not 1")
+    check(sorted(pred.buckets) == buckets and pred.compiles == len(buckets),
+          f"(o-3) {pred.compiles} compiles for buckets {pred.buckets}, not "
+          f"one for each of {buckets}")
+    return {"rows": BATCH_PREDICT_ROWS, "batch_size": BATCH_PREDICT_SIZE,
+            "loads": len(loads), "compiles": pred.compiles,
+            "first_s": first_s, "warm_s": warm_s,
+            "images_per_s": BATCH_PREDICT_ROWS / warm_s}
+
+
 def phase_train_io(card, compare=False):
     """(o): (o-1) the checkpoint of the compiled step's state, then (o-2)
-    the compiled predictor (`compare`: beside COMPILE_BACKEND's). -> the
-    flash kernels' launches of (o-1)."""
+    the compiled predictor (`compare`: beside COMPILE_BACKEND's) and (o-3)
+    the batch predictor. -> the flash kernels' launches of (o-1), and the
+    predictors' numbers."""
     t0 = time.perf_counter()
     reset_kernel_counts()
     with _recompiles():  # the script has compiled llama.loss_fn before
@@ -4603,6 +4752,9 @@ def phase_train_io(card, compare=False):
         gc.collect()
         torch.cuda.empty_cache()
         predict = phase_predictor(card, compare)
+        gc.collect()
+        torch.cuda.empty_cache()
+        predict["batch_predictor"] = phase_batch_predictor(card)
     log(f"[o] Train's checkpoint and predictor: "
         f"{time.perf_counter() - t0:.1f} s")
     return launches, predict
@@ -4702,6 +4854,200 @@ def phase_rl_remote(card):
                          "membership": pipeline["membership"]}}
 
 
+# -- (r) the serving benchmarks ------------------------------------------------
+
+# (r-1) `benchmark_serving` and (r-2) `run_prefix_ttft_benchmark`, at the
+# reference's defaults.
+SERVING_BENCH = dict(num_replicas=2, n_requests=24, arrival_rate_hz=8.0,
+                     max_new_tokens=12, prompt_len=8)
+PREFIX_BENCH = dict(n_requests=6, shared_prefix_len=448, tail_len=8)
+# (r-0): one prefill wave at the prefix benchmark's engine settings, of
+# these (tokens, offset): a cold prompt and a hit's tail.
+PREFILL_WAVES = ((456, 0), (8, 448))
+PREFILL_TIMED = 5
+
+
+def _phase_counts(profiler):
+    """{phase: observations} of the phase histogram for `profiler`."""
+    from ray_tpu_torch._private import device_profiler
+
+    hist = device_profiler._metrics()[0]
+    with hist._lock:
+        return {dict(k)["phase"]: n for k, n in hist._totals.items()
+                if dict(k)["profiler"] == profiler}
+
+
+def _new_events(prefix, seq):
+    from ray_tpu_torch.util import metrics
+
+    return [e for e in metrics.events(prefix) if e["seq"] > seq]
+
+
+def prefill_graph_check(cfg, params, card, seed=41):
+    """(r-0) One prefill wave (`PagedInferenceEngine._prefill`) at the
+    prefix benchmark's engine settings, for each of PREFILL_WAVES, run
+    eagerly and as its CUDA graph in turns (eager, graph, graph, eager):
+    the first tokens equal, the ms a wave (host clock, synchronised) of
+    each. -> {wave: {mode: [ms, ms]}}."""
+    from ray_tpu_torch.inference import GenerationConfig
+    from ray_tpu_torch.inference.paged_engine import PagedInferenceEngine
+
+    max_len = 2 * PREFIX_BENCH["shared_prefix_len"]
+    eng = PagedInferenceEngine(params, cfg, max_batch=4, max_len=max_len,
+                               block_size=16, n_blocks=4 * (max_len // 16),
+                               decode_chunk=4, device=DEVICE)
+    graphs = eng._decoder.use_graph  # on the card; a rehearsal has none
+    rng = np.random.default_rng(seed)
+    rows = np.arange(1, 1 + eng.max_blocks_per_seq)[None]
+    gen = GenerationConfig()
+    out = {}
+    for n_tok, offset in PREFILL_WAVES:
+        bucket = eng._bucket_for(n_tok)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :n_tok] = rng.integers(1, cfg.vocab_size, n_tok)
+        args = (toks, rows, np.array([n_tok]), np.array([offset]))
+        ms, firsts = {}, {}
+        for mode in (False, graphs, graphs, False):
+            eng._decoder.use_graph = mode
+            eng._prefill(*args, gen)  # the graph's capture, the first time
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PREFILL_TIMED):
+                first = eng._prefill(*args, gen)
+            torch.cuda.synchronize()
+            name = "graph" if mode else "eager"
+            ms.setdefault(name, []).append(
+                (time.perf_counter() - t0) / PREFILL_TIMED * 1e3)
+            firsts.setdefault(name, []).append(first.tolist())
+        eng._decoder.use_graph = graphs
+        log(f"[r-0] ({card}) a prefill wave of {n_tok} tokens at offset "
+            f"{offset} (bucket {bucket}), ms a wave in turns: "
+            + ", ".join(f"{k} {[round(v, 3) for v in vs]}"
+                        for k, vs in ms.items())
+            + f"; first tokens {firsts}")
+        check(all(f == firsts["eager"][0] for fs in firsts.values()
+                  for f in fs),
+              f"(r-0) the prefill graph's first tokens differ: {firsts}")
+        out[f"{n_tok}@{offset}"] = ms
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serving_bench(cfg, params, card):
+    """(r) The serving benchmarks on the resident weights, through the
+    in-process stand-in of the serving stack (`serve.LocalServingStack`:
+    a thread a replica, each over its own PagedInferenceEngine on the one
+    copy of the weights): (r-0) the prefill wave eagerly and as its graph;
+    (r-1) `benchmark_serving`, every request's stream and every engine
+    drained; (r-2) `run_prefix_ttft_benchmark`;
+    (r-3) the KV gauge against the live engines' pools and the phase
+    histogram against the recorded decode waves. -> its numbers."""
+    from ray_tpu_torch._private import kv_registry
+    from ray_tpu_torch._private.device_profiler import get_profiler
+    from ray_tpu_torch.inference.benchmarks import benchmark_serving
+    from ray_tpu_torch.serve import (LocalServingStack,
+                                     run_prefix_ttft_benchmark)
+    from ray_tpu_torch.util import metrics
+
+    t0 = time.perf_counter()
+    prefill_ms = prefill_graph_check(cfg, params, card)
+    prof = get_profiler("decode", device=DEVICE)
+    prof.reset()
+    before = _phase_counts("decode")
+    seq = max([e["seq"] for e in metrics.events()] or [0])
+    stack = LocalServingStack()
+    torch.cuda.reset_peak_memory_stats()
+    res = benchmark_serving(cfg, stack=stack, device=DEVICE, params=params,
+                            **SERVING_BENCH)
+    peak = torch.cuda.max_memory_allocated()
+    prof.report(recent=0)
+    (event,) = [e for e in _new_events("perf.phase_report", seq)
+                if e["data"]["profiler"] == "decode"]
+    d = res["detail"]
+    new = SERVING_BENCH["max_new_tokens"]
+    n_req = SERVING_BENCH["n_requests"] + 2 * SERVING_BENCH["num_replicas"]
+    streamed = sorted(n for r in stack.replicas for n in r.streamed)
+    reps = [check_drained(r.engine, f"(r-1) replica {i}")
+            for i, r in enumerate(stack.replicas)]
+    log(f"[r-1] ({card}) benchmark_serving, Llama-3-8B bf16 at "
+        f"{cfg.n_layers} layers, {SERVING_BENCH['num_replicas']} replicas "
+        f"(engines of {reps[0]['n_blocks']} blocks of "
+        f"{reps[0]['block_size']}), {SERVING_BENCH['n_requests']} requests "
+        f"at {SERVING_BENCH['arrival_rate_hz']} Hz, {new} new tokens each: "
+        f"TTFT p50 {res['value']} ms, p99 {d['ttft_p99_ms']} ms, "
+        f"{d['tokens_per_sec']} tok/s; peak memory {peak / 2**30:.2f} GiB; "
+        f"perf.phase_report of the decode waves {event['data']}")
+    check(d["n_requests"] == SERVING_BENCH["n_requests"]
+          and streamed == [new] * n_req,
+          f"(r-1) {d['n_requests']} requests answered, streams of "
+          f"{streamed} tokens, not {n_req} of {new}")
+
+    prefix_stack = LocalServingStack()
+    pre = run_prefix_ttft_benchmark(stack=prefix_stack, device=DEVICE,
+                                    config=cfg, params=params,
+                                    **PREFIX_BENCH)["llm_prefix_ttft"]
+    check_drained(prefix_stack.replicas[0].engine, "(r-2)")
+    c, n = pre["cache"], PREFIX_BENCH["n_requests"]
+    log(f"[r-2] ({card}) run_prefix_ttft_benchmark, a "
+        f"{PREFIX_BENCH['shared_prefix_len']}-token shared prefix and "
+        f"{PREFIX_BENCH['tail_len']}-token tails, {n} rounds: cold p50 "
+        f"{pre['cold_p50_ms']} ms, hit p50 {pre['hit_p50_ms']} ms, "
+        f"hit_over_cold {pre['hit_over_cold']}; cache {c}")
+    check(c["hit_requests"] >= n and c["miss_requests"] >= n
+          and pre["hit_over_cold"] < 1,
+          f"(r-2) cache {c}, hit_over_cold {pre['hit_over_cold']}")
+
+    reports = kv_registry.report_all()
+    gauge = metrics.get_metric("ray_tpu_kv_blocks")
+    blocks = {dict(k)["state"]: v for k, v in gauge._values.items()}
+    pools = sum(r["n_blocks"] - 1 for r in reports)
+    rec = prof.report(recent=1 << 20, emit_event=False)
+    waves = rec["recent_steps"]
+    after = _phase_counts("decode")
+    observed = sum(after.values()) - sum(before.values())
+    recorded = sum(len(w["phases"]) for w in waves)
+    log(f"[r-3] ({card}) ray_tpu_kv_blocks {blocks} over {len(reports)} "
+        f"live engines of {pools} blocks in all (block 0 of each is "
+        f"scratch); the decode histogram observed {observed} phases of "
+        f"{rec['steps']} recorded waves, which hold {recorded}; "
+        f"{time.perf_counter() - t0:.1f} s for (r)")
+    check(len(reports) >= 3 and sum(blocks.values()) == pools
+          and all(r["free_blocks"] + r["cached_blocks"] + r["active_blocks"]
+                  == r["n_blocks"] - 1 for r in reports),
+          f"(r-3) the KV gauge {blocks} against the pools {reports}")
+    check(rec["steps"] == len(waves) and observed == recorded,
+          f"(r-3) {observed} phases observed, {recorded} in "
+          f"{len(waves)} of {rec['steps']} recorded waves")
+    return {"prefill_ms": prefill_ms, "serving": res, "peak_memory_bytes": peak,
+            "phase_report": event["data"], "prefix": pre,
+            "kv_blocks": blocks, "phases_observed": observed}
+
+
+def check_compile_events(card):
+    """(r-3), after (h-2): the compile listener's events against its
+    totals: one compile.start and one compile.end a compile, their
+    durations summing to compile_stats()'s seconds. -> the totals."""
+    from ray_tpu_torch._private.device_profiler import compile_stats
+    from ray_tpu_torch.util import metrics
+
+    stats = compile_stats()
+    starts, ends = metrics.events("compile.start"), metrics.events(
+        "compile.end")
+    took = sum(e["data"]["duration_s"] for e in ends)
+    ring = metrics.event_stats()
+    log(f"[r-3] ({card}) compile events so far: {len(starts)} starts, "
+        f"{len(ends)} ends, {took:.3f} s against compile_stats {stats}; "
+        f"events {ring}")
+    check(stats["compiles"] > 0 and len(starts) == len(ends)
+          == stats["compiles"] and ring["evicted"] == 0
+          and abs(took - stats["compile_s"]) <= 1e-9 * stats["compile_s"],
+          f"(r-3) compile events ({len(starts)} / {len(ends)}, {took} s) "
+          f"against compile_stats {stats}, ring {ring}")
+    return stats
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4715,14 +5061,16 @@ def main(argv=()) -> int:
 
     parser = argparse.ArgumentParser(description="Drive ray_tpu_torch on the "
                                      "card(s); see the module docstring.")
-    parser.add_argument("--only", choices=("l", "m", "n", "o", "p", "q"),
+    parser.add_argument("--only", choices=("l", "m", "n", "o", "p", "q",
+                                           "r"),
                         default=None,
                         help="run phase (l), the SPMD path (with 4 cards its "
                         "4-card part), (m), RLlib's one-process path, (n), "
                         "the data plane, (o), Train's checkpoint and "
-                        "predictor, (p), Train's gang at world 1, or (q), "
-                        "RLlib's remote groups, alone after the kernel "
-                        "build")
+                        "predictors, (p), Train's gang at world 1, (q), "
+                        "RLlib's remote groups, or (r), the serving "
+                        "benchmarks on the Llama-3-8B weights, alone after "
+                        "the kernel build")
     parser.add_argument("--part", default=None, choices=[
         p.__name__[len("cards_"):] for p in CARDS_PARTS],
         help="with --only l on 4 cards: this (l-3) part alone")
@@ -4837,6 +5185,23 @@ def main(argv=()) -> int:
             "platform": info["platform"], "kind": info["kind"],
             "count": info["count"]}}))
         return 0
+    if args.only == "r":
+        cfg = llama.LlamaConfig.llama3_8b()
+        params = llama.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                            device=DEVICE)
+        reset_kernel_counts()
+        bench = phase_serving_bench(cfg, params, card)
+        lap("r")
+        log_laps()
+        log(f"[r] launches of the flash kernels on the serving benchmarks: "
+            f"{kernel_counts()} (the paged engine attends through the cache "
+            f"attention)")
+        print(card)
+        print(json.dumps({"serving_bench": bench}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": info["platform"], "kind": info["kind"],
+            "count": info["count"]}}))
+        return 0
     main_lengths = MAIN_LENGTHS
     max_err = {"flash_fwd": phase_flash_check(main_lengths)}
     timing = {"flash_fwd": phase_flash_time()}
@@ -4878,6 +5243,12 @@ def main(argv=()) -> int:
     log(f"[i] launches on the paged serving path: {kernel_counts()} (it "
         f"attends through the cache attention, not the flash kernel); "
         f"{time.perf_counter() - t_start:.1f} s so far")
+    reset_kernel_counts()
+    phase_serving_bench(cfg, params, card)
+    lap("r")
+    log(f"[r] launches on the serving benchmarks: {kernel_counts()} (the "
+        f"paged engine runs none); {time.perf_counter() - t_start:.1f} s so "
+        "far")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4897,6 +5268,7 @@ def main(argv=()) -> int:
     lap("h-2")
     log(f"[h-2] launches on the compiled training path: {compiled}; "
         f"{time.perf_counter() - t_start:.1f} s so far")
+    check_compile_events(card)
     phase_train_tiny()
     phase_bench()
     phase_entry()

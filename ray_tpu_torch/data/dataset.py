@@ -29,6 +29,7 @@ import torch
 
 from ray_tpu_torch._private import gang
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch._private.device_profiler import observe_phase
 
 _FEED_DONE = object()
 
@@ -127,6 +128,10 @@ class _Stager:
 
 
 def _record_wait(scope, seconds: float) -> None:
+    """One consumer wait: into the phase histogram as input_wait of the
+    "data" profiler, as the reference's feed records it, and to `scope`'s
+    step when there is one."""
+    observe_phase("input_wait", seconds)
     if scope is not None:
         (scope() if callable(scope) else scope).external("input_wait",
                                                           seconds)
@@ -281,7 +286,9 @@ def iter_device_batches(batches: Iterable[Dict[str, np.ndarray]], *,
     overlap_frac 0). `stats`, a dict, gets produce_s, wait_s, batches and
     overlap_frac when the feed ends. `scope`, a `DeviceStepProfiler.step()`
     scope or a callable returning the scope of the step now running, gets
-    each pull's wait as its `input_wait` phase (`_StepScope.external`)."""
+    each pull's wait as its `input_wait` phase (`_StepScope.external`).
+    Every wait also goes to ray_tpu_step_phase_seconds{phase="input_wait",
+    profiler="data"} (`device_profiler.observe_phase`)."""
     dev = _feed_device(device, sharding)
     if local_rows and sharding is None:
         raise ValueError("local_rows needs the batch's sharding and mesh")

@@ -1,13 +1,17 @@
-"""Inference benchmark: decode tokens/s at full continuous-batching
-occupancy, beside the card's memory-bandwidth bound.
+"""Inference benchmarks: decode tokens/s at full continuous-batching
+occupancy, beside the card's memory-bandwidth bound, and the serving
+numbers users feel: TTFT p50/p99 and delivered tokens/s under Poisson
+arrivals through serve.llm.
 
-Counterpart of `ray_tpu/inference/benchmarks.py` `benchmark_engine`. The
-bound reads the detected card's device-memory bandwidth
-(`_private/accelerators/nvidia.py`); a CPU run reports none, since a CPU
-rate is no device metric. `benchmark_serving` (Poisson arrivals through
-serve.llm) waits for a port of the serve stack.
+Counterpart of `ray_tpu/inference/benchmarks.py` (`benchmark_engine`,
+`benchmark_serving`). The bound reads the detected card's device-memory
+bandwidth (`_private/accelerators/nvidia.py`); a CPU run reports none,
+since a CPU rate is no device metric. `benchmark_serving` takes the
+serving stack as a value (`ray_tpu_torch.serve.ServingStack`).
 
-Run: python -m ray_tpu_torch.inference.benchmarks
+Run: python -m ray_tpu_torch.inference.benchmarks            # engine decode
+     python -m ray_tpu_torch.inference.benchmarks serving    # serving, over
+                                  # the in-process stand-in of the stack
 """
 
 from __future__ import annotations
@@ -81,5 +85,124 @@ def benchmark_engine(config: Optional[Any] = None, *, max_batch: int = 8,
             "unit": "tokens/s", "seconds": dt, "detail": detail}
 
 
+def benchmark_serving(config: Optional[Any] = None, *, stack=None,
+                      num_replicas: int = 2, n_requests: int = 24,
+                      arrival_rate_hz: float = 8.0,
+                      max_new_tokens: int = 12, prompt_len: int = 8,
+                      device=None, params: Optional[Dict] = None
+                      ) -> Dict[str, Any]:
+    """Serving under open-loop Poisson arrivals: requests fire on an
+    exponential-gap schedule (random.Random(0)) whatever the completions,
+    stream through the stack's router and `num_replicas` paged-engine
+    replicas, and the numbers come from client-observed token arrival
+    times. 2 * num_replicas warm-up requests run first, outside the
+    measurement. stack: the serving stack (required). Default config:
+    small_1b on the card, tiny on the CPU, with weights from seed 0 unless
+    `params` (converted or already resident weights) are given."""
+    import random
+    import threading
+
+    from ray_tpu_torch.inference.paged_engine import PagedInferenceEngine
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve import require_stack
+
+    stack = require_stack(stack, "benchmark_serving")
+    dev = resolve_device(device)
+    if config is None:
+        config = (llama.LlamaConfig.small_1b() if dev.type == "cuda"
+                  else llama.LlamaConfig.tiny())
+    if params is None:
+        params = llama.init(config,
+                            torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+
+    def build():
+        return PagedInferenceEngine(params, config, max_batch=8,
+                                    max_len=128, block_size=16,
+                                    decode_chunk=4, device=dev)
+
+    stack.init()
+    app = stack.build_llm_app(
+        build, name="llm_bench", num_replicas=num_replicas,
+        default_config={"max_new_tokens": max_new_tokens},
+        shed_queue_depth=10_000)  # measure queueing, don't shed it
+    try:
+        handle = stack.run(app, name="llm_bench")
+        stream = handle.options(method_name="stream_tokens", stream=True)
+        rng = random.Random(0)
+        prompts = [[1 + rng.randrange(31) for _ in range(prompt_len)]
+                   for _ in range(n_requests)]
+        # every replica's first programs out of the measurement
+        warm = [threading.Thread(
+            target=lambda p=p: list(stream.remote({"prompt": p})))
+            for p in prompts[:num_replicas * 2]]
+        for t in warm:
+            t.start()
+        for t in warm:
+            t.join()
+
+        results: list = [None] * n_requests
+
+        def issue(i: int, prompt):
+            t0 = time.perf_counter()
+            first = None
+            n = 0
+            for _tok in stream.remote({"prompt": prompt}):
+                if first is None:
+                    first = time.perf_counter()
+                n += 1
+            results[i] = (t0, first, time.perf_counter(), n)
+
+        threads = []
+        t_start = time.perf_counter()
+        for i, prompt in enumerate(prompts):
+            time.sleep(rng.expovariate(arrival_rate_hz))
+            t = threading.Thread(target=issue, args=(i, prompt))
+            t.start()
+            threads.append(t)
+        for t in threads:
+            t.join()
+        t_end = time.perf_counter()
+    finally:
+        stack.shutdown()
+
+    done = [r for r in results if r is not None and r[1] is not None]
+    if not done:
+        raise RuntimeError(
+            "no serving request produced a first token; the serving "
+            "stack is down, not slow")
+    ttfts = sorted((first - t0) * 1e3 for t0, first, _, _ in done)
+    total_tokens = sum(n for _, _, _, n in done)
+
+    def pct(p):
+        return round(ttfts[min(len(ttfts) - 1,
+                               int(p / 100 * len(ttfts)))], 2)
+
+    return {
+        "metric": "llm_serving_ttft_p50_ms",
+        "value": pct(50),
+        "unit": "ms",
+        "detail": {
+            "ttft_p99_ms": pct(99),
+            "tokens_per_sec": round(total_tokens / (t_end - t_start), 1),
+            "n_requests": len(done),
+            "num_replicas": num_replicas,
+            "arrival_rate_hz": arrival_rate_hz,
+            "max_new_tokens": max_new_tokens,
+            "platform": "gpu" if dev.type == "cuda" else "cpu",
+            "note": ("open-loop Poisson arrivals through serve.llm "
+                     "(router + continuous-batching engine replicas, "
+                     "streaming token path); client-observed timings"),
+        },
+    }
+
+
 if __name__ == "__main__":
-    print(json.dumps(benchmark_engine()))
+    import sys
+
+    if "serving" in sys.argv[1:]:
+        from ray_tpu_torch.serve.local import LocalServingStack
+
+        print(json.dumps(benchmark_serving(stack=LocalServingStack())))
+    else:
+        print(json.dumps(benchmark_engine()))

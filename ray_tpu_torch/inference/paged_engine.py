@@ -30,7 +30,12 @@ The host's numpy block table is the source of truth; it goes to the
 device once per prefill wave and once per decode wave. The pool is
 updated in place where the JAX package donates it. A decode wave is the
 shared `FusedDecode` loop (one CUDA graph per step on the card) with one
-device-to-host copy of its token block and executed-step count.
+device-to-host copy of its token block and executed-step count. On the
+card a prefill wave is also a CUDA graph, one per (rows, bucket,
+sampling configuration), captured on first use where the JAX package
+compiles a program per shape: the eager prefill of Llama-3-8B launches
+about 3000 kernels, and on an H100 their launch takes longer than their
+work (`chip_smoke.py` (r-0) times a wave both ways).
 """
 
 from __future__ import annotations
@@ -160,7 +165,8 @@ class PagedInferenceEngine:
         # Phase attribution: every decode wave records input_wait /
         # prefill / device_execute / reply into the shared "decode"
         # profiler, whose aggregate engine.stats() carries.
-        self.profiler = get_profiler("decode", device=self.device)
+        self.profiler = get_profiler("decode", device=self.device,
+                                     hbm_every=8)
         self.preemptions = 0  # observability: recompute-preemption count
         self.peak_active = 0  # high-water mark of concurrently-decoding
         # requests — the ground-truth continuous-batching signal
@@ -180,6 +186,11 @@ class PagedInferenceEngine:
             table_shape=self.block_table.shape)
         if mesh is not None:
             self._decoder.use_graph = False
+        # prefill graphs (`_prefill`) by (rows, bucket, sampling
+        # configuration), in one memory pool: waves run one at a time and
+        # each output is read before the next replay
+        self._prefill_programs: Dict[Tuple, Any] = {}
+        self._prefill_pool = None
 
     # -- device side -----------------------------------------------------------
 
@@ -201,6 +212,40 @@ class PagedInferenceEngine:
         last = logits[torch.arange(n, device=self.device), true_lens - 1]
         return sample_token(last, self._gen, temperature=gen.temperature,
                             top_k=gen.top_k, top_p=gen.top_p)
+
+    def _prefill(self, toks, rows, true_lens, offsets, gen) -> np.ndarray:
+        """`_prefill_batch` on host arrays -> the first tokens (numpy).
+        Where the decode step runs as a CUDA graph, so does this: the
+        replay of this shape's graph, captured on first use after a
+        warm-up call on the real inputs (which writes the K/V the replay
+        writes again); elsewhere, eagerly."""
+        host = (toks, rows, true_lens, offsets)
+        if not self._decoder.use_graph:
+            return self._prefill_batch(*map(self._tensor, host),
+                                       gen).cpu().numpy()
+        key = (toks.shape, gen.temperature, gen.top_k, gen.top_p)
+        program = self._prefill_programs.get(key)
+        if program is None:
+            statics = [self._tensor(x) for x in host]
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self._prefill_batch(*statics, gen)
+            current.wait_stream(side)
+            if self._prefill_pool is None:
+                self._prefill_pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            if gen.temperature > 0:
+                graph.register_generator_state(self._gen)
+            with torch.cuda.graph(graph, pool=self._prefill_pool):
+                out = self._prefill_batch(*statics, gen)
+            program = self._prefill_programs[key] = (graph, statics, out)
+        graph, statics, out = program
+        for dst, src in zip(statics, host):
+            dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
+        graph.replay()
+        return out.cpu().numpy()
 
     @torch.no_grad()
     def _copy_blocks(self, src, dst) -> None:
@@ -592,10 +637,8 @@ class PagedInferenceEngine:
                     if cow_pairs:
                         self._copy_blocks([s for s, _ in cow_pairs],
                                           [d for _, d in cow_pairs])
-                    firsts = self._prefill_batch(
-                        self._tensor(toks), self._tensor(rows),
-                        self._tensor(true_lens), self._tensor(offsets),
-                        gen).cpu().numpy()
+                    firsts = self._prefill(toks, rows, true_lens, offsets,
+                                           gen)
                 except Exception:
                     for _, _, _, _, slot, _, _ in wave:
                         self._release(slot)

@@ -11,9 +11,8 @@ decorator that `AlgorithmConfig.runtime(remote=ray_tpu.remote)` hands in
 (`algorithms`) are PPO, APPO, IMPALA's V-trace update, DQN, CQL,
 MARWIL/BC, SAC and DreamerV3; `multi_agent` runs PPO over a
 `MultiAgentEnv`, one learner per policy. `convert` carries the JAX
-modules' parameters and Adam state across. The decoupled dataflow waits
-for the port of the runtime's event log and raises
-(`algorithm_config.DATAFLOW_ITEM`).
+modules' parameters and Adam state across. The decoupled dataflow is not
+ported yet and raises (`algorithm_config.DATAFLOW_ITEM`).
 """
 
 from ray_tpu_torch.rllib.algorithm import Algorithm  # noqa: F401

@@ -22,10 +22,10 @@ from typing import Any, Dict, Optional, Type
 
 from ray_tpu_torch._private.actors import NEEDS_RUNTIME
 
-# What the port cannot run yet: the decoupled dataflow emits and reads the
-# runtime's event log and exports its metrics.
-DATAFLOW_ITEM = ("ROADMAP.md queue 1, item 4: the decoupled dataflow waits "
-                 "for the port of the runtime's metrics and events (item 3)")
+# What the port cannot run yet: the decoupled dataflow (its events and
+# gauges would go through `util.metrics`).
+DATAFLOW_ITEM = ("ROADMAP.md queue 1, item 4: the decoupled dataflow is not "
+                 "ported yet")
 
 
 def check_local(options: Dict[str, Any], remote=None,

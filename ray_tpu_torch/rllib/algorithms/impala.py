@@ -15,7 +15,7 @@ back (the oldest armed call among those done), a dead runner's fragment is
 dropped and its slot replaced, every runner is re-armed by its deficit, and
 the weights are broadcast every `broadcast_interval` updates. With
 num_env_runners = 0 it samples inline. The decoupled dataflow and its
-`rl.learner_step` event wait for the port of the runtime's event log
+`rl.learner_step` event are not ported yet
 (`algorithm_config.DATAFLOW_ITEM`).
 """
 

@@ -14,15 +14,18 @@ compiles it once per bucket, and the predictor counts the compiles. A
 compile that fails raises: no eager path takes over (fullgraph raises at
 a graph break and at the recompile limit).
 
-`BatchPredictor` needs `Dataset.map_batches` on the actor runtime and
-waits for it (ROADMAP.md queue 1, item 2).
+`BatchPredictor` maps a predictor over a dataset that comes in as an
+argument (the runtime's `ray_tpu.data.Dataset`, or anything with
+`map_batches(fn, batch_size=)`), with one predictor per worker process.
 """
 
 from __future__ import annotations
 
+import functools
+import hashlib
 import os
 import pickle
-from typing import Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -173,3 +176,58 @@ class TorchPredictor(Predictor):
         with torch.no_grad():
             out = self.model(x)
         return {self.output_column: out.cpu().numpy()}
+
+
+# The worker process's predictors (see BatchPredictor.predict); at most
+# PREDICTOR_CACHE_SIZE, the oldest evicted first.
+_PREDICTOR_CACHE: Dict[Any, Predictor] = {}
+PREDICTOR_CACHE_SIZE = 4
+
+
+class BatchPredictor:
+    """Dataset-scale inference: a predictor per worker process of the
+    dataset's `map_batches` (reference: train/batch_predictor.py)."""
+
+    def __init__(self, checkpoint: Checkpoint, predictor_cls,
+                 **predictor_kwargs):
+        self._checkpoint = checkpoint
+        self._cls = predictor_cls
+        self._kwargs = predictor_kwargs
+        # The key is taken now: torch.compile sets attributes on the
+        # function it compiles, which would change a later digest.
+        try:
+            digest = hashlib.sha256(pickle.dumps(
+                sorted(predictor_kwargs.items(), key=lambda kv: kv[0]))
+            ).hexdigest()
+        except Exception:  # noqa: BLE001 — unpicklable kwargs: no sharing
+            digest = repr(id(predictor_kwargs))
+        self._key = (predictor_cls.__name__,
+                     getattr(checkpoint, "path", id(checkpoint)), digest)
+
+    def cache_key(self):
+        """(class name, checkpoint path, digest of the kwargs), taken at
+        construction: the key survives the function's pickling, so the map
+        tasks of one process share one predictor; unpicklable kwargs share
+        nothing."""
+        return self._key
+
+    def predict(self, dataset, *, batch_size: Optional[int] = 256):
+        """`dataset.map_batches` of the predictor's `predict`, batches of
+        `batch_size` rows."""
+        fn = functools.partial(_predict_cached, self._key, self._cls,
+                               self._checkpoint, self._kwargs)
+        return dataset.map_batches(fn, batch_size=batch_size)
+
+
+def _predict_cached(key, cls, checkpoint, kwargs, batch):
+    """One batch through this process's predictor for `key`, loaded on
+    first use. A module-level function, so that a map task pickles it by
+    reference and finds this process's cache, not a copy of it."""
+    p = _PREDICTOR_CACHE.get(key)
+    if p is None:
+        # evict before the load: at most the bound of models held
+        while len(_PREDICTOR_CACHE) >= PREDICTOR_CACHE_SIZE:
+            _PREDICTOR_CACHE.pop(next(iter(_PREDICTOR_CACHE)))
+        p = cls.from_checkpoint(checkpoint, **kwargs)
+        _PREDICTOR_CACHE[key] = p
+    return p.predict(batch)

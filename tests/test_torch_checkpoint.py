@@ -163,8 +163,9 @@ def test_chip_smoke_phase_o_rehearsed_on_the_cpu(monkeypatch, capsys,
     tests/test_torch_flash_sm90.py rehearses main()) and the kernels'
     plain versions: (o-1) at the tiny train config compiled on aot_eager
     (2L / L / L launches over its 6 steps), (o-2) over a tiny ViT at
-    (o-2)'s batches with one compile per bucket; the last line is the ok
-    object."""
+    (o-2)'s batches with one compile per bucket, (o-3) the batch predictor
+    over the tiny ViT's checkpoint, 24 rows in batches of 8; the last line
+    is the ok object."""
     import json
 
     from ray_tpu_torch.models import vit
@@ -178,9 +179,11 @@ def test_chip_smoke_phase_o_rehearsed_on_the_cpu(monkeypatch, capsys,
     monkeypatch.setattr(smoke, "TRAIN_ATTN", (2, 64, 64, 4, 2, 32, True))
     monkeypatch.setattr(vit.ViTConfig, "base_16",
                         staticmethod(vit.ViTConfig.tiny))
+    monkeypatch.setattr(smoke, "BATCH_PREDICT_ROWS", 24)
+    monkeypatch.setattr(smoke, "BATCH_PREDICT_SIZE", 8)
     assert smoke.main(["--only", "o"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
-    for tag in ("[o-1]", "[o-2]", "[o]"):
+    for tag in ("[o-1]", "[o-2]", "[o-3]", "[o]"):
         assert any(line.startswith(tag) for line in lines), tag
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
     out = json.loads(lines[-2])
@@ -189,5 +192,9 @@ def test_chip_smoke_phase_o_rehearsed_on_the_cpu(monkeypatch, capsys,
                                           "flash_bwd_dkv": 6}
     assert out["predictor"]["compiles"] == 4
     assert sorted(out["predictor"]["buckets"]) == [1, 4, 32, 64]
+    # (o-3): 24 rows in batches of 8, one load, one compile (bucket 8)
+    assert {k: out["predictor"]["batch_predictor"][k] for k in (
+        "rows", "batch_size", "loads", "compiles")} == {
+        "rows": 24, "batch_size": 8, "loads": 1, "compiles": 1}
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}

@@ -385,6 +385,10 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     # tests/test_torch_train_gang.py; here one tiny Llama step stands in.
     monkeypatch.setattr(smoke, "phase_train_gang", lambda card: llama_step(
         "[p] one tiny Llama step in place of phase (p)"))
+    # (r), the serving benchmarks, is rehearsed on its own by
+    # tests/test_torch_serve_benchmarks.py.
+    monkeypatch.setattr(smoke, "phase_serving_bench", lambda *a: smoke.log(
+        "[r] rehearsed by tests/test_torch_serve_benchmarks.py"))
     # The bench at (h-2)'s batch, as on the card.
     from ray_tpu_torch import bench
     monkeypatch.setattr(bench, "CPU_BATCH", 2)
@@ -448,7 +452,8 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     assert smoke.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
     for tag in ("[a]", "[b]", "[c]", "[f]", "[g]", "[d]", "[d+e]", "[h]",
-                "[i-1]", "[i-2]", "[i-3]", "[i-4]", "[i]", "[h-2]",
+                "[i-1]", "[i-2]", "[i-3]", "[i-4]", "[i]", "[r]", "[h-2]",
+                "[r-3]",
                 "[bench]", "[j]", "[k]", "[l]", "[m]", "[n]", "[o]"):
         assert any(line.startswith(tag) for line in lines), tag
     for text in ("[e] _decode_attention", "[e] _cached_attention",
