@@ -294,6 +294,26 @@ Phases, in order; any failure raises and the script exits non-zero:
       for a fragment and learning, beside the card's name and power limit.
       `--only q` runs (q) alone after (a). It launches none of the flash
       kernels.
+  (s) The decoupled RL dataflow and `lower_to_jit`, the actors stood in
+      for as in (q): (s-1) IMPALA (fp32, CartPole at its default widths)
+      with `dataflow(decoupled=True)` over two stand-in runners bound to
+      the card, 8 updates; after a third of them one runner fails and the
+      fleet respawns its slot, after two thirds the learner's version
+      jumps past the staleness bound and the queued batches are dropped
+      as stale; checked: no stale batch trained on, the `rl.*` events'
+      counts against the dataflow's, and the first update against the
+      same pulled batch on the CPU (1e-5 + 1e-4 |ref|); (s-2)
+      `benchmark_decoupled` at JAX's widths (the 84x84x4 synthetic image
+      env, convs (16,3,2),(32,3,2), hiddens 256, 4 envs a runner,
+      fragments of 64, a queue of 8 n) at 1 and 2 runners, each for 4 s
+      (JAX: 8 s): the env steps per second the learner consumes; (s-3)
+      `lower_to_jit` of two DAGs (a shared subgraph; a diamond over an
+      input dict) at 1024 x 1024 fp32, compiled by inductor, against the
+      eager DAG (1e-5 + 1e-5 |ref|), each timed both ways. It logs the
+      learner's seconds pulling against learning, the env steps per
+      second at each runner count, beside the card's name and power
+      limit. `--only s` runs (s) alone after (a). It launches none of the
+      flash kernels.
 
 The launch counts are set to 0 just before each main path (serving: (d)
 and (e); paged serving: (i), which runs no flash kernel; the serving
@@ -302,7 +322,8 @@ training: (h-2); Mixtral: (k-1) and (k-2); the SPMD path's eager sharded
 steps, its compiled sharded steps and the zoo on the mesh:
 (l), each on its own; the fed training path: (n-1)'s fed runs; the
 checkpointed training path: (o-1); the gang's training path: (p); the
-remote RL groups: (q), which runs no flash kernel) and read just after it. Each phase's
+remote RL groups: (q), and the decoupled dataflow with `lower_to_jit`:
+(s), which run no flash kernel) and read just after it. Each phase's
 seconds are logged at the end ("[phases]"). The last
 three lines of stdout are the card's `nvidia-smi` name and power limit, one
 JSON object on the kernels, and `{"ok": true, "device": ...}`. Without
@@ -4854,6 +4875,98 @@ def phase_rl_remote(card):
                          "membership": pipeline["membership"]}}
 
 
+# -- (s) the decoupled RL dataflow and lower_to_jit -----------------------------
+
+# (s-2): each runner count of `benchmark_decoupled` runs this many seconds
+# (JAX's default: 8).
+DATAFLOW_BENCH_S = 4.0
+# (s-3): lower_to_jit's input, fp32, and the card's program against the
+# eager DAG: |a - b| <= DAG_ATOL + DAG_RTOL |b|.
+DAG_SHAPE = (1024, 1024)
+DAG_ATOL, DAG_RTOL = 1e-5, 1e-5
+
+
+def phase_dataflow(card):
+    """(s) (s-1) decoupled IMPALA through the stand-in actors with a
+    failed runner and a stale jump, (s-2) `benchmark_decoupled`, (s-3)
+    `lower_to_jit` on the card against the eager DAG. -> its numbers."""
+    from ray_tpu_torch.dag import evaluate, lower_to_jit
+    from ray_tpu_torch.rllib import dataflow_cases as dc
+    from ray_tpu_torch.rllib.benchmarks import benchmark_decoupled
+    from ray_tpu_torch.rllib.remote_cases import LocalRuntime
+
+    t0 = time.perf_counter()
+    flow = dc.decoupled_case(DEVICE)
+    pull_s = sum(w for w, _ in flow["updates"])
+    learn_s = sum(l for _, l in flow["updates"])
+    log(f"[s-1] ({card}) decoupled IMPALA over 2 stand-in runners, "
+        f"{len(flow['updates'])} updates: runner {flow['failed_slot']} "
+        f"failed and was respawned; the version jumped to "
+        f"{flow['jumped_to']}: {flow['stale_dropped']} stale batches "
+        f"dropped, {flow['stale_trained']} trained on; "
+        f"{flow['discarded_dead']} batches of the dead runner discarded; "
+        f"events {flow['events']}; the first update against the CPU's, "
+        f"largest differences {flow['max_abs_err_first_update_metrics']:.3e}"
+        f" (metrics) / {flow['max_abs_err_first_update_weights']:.3e} "
+        f"(weights) within {dc.rc.ATOL:g} + {dc.rc.RTOL:g} |ref|; the "
+        f"learner's seconds pulling {pull_s:.6f} against learning "
+        f"{learn_s:.6f}; per update (pull, learn) "
+        f"{[(round(w, 6), round(l, 6)) for w, l in flow['updates']]}")
+    t1 = time.perf_counter()
+    runtime = LocalRuntime()
+    try:
+        bench = benchmark_decoupled((1, 2), duration_s=DATAFLOW_BENCH_S,
+                                    device=DEVICE, runtime=runtime)
+    finally:
+        runtime.shutdown()
+    per = bench["detail"]["per_worker_counts"]
+    check(set(per) == {"1", "2"} and all(v > 0 for v in per.values()),
+          f"benchmark_decoupled consumed {per}")
+    log(f"[s-2] ({card}) benchmark_decoupled at JAX's widths, 1 and 2 "
+        f"runners x {DATAFLOW_BENCH_S:g} s: {per} env-steps/s consumed by "
+        f"the learner (scaling {bench['detail']['scaling']:.3f}; "
+        f"{bench['detail']['host_cpus']} host CPUs; stand-in actors: "
+        f"threads of this process); {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    inputs = {n: torch.randn(DAG_SHAPE, generator=gen).to(DEVICE)
+              for n in ("x", "y")}
+    dags = {"workflow": (dc.workflow_dag, inputs["x"]),
+            "diamond": (dc.diamond_dag, inputs)}
+    out = {}
+    for name, (build, x) in dags.items():
+        dag = build(dc.remote, dc.InputNode, dc.MultiOutputNode)
+        fn = lower_to_jit(dag, backend=COMPILE_BACKEND)
+        tc = time.perf_counter()
+        got = fn(x)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - tc
+        want = evaluate(dag, x)
+        err = 0.0
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and bool(torch.all(
+                (g - w).abs() <= DAG_ATOL + DAG_RTOL * w.abs())),
+                f"lower_to_jit's {name} differs from the eager DAG")
+            err = max(err, float((g - w).abs().max()))
+        out[name] = {"max_abs_err": err, "compile_s": compile_s,
+                     "ms": cuda_ms(lambda: fn(x)),
+                     "eager_ms": cuda_ms(lambda: evaluate(dag, x))}
+    log(f"[s-3] ({card}) lower_to_jit ({COMPILE_BACKEND}) on "
+        f"{DAG_SHAPE} fp32 against the eager DAG within {DAG_ATOL:g} + "
+        f"{DAG_RTOL:g} |ref|: " + "; ".join(
+            f"{n}: largest difference {v['max_abs_err']:.3e}, first call "
+            f"(compiles) {v['compile_s']:.2f} s, {v['ms']:.4f} ms a call "
+            f"against {v['eager_ms']:.4f} ms eagerly"
+            for n, v in out.items()) +
+        f"; {time.perf_counter() - t2:.1f} s")
+    log(f"[s] the decoupled dataflow and lower_to_jit: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"impala": {k: v for k, v in flow.items() if k != "updates"},
+            "pull_s": [w for w, _ in flow["updates"]],
+            "learn_s": [l for _, l in flow["updates"]],
+            "benchmark_decoupled": bench, "lower_to_jit": out}
+
+
 # -- (r) the serving benchmarks ------------------------------------------------
 
 # (r-1) `benchmark_serving` and (r-2) `run_prefix_ttft_benchmark`, at the
@@ -5062,15 +5175,16 @@ def main(argv=()) -> int:
     parser = argparse.ArgumentParser(description="Drive ray_tpu_torch on the "
                                      "card(s); see the module docstring.")
     parser.add_argument("--only", choices=("l", "m", "n", "o", "p", "q",
-                                           "r"),
+                                           "r", "s"),
                         default=None,
                         help="run phase (l), the SPMD path (with 4 cards its "
                         "4-card part), (m), RLlib's one-process path, (n), "
                         "the data plane, (o), Train's checkpoint and "
                         "predictors, (p), Train's gang at world 1, (q), "
-                        "RLlib's remote groups, or (r), the serving "
-                        "benchmarks on the Llama-3-8B weights, alone after "
-                        "the kernel build")
+                        "RLlib's remote groups, (r), the serving "
+                        "benchmarks on the Llama-3-8B weights, or (s), the "
+                        "decoupled RL dataflow and lower_to_jit, alone "
+                        "after the kernel build")
     parser.add_argument("--part", default=None, choices=[
         p.__name__[len("cards_"):] for p in CARDS_PARTS],
         help="with --only l on 4 cards: this (l-3) part alone")
@@ -5169,6 +5283,21 @@ def main(argv=()) -> int:
             f"{kernel_counts()} (they run none)")
         print(card)
         print(json.dumps({"rl_remote": remote}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": info["platform"], "kind": info["kind"],
+            "count": info["count"]}}))
+        return 0
+    if args.only == "s":
+        reset_kernel_counts()
+        dataflow = phase_dataflow(card)
+        lap("s")
+        log_laps()
+        log(f"[s] launches of the flash kernels on the decoupled dataflow "
+            f"and lower_to_jit: {kernel_counts()} (they run none)")
+        check(not any(kernel_counts().values()),
+              "(s) launched a flash kernel")
+        print(card)
+        print(json.dumps({"dataflow": dataflow}))
         print(json.dumps({"ok": True, "device": {
             "platform": info["platform"], "kind": info["kind"],
             "count": info["count"]}}))
@@ -5317,6 +5446,14 @@ def main(argv=()) -> int:
     lap("q")
     log(f"[q] launches of the flash kernels on the remote RL groups: "
         f"{kernel_counts()} (they run none); "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_kernel_counts()
+    phase_dataflow(card)
+    lap("s")
+    log(f"[s] launches of the flash kernels on the decoupled dataflow and "
+        f"lower_to_jit: {kernel_counts()} (they run none); "
         f"{time.perf_counter() - t_start:.1f} s in all")
     log_laps()
 

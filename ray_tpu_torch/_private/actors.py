@@ -15,9 +15,10 @@ and the refs their calls return. Everything else is here:
 - An actor is stopped by the runtime's own terminating call
   (`terminate`: `__ray_terminate__`).
 - Each actor binds to a card before its first CUDA call (`CardActor`,
-  `place_actors`): the card at its position among its group's actors on
-  its node, modulo the node's cards (`card_of`). A runtime actor sees every
-  card of its node, so without the bind all of them would land on card 0.
+  `place_actors`, or `CardActor.bind_slot` for a replacement): the card
+  at its position among its group's actors on its node, modulo the node's
+  cards (`card_of`). A runtime actor sees every card of its node, so
+  without the bind all of them would land on card 0.
   These actors run no NCCL, so two of them may share a card.
 """
 
@@ -114,6 +115,18 @@ class CardActor:
         self._obj = cls(*args, **kwargs)
         return card
 
+    def bind_slot(self, nodes: Sequence[Optional[str]], slot: int,
+                  device=None) -> str:
+        """Bind as the actor that takes position `slot` in a group whose
+        actors sit on `nodes` (this actor's entry replaced by its own
+        node): how every replacement binds. Its creator need not wait for
+        its node first, so a respawn can submit this call and the calls
+        after it at once. -> its node."""
+        nodes = list(nodes)
+        nodes[slot] = self.node()
+        self.bind(gang.local_ranks(nodes)[slot], device)
+        return nodes[slot]
+
     def __getattr__(self, name: str):
         obj = self.__dict__.get("_obj")
         if obj is None:
@@ -131,25 +144,16 @@ class CardActor:
         return on_card
 
 
-def place_actors(handles: Sequence[Any], device=None,
-                 nodes: Optional[List[str]] = None,
-                 slots: Optional[Sequence[int]] = None) -> List[str]:
-    """Bind the CardActors `handles` to their cards. They are a whole group
-    in its order, or, with `slots`, the actors that take those positions in
-    a group whose actors sit on `nodes` (a replacement). -> the group's
-    nodes, in its order. Where one fails, all of `handles` are stopped and
-    its error raised."""
+def place_actors(handles: Sequence[Any], device=None) -> List[str]:
+    """Bind the CardActors `handles`, a whole group in its order, to their
+    cards (a replacement binds itself: `CardActor.bind_slot`). -> the
+    group's nodes, in its order. Where one fails, all of `handles` are
+    stopped and its error raised."""
     try:
-        found = results([h.node.remote() for h in handles])
-        if slots is None:
-            slots = range(len(handles))
-            nodes = [None] * len(handles)
-        nodes = list(nodes)
-        for slot, node in zip(slots, found):
-            nodes[slot] = node
+        nodes = results([h.node.remote() for h in handles])
         positions = gang.local_ranks(nodes)
-        results([h.bind.remote(positions[s], device)
-                 for h, s in zip(handles, slots)])
+        results([h.bind.remote(p, device)
+                 for h, p in zip(handles, positions)])
     except BaseException:
         for h in handles:
             terminate(h)

@@ -11,12 +11,20 @@ decorator that `AlgorithmConfig.runtime(remote=ray_tpu.remote)` hands in
 (`algorithms`) are PPO, APPO, IMPALA's V-trace update, DQN, CQL,
 MARWIL/BC, SAC and DreamerV3; `multi_agent` runs PPO over a
 `MultiAgentEnv`, one learner per policy. `convert` carries the JAX
-modules' parameters and Adam state across. The decoupled dataflow is not
-ported yet and raises (`algorithm_config.DATAFLOW_ITEM`).
+modules' parameters and Adam state across. `dataflow` is the decoupled,
+crashable rollout/learner dataflow (`SampleQueueActor`, `RolloutFleet`,
+`DecoupledDataflow`), which IMPALA and APPO run with
+`dataflow(decoupled=True)` over the runtime as one value
+(`AlgorithmConfig.runtime(api)`).
 """
 
 from ray_tpu_torch.rllib.algorithm import Algorithm  # noqa: F401
 from ray_tpu_torch.rllib.algorithm_config import AlgorithmConfig  # noqa: F401
+from ray_tpu_torch.rllib.dataflow import (  # noqa: F401
+    DecoupledDataflow,
+    RolloutFleet,
+    SampleQueueActor,
+)
 from ray_tpu_torch.rllib.env import MultiAgentEnv  # noqa: F401
 from ray_tpu_torch.rllib.env_runner import (  # noqa: F401
     EnvRunner,
@@ -34,7 +42,8 @@ from ray_tpu_torch.rllib.replay_buffer import (  # noqa: F401
     ReplayBuffer,
 )
 
-__all__ = ["Algorithm", "AlgorithmConfig", "EnvRunner", "EnvRunnerGroup",
-           "LearnerGroup", "MultiAgentEnv", "MultiAgentEpisode",
-           "MultiAgentPPO", "MultiAgentPPOConfig", "PrioritizedReplayBuffer",
-           "ReplayBuffer", "SingleAgentEpisode"]
+__all__ = ["Algorithm", "AlgorithmConfig", "DecoupledDataflow", "EnvRunner",
+           "EnvRunnerGroup", "LearnerGroup", "MultiAgentEnv",
+           "MultiAgentEpisode", "MultiAgentPPO", "MultiAgentPPOConfig",
+           "PrioritizedReplayBuffer", "ReplayBuffer", "RolloutFleet",
+           "SampleQueueActor", "SingleAgentEpisode"]

@@ -5,14 +5,16 @@ rllib/algorithms/algorithm_config.py — AlgorithmConfig with chained
 
 The port's copy of `ray_tpu/rllib/algorithm_config.py` (which imports no
 JAX; the port imports nothing of `ray_tpu`), with the port's `device` and
-one setter the JAX config lacks: `runtime(remote=...)`, which hands the
-port the runtime's actor decorator. Remote env runners (PPO, IMPALA, APPO)
-and remote learners (PPO) are the runtime's actors, so they need it;
-`check_local` refuses them without it, refuses them for an algorithm that
-runs no actors, and refuses the decoupled dataflow, which waits for the
-port of the runtime's event log. `fault_tolerance()` acts on the remote env
-runners; `dataflow()` stores what the JAX config stores, so a config written
-for the JAX package builds here.
+one setter the JAX config lacks: `runtime(...)`, which hands the port the
+runtime as values. Remote env runners (PPO, IMPALA, APPO) and
+remote learners (PPO) are the runtime's actors, so they need its actor
+decorator; `check_local` refuses them without it, and refuses them for an
+algorithm that runs no actors. IMPALA's and APPO's decoupled dataflow
+(`dataflow(decoupled=True)` with remote env runners) takes the runtime as
+one value, with its put, runtime context and event cursor as well
+(`rllib/dataflow.py`);
+PPO and a group built directly ignore `decoupled`, as JAX's do.
+`fault_tolerance()` acts on the remote env runners.
 """
 
 from __future__ import annotations
@@ -22,23 +24,16 @@ from typing import Any, Dict, Optional, Type
 
 from ray_tpu_torch._private.actors import NEEDS_RUNTIME
 
-# What the port cannot run yet: the decoupled dataflow (its events and
-# gauges would go through `util.metrics`).
-DATAFLOW_ITEM = ("ROADMAP.md queue 1, item 4: the decoupled dataflow is not "
-                 "ported yet")
-
-
 def check_local(options: Dict[str, Any], remote=None,
                 remote_options=("num_env_runners", "num_learners")) -> None:
     """Refuse what the caller cannot run, the same from every entry point
     (`Algorithm`, `EnvRunnerGroup`, `LearnerGroup`): in `options` (a
     config's `to_dict()`, or the share of it a group reads)
     num_env_runners > 0 or num_learners > 0 without the runtime's actor
-    decorator `remote` (ValueError naming `runtime(remote=...)`), either of
-    them where the caller does not run that group as actors
-    (`remote_options`; NotImplementedError), and the decoupled dataflow
-    over remote env runners (NotImplementedError naming its ROADMAP item).
-    Nothing falls back to sampling or learning in this process."""
+    decorator `remote` (ValueError naming `runtime(remote=...)`), and either
+    of them where the caller does not run that group as actors
+    (`remote_options`; NotImplementedError). Nothing falls back to sampling
+    or learning in this process."""
     for key in ("num_env_runners", "num_learners"):
         n = options.get(key) or 0
         if n <= 0:
@@ -50,8 +45,6 @@ def check_local(options: Dict[str, Any], remote=None,
                 f"{key}={n}: this algorithm samples and learns in this "
                 f"process only (the JAX package's ignores {key}); set "
                 f"{key}=0")
-    if options.get("decoupled") and (options.get("num_env_runners") or 0) > 0:
-        raise NotImplementedError(f"decoupled=True: {DATAFLOW_ITEM}")
 
 
 class AlgorithmConfig:
@@ -66,9 +59,11 @@ class AlgorithmConfig:
         self.rollout_fragment_length: int = 200
         self.num_cpus_per_env_runner: float = 1.0
         self.custom_resources_per_env_runner: Dict[str, float] = {}
-        # the runtime's actor decorator (`runtime()`), never sent to actors
+        # the runtime's actor decorator and the runtime as one value
+        # (`runtime()`), never sent to actors
         self.remote = None
-        # the decoupled dataflow (stored; refused with remote env runners)
+        self.runtime_api = None
+        # the decoupled dataflow (IMPALA and APPO with remote env runners)
         # and the crashable fleet of remote env runners
         self.decoupled: bool = False
         self.sample_queue_size: Optional[int] = None
@@ -143,12 +138,19 @@ class AlgorithmConfig:
                 custom_resources_per_env_runner)
         return self
 
-    def runtime(self, *, remote=None) -> "AlgorithmConfig":
-        """The runtime's actor decorator (`ray_tpu.remote`), which remote
-        env runners and learners are built with. The JAX config has no such
+    def runtime(self, api=None, *, remote=None) -> "AlgorithmConfig":
+        """The runtime, as values. `remote`: its actor decorator
+        (`ray_tpu.remote`), all that remote env runners and learners need.
+        `api`: the runtime as one value with `remote`, `put`,
+        `get_runtime_context` and `event_cursor` (its EventCursor class),
+        which the decoupled dataflow needs (`rllib/dataflow.py`); its
+        `remote` is then the decorator too. The JAX config has no such
         setter: the JAX package calls its runtime directly, and the port
-        imports nothing of it, so the decorator comes in as a value. It is
-        kept out of `to_dict()`, which is what the actors receive."""
+        imports nothing of it. Both are kept out of `to_dict()`, which is
+        what the actors receive."""
+        if api is not None:
+            self.runtime_api = api
+            self.remote = api.remote
         if remote is not None:
             self.remote = remote
         return self
@@ -174,9 +176,9 @@ class AlgorithmConfig:
                  elastic_min_env_runners: Optional[int] = None,
                  elastic_max_env_runners: Optional[int] = None,
                  **_kw) -> "AlgorithmConfig":
-        """The decoupled rollout/learner dataflow's settings (JAX:
-        rllib/dataflow.py); stored, and refused with remote env runners
-        (`check_local`)."""
+        """The decoupled rollout/learner dataflow's settings
+        (`rllib/dataflow.py`): IMPALA and APPO with remote env runners run
+        it; the others ignore it, as in JAX."""
         if decoupled is not None:
             self.decoupled = decoupled
         if sample_queue_size is not None:
@@ -240,12 +242,13 @@ class AlgorithmConfig:
         return self
 
     def copy(self) -> "AlgorithmConfig":
-        """A deep copy that shares the actor decorator."""
-        return copy.deepcopy(self, {id(self.remote): self.remote})
+        """A deep copy that shares the runtime's values."""
+        return copy.deepcopy(self, {id(self.remote): self.remote,
+                                    id(self.runtime_api): self.runtime_api})
 
     def to_dict(self) -> Dict[str, Any]:
         return {k: v for k, v in self.__dict__.items()
-                if k not in ("algo_class", "remote")}
+                if k not in ("algo_class", "remote", "runtime_api")}
 
     def build(self):
         if self.algo_class is None:

@@ -14,9 +14,13 @@ stay armed per runner, each step learns on the first fragment that comes
 back (the oldest armed call among those done), a dead runner's fragment is
 dropped and its slot replaced, every runner is re-armed by its deficit, and
 the weights are broadcast every `broadcast_interval` updates. With
-num_env_runners = 0 it samples inline. The decoupled dataflow and its
-`rl.learner_step` event are not ported yet
-(`algorithm_config.DATAFLOW_ITEM`).
+num_env_runners = 0 it samples inline. With `dataflow(decoupled=True)`
+and remote env runners (JAX :150-160, :268-365) the runners feed a
+`DecoupledDataflow` (`rllib/dataflow.py`): each step pulls whatever
+version-safe batches are queued and learns on them, an empty pull returns
+at once, a pull that only dropped stale batches re-broadcasts the weights
+(else the loop livelocks: no update, so no interval-gated broadcast), and
+each update emits one `rl.learner_step`.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import time
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -32,9 +36,11 @@ import torch
 from ray_tpu_torch._private import actors
 from ray_tpu_torch.rllib.algorithm import Algorithm
 from ray_tpu_torch.rllib.algorithm_config import AlgorithmConfig
+from ray_tpu_torch.rllib.dataflow import DecoupledDataflow
 from ray_tpu_torch.rllib.env_runner import EnvRunnerGroup, obs_to_device
 from ray_tpu_torch.rllib.learner import TorchLearner
 from ray_tpu_torch.rllib.rl_module import resolve_module
+from ray_tpu_torch.util import metrics
 
 
 class IMPALAConfig(AlgorithmConfig):
@@ -136,13 +142,22 @@ class IMPALA(Algorithm):
         cfg = config.to_dict()
         self.learner = VTraceLearner(self.module_spec, cfg)
         self.policy_version = 0
+        self._updates = 0
+        self._stale_seen = 0  # stale-drop watermark for the livelock escape
+        self.dataflow = None
+        self.runner_group = None
+        # the armed sample calls: future -> the runner handle it went to
+        self._inflight: Dict[Any, Any] = {}
+        self._steps_since_broadcast = 0
+        if config.decoupled and config.num_env_runners:
+            self.dataflow = DecoupledDataflow(
+                cfg, self.module_spec, self.learner.get_host_weights(),
+                version=self.policy_version, runtime=config.runtime_api)
+            return
         self.runner_group = EnvRunnerGroup(cfg, self.module_spec,
                                            config.remote)
         self.runner_group.sync_weights(self.learner.get_weights(),
                                        self.policy_version)
-        self._steps_since_broadcast = 0
-        # the armed sample calls: future -> the runner handle it went to
-        self._inflight: Dict[Any, Any] = {}
         if self.runner_group.remotes:
             self._replenish_pipeline()
 
@@ -191,6 +206,29 @@ class IMPALA(Algorithm):
                 self.runner_group.replace_runner(runner, "actor_died", err)
         self._replenish_pipeline()
         return episodes
+
+    def _pull_decoupled(self) -> Dict[str, Any]:
+        """One decoupled pull: whatever version-safe batches are queued.
+        -> {"episodes": [...], "min_batch_version": ...}; no episodes means
+        the fleet is (re)filling the queue, and the step returns to its
+        caller instead of waiting on any runner."""
+        pulled = self.dataflow.pull(self.policy_version)
+        episodes: List = []
+        versions = []
+        for entry, eps in pulled:
+            episodes.extend(eps)
+            versions.append(int(entry.get("policy_version", 0)))
+        return {"episodes": episodes,
+                "min_batch_version": min(versions) if versions else None}
+
+    def _broadcast(self) -> None:
+        if self.dataflow is not None:
+            self.dataflow.broadcast(self.learner.get_host_weights(),
+                                    self.policy_version)
+        else:
+            self.runner_group.sync_weights(self.learner.get_weights(),
+                                           self.policy_version)
+        self._steps_since_broadcast = 0
 
     @torch.no_grad()
     def _values(self, obs: np.ndarray) -> np.ndarray:
@@ -258,33 +296,68 @@ class IMPALA(Algorithm):
     def training_step(self) -> Dict[str, Any]:
         cfg = self.config
         t0 = time.perf_counter()
-        if self.runner_group.remotes:
+        min_batch_version = None
+        if self.dataflow is not None:
+            pulled = self._pull_decoupled()
+            episodes = pulled["episodes"]
+            min_batch_version = pulled["min_batch_version"]
+        elif self.runner_group.remotes:
             episodes = self._next_fragment()
         else:
             episodes = self.runner_group.sample(
                 num_steps=cfg.rollout_fragment_length)
         t1 = time.perf_counter()
         if not episodes:
+            if self.dataflow is not None \
+                    and self.dataflow.stale_dropped > self._stale_seen:
+                # an empty pull that dropped stale batches: the fleet
+                # stamps versions the learner no longer takes (a restored
+                # checkpoint, an interval wider than the bound);
+                # re-broadcast now, or no update ever fires the
+                # interval-gated broadcast again
+                self._stale_seen = self.dataflow.stale_dropped
+                self._broadcast()
             return {"num_episodes": 0, "wait_seconds": t1 - t0}
+        if self.dataflow is not None:
+            self._stale_seen = self.dataflow.stale_dropped
         self._record_episodes(episodes)
+        env_steps = sum(len(e) for e in episodes)
         out = self.learner.update_from_batch(self._episodes_to_batch(episodes))
         self.policy_version += 1
+        self._updates += 1
         self._steps_since_broadcast += 1
         if self._steps_since_broadcast >= cfg.broadcast_interval:
-            self.runner_group.sync_weights(self.learner.get_weights(),
-                                           self.policy_version)
-            self._steps_since_broadcast = 0
+            self._broadcast()
         out["num_episodes"] = len(episodes)
-        out["num_env_steps_sampled"] = sum(len(e) for e in episodes)
+        out["num_env_steps_sampled"] = env_steps
         out["policy_version"] = self.policy_version
-        # the port's loop timings (host clock): waiting for the fragment
-        # (sampling, inline), then learning and the broadcast
+        if self.dataflow is not None:
+            # one rl.learner_step per update that happened: the step
+            # cadence, the staleness proof (version, oldest batch version,
+            # bound) and monotonic progress derive from these
+            # (drills/slo.rl_slo)
+            df = self.dataflow.stats()
+            metrics.emit(
+                "rl.learner_step", step=self._updates,
+                version=self.policy_version, env_steps=env_steps,
+                min_batch_version=min_batch_version,
+                staleness_bound=self.dataflow.max_staleness,
+                stale_dropped=df["stale_dropped"],
+                discarded_dead=df["discarded_dead"],
+                runners=df["fleet_runners"])
+            out["dataflow"] = df
+        # the port's loop timings (host clock): waiting for the episodes
+        # (the pull, the fragment, or sampling inline), then learning and
+        # the broadcast
         out["wait_seconds"] = t1 - t0
         out["learn_seconds"] = time.perf_counter() - t1
         return out
 
     def stop(self) -> None:
-        self.runner_group.stop()
+        if self.dataflow is not None:
+            self.dataflow.stop()
+        if self.runner_group is not None:
+            self.runner_group.stop()
 
 
 class APPOConfig(IMPALAConfig):

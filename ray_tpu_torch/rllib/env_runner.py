@@ -15,13 +15,15 @@ runtime, built with the actor decorator the config carries
 (`AlgorithmConfig.runtime(remote=...)`): each on the card at its position
 among the group's runners on its node (`_private/actors.py`), the weights
 shipped by value on the typed tensor wire, a dead runner replaced in
-place. The sync group's membership changes are kept on the group
-(`membership`), where JAX emits them as the `rl.runner_dead` and
-`rl.runner_respawn` events; those wait for the port of the event log.
+place. The sync group emits its membership changes as JAX's does
+(`rl.runner_dead` / `rl.runner_respawn`, through `util.metrics`).
+`EnvRunner.sample_and_push` is a runner's turn in the decoupled dataflow
+(`rllib/dataflow.py`).
 """
 
 from __future__ import annotations
 
+import time
 from functools import partial
 from typing import Any, Dict, List, Optional
 
@@ -35,8 +37,12 @@ from ray_tpu_torch.rllib.algorithm_config import check_local
 from ray_tpu_torch.rllib.envs import SyncVectorEnv, make_env
 from ray_tpu_torch.rllib.episode import SingleAgentEpisode
 from ray_tpu_torch.rllib.rl_module import resolve_module
+from ray_tpu_torch.util import metrics
 
 __all__ = ["EnvRunner", "EnvRunnerGroup", "make_env"]
+
+# How long a runner waits for the sample queue's ack of a push.
+PUSH_TIMEOUT_S = 60.0
 
 
 def obs_to_device(obs, device):
@@ -95,6 +101,43 @@ class EnvRunner:
 
     def get_weights_version(self) -> int:
         return self._weights_version
+
+    def get_node_id(self, runtime_context=None) -> str:
+        """The runtime's id of this runner's node, which the fleet's
+        preempt sweep matches notices on: `runtime_context` is the
+        runtime's `get_runtime_context` (JAX's runner calls it itself);
+        "" for a runner given none."""
+        if runtime_context is None:
+            return ""
+        return runtime_context().get_node_id()
+
+    def sample_and_push(self, queue, put, *, num_steps: Optional[int] = None,
+                        runner_index: int = 0, incarnation: int = 0,
+                        explore: bool = True) -> Dict[str, Any]:
+        """One turn of the decoupled dataflow: sample a fragment, `put` it
+        (the runtime's put, so this runner owns the payload: if it dies,
+        the learner reads the runtime's OwnerDiedError and discards the
+        batch), push the stamped entry to the sample queue `queue`, and
+        return a small ack. A shed push drops the batch and paces this
+        runner by the queue's retry-after hint, so the fleet's pump never
+        waits."""
+        episodes = self.sample(num_steps=num_steps, explore=explore)
+        steps = sum(len(e) for e in episodes)
+        version = self._weights_version
+        ref = put(episodes)
+        entry = {"ref": ref, "env_steps": steps, "policy_version": version,
+                 "runner": runner_index, "incarnation": incarnation}
+        ack = queue.push.remote(entry).future().result(
+            timeout=PUSH_TIMEOUT_S)
+        if ack.get("retry_later"):
+            time.sleep(min(float(ack.get("retry_after_s", 0.05)), 0.5))
+            return {"pushed": False, "shed": True, "env_steps": steps,
+                    "version": version}
+        if ack.get("rejected"):
+            return {"pushed": False, "rejected": ack["rejected"],
+                    "env_steps": steps, "version": version}
+        return {"pushed": True, "env_steps": steps, "version": version,
+                "depth": ack.get("depth")}
 
     @torch.no_grad()
     def act(self, obs, explore: bool = True) -> Dict[str, np.ndarray]:
@@ -177,8 +220,9 @@ class EnvRunnerGroup:
     lasts; its fragment is dropped and the caller's batch-size loop tops
     up. With restart_failed_env_runners=False, or the budget spent, the
     runtime's own exception is raised again. Any other exception is the
-    runner's own error and propagates. `membership` records each change as
-    (event, runner slot, incarnation, reason)."""
+    runner's own error and propagates. Each change is emitted
+    (`rl.runner_dead`, `rl.runner_respawn`: the runner slot, its
+    incarnation, the reason, and the actor's id)."""
 
     def __init__(self, config: Dict[str, Any], module_spec: Dict[str, Any],
                  remote=None):
@@ -188,15 +232,13 @@ class EnvRunnerGroup:
         self._restart = config.get("restart_failed_env_runners", True)
         self._restart_budget = int(config.get("max_env_runner_restarts", 20))
         self.restarts = 0
-        self.membership: List[tuple] = []
         self._last_weights = None
         if self.num_remote == 0:
             self.local = EnvRunner(config, module_spec, worker_index=0)
             self.remotes = []
             return
-        check_local({k: config.get(k) for k in ("num_env_runners",
-                                                 "decoupled")},
-                    remote, ("num_env_runners",))
+        check_local({"num_env_runners": self.num_remote}, remote,
+                    ("num_env_runners",))
         self.local = None
         self._cls = remote(actors.CardActor)
         self.remotes = [self._spawn(i + 1) for i in range(self.num_remote)]
@@ -261,8 +303,8 @@ class EnvRunnerGroup:
             index = self.remotes.index(handle)
         except ValueError:
             return None
-        self.membership.append(("rl.runner_dead", index,
-                                self._incarnations[index], reason))
+        self._member("rl.runner_dead", handle, index,
+                     self._incarnations[index], reason)
         if not self._restart or self.restarts >= self._restart_budget:
             if error is not None:
                 raise error
@@ -270,17 +312,27 @@ class EnvRunnerGroup:
                                "restarts are off or spent")
         actors.terminate(handle)
         replacement = self._spawn(index + 1)
-        self._nodes = actors.place_actors(
-            [replacement], self._config.get("device"), self._nodes, [index])
+        try:
+            (node,) = actors.results([replacement.bind_slot.remote(
+                self._nodes, index, self._config.get("device"))])
+        except BaseException:
+            actors.terminate(replacement)
+            raise
+        self._nodes[index] = node
         if self._last_weights is not None:
             replacement.set_weights.remote(*self._last_weights
                                            ).future().result()
         self.remotes[index] = replacement
         self.restarts += 1
         self._incarnations[index] = self.restarts
-        self.membership.append(("rl.runner_respawn", index, self.restarts,
-                                reason))
+        self._member("rl.runner_respawn", replacement, index, self.restarts,
+                     reason)
         return replacement
+
+    def _member(self, etype: str, handle, index: int, incarnation: int,
+                reason: str) -> None:
+        metrics.emit(etype, actor_id=handle._actor_id.hex(), runner=index,
+                     incarnation=incarnation, reason=reason)
 
     def sample(self, **kw) -> List[SingleAgentEpisode]:
         """Every runner's episodes; a dead runner's fragment is dropped and

@@ -5,14 +5,21 @@ The runtime's actors cannot run on a machine without its dependencies, so
 `LocalRuntime` stands in for its actor decorator: each "actor" is the
 object on a thread of its own, its calls run in order on that thread,
 their arguments and results travel by value through the port's pickler
-(`serialization.serialize` into one buffer, then `deserialize`: the typed
-tensor wire), and
+into one buffer and out again (`by_value`: the typed tensor wire), and
 `.remote` returns a ref whose `future()` holds the result. `fail()`
 makes every call of an actor raise `RayActorError`, a class named as the
 runtime's exception for a dead actor (`actors.RUNNER_GONE`): the calls it
 has not yet run, and those whose results wait unread, as if the node went
 with the objects it held. So a failure can reach an armed call that has
 already finished.
+For the decoupled dataflow the stand-in is the runtime as one value: it
+also has a `put` (the object is owned by the stand-in actor whose call
+made it, and once that actor has failed or stopped, reading it raises
+`OwnerDiedError`, a class named as the runtime's), a
+`get_runtime_context` (its one node's id) and an `event_cursor` (over the
+notices `preempt` posts). Handles and refs travel by identity, and a
+call's top-level refs are read before it runs, as the runtime does. It is
+a fixture, not a runtime: it has what the cases need and no more.
 The package itself never reaches this module: the groups take the
 decorator they are given.
 
@@ -36,9 +43,13 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import functools
+import io
 import itertools
+import pickle
+import threading
 import time
-from typing import Any, Dict, List
+import types
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -49,6 +60,7 @@ from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig, PPOLearner
 from ray_tpu_torch.rllib.catalog import Catalog
 from ray_tpu_torch.rllib.env_runner import EnvRunner, EnvRunnerGroup
 from ray_tpu_torch.rllib.learner import LearnerGroup, parameter_mean
+from ray_tpu_torch.util import metrics
 
 # (q): the cases' sizes. Every module is fp32 at its algorithm's default
 # widths on CartPole.
@@ -67,12 +79,89 @@ class RayActorError(RuntimeError):
     exception for an actor that is gone."""
 
 
+class ObjectLostError(RuntimeError):
+    """Named as the runtime's exception for an object that is gone."""
+
+
+class OwnerDiedError(ObjectLostError):
+    """What reading an object of a failed or stopped stand-in actor
+    raises: named as the runtime's."""
+
+
+# the stand-in actor whose call runs on this thread: what its `put` makes
+# it owns
+_current = threading.local()
+_actor_ids = itertools.count(1)
+
+
+class LocalObjectRef:
+    """What the stand-in's `put` returns: the value, read as
+    OwnerDiedError once its owner (a stand-in actor) has failed or
+    stopped."""
+
+    def __init__(self, value, owner: Optional["LocalActor"]):
+        self._value, self._owner = value, owner
+
+    def value(self):
+        owner = self._owner
+        if owner is not None and (owner._failed is not None
+                                  or owner.terminated):
+            raise OwnerDiedError("the owner of this object is gone")
+        return self._value
+
+    def future(self) -> concurrent.futures.Future:
+        out = concurrent.futures.Future()
+        try:
+            out.set_result(self.value())
+        except OwnerDiedError as err:
+            out.set_exception(err)
+        return out
+
+
+class LocalEventCursor:
+    """The stand-in's EventCursor: each of its runtime's notices of type
+    `etype` posted after the cursor was made, once."""
+
+    def __init__(self, runtime: "LocalRuntime", etype: str):
+        self._runtime, self.etype = runtime, etype
+        self._seen = len(runtime.notices)
+
+    def poll(self, limit: int = 100) -> List[dict]:
+        new = self._runtime.notices[self._seen:self._seen + limit]
+        self._seen += len(new)
+        return [e for e in new if e["type"] == self.etype]
+
+
+class _StandInPickler(serialization._TensorPickler):
+    """The port's pickler, with the stand-in's handles, refs and runtime
+    kept by identity, as the runtime's handles and refs travel."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.kept: List[Any] = []
+
+    def persistent_id(self, obj):
+        if isinstance(obj, (LocalActor, LocalObjectRef, LocalRuntime)):
+            self.kept.append(obj)
+            return len(self.kept) - 1
+        return None
+
+
 def by_value(value):
     """`value` as a receiver gets it: through the port's pickler into one
-    buffer of its own, as the object store holds it."""
-    wire = serialization.serialize(value).to_bytes()
-    return serialization.deserialize(
-        serialization.SerializedObject.from_bytes(wire))
+    buffer of its own, as the object store holds it (the stand-in's
+    handles, refs and runtime by identity)."""
+    buffers: List[pickle.PickleBuffer] = []
+    sink = io.BytesIO()
+    pickler = _StandInPickler(sink, protocol=5,
+                              buffer_callback=buffers.append)
+    pickler.dump(value)
+    wire = serialization.SerializedObject.from_bytes(
+        serialization.SerializedObject(sink.getvalue(), buffers).to_bytes())
+    unpickler = pickle.Unpickler(io.BytesIO(wire.inband),
+                                 buffers=wire.buffers)
+    unpickler.persistent_load = pickler.kept.__getitem__
+    return unpickler.load()
 
 
 class LocalFuture(concurrent.futures.Future):
@@ -109,6 +198,14 @@ def _settle(out: concurrent.futures.Future,
         out.set_result(done.result())
 
 
+def _read_refs(args, kwargs):
+    """A call's top-level refs read, as the runtime passes them."""
+    def read(a):
+        return a.value() if isinstance(a, LocalObjectRef) else a
+
+    return ([read(a) for a in args], {k: read(v) for k, v in kwargs.items()})
+
+
 class LocalActor:
     """A stand-in actor handle: the instance lives on one thread."""
 
@@ -117,18 +214,24 @@ class LocalActor:
         self.calls: List[str] = []
         self.terminated = False
         self._failed = None
+        # read as the runtime's: `handle._actor_id.hex()`
+        self._actor_id = next(_actor_ids).to_bytes(16, "big")
         self._pool = concurrent.futures.ThreadPoolExecutor(
             1, thread_name_prefix=f"local-actor-{cls.__name__}")
         args, kwargs = by_value((args, kwargs))
         self._instance = self._pool.submit(lambda: cls(*args, **kwargs))
 
     def _run(self, name, args, kwargs):
+        _current.actor = self
         if self._failed is not None:
             raise self._failed
+        args, kwargs = _read_refs(args, kwargs)
         return by_value(getattr(self._instance.result(), name)(
             *args, **kwargs))
 
     def _submit(self, name, args, kwargs) -> LocalRef:
+        if self.terminated:
+            raise RayActorError("the stand-in actor was stopped")
         if name == "__ray_terminate__":
             self.terminated = True
             self._pool.shutdown(wait=False, cancel_futures=True)
@@ -174,13 +277,40 @@ class LocalActorClass:
 
 
 class LocalRuntime:
-    """The stand-in for the runtime: `remote` is its actor decorator."""
+    """The stand-in for the runtime, as one value (`rllib/dataflow.py`):
+    `remote` is its actor decorator, `put` and `get_runtime_context` its
+    put and runtime context, `event_cursor` its EventCursor class. Its
+    actors sit on one node, `node_id`. It is a fixture for the cases and
+    `chip_smoke.py`, not a runtime: it has what they need and no more."""
 
-    def __init__(self):
+    def __init__(self, node_id: str = "stand-in-node"):
         self.actors: List[LocalActor] = []
+        self.node_id = node_id
+        self.notices: List[dict] = []
 
     def remote(self, cls) -> LocalActorClass:
         return LocalActorClass(self, cls, {})
+
+    def put(self, value) -> LocalObjectRef:
+        """`value` by value, owned by the stand-in actor whose call runs
+        this (none: the calling process itself)."""
+        return LocalObjectRef(by_value(value),
+                              getattr(_current, "actor", None))
+
+    def get_runtime_context(self) -> types.SimpleNamespace:
+        return types.SimpleNamespace(get_node_id=lambda: self.node_id)
+
+    def event_cursor(self, etype: str) -> LocalEventCursor:
+        return LocalEventCursor(self, etype)
+
+    def preempt(self, node_id: Optional[str] = None,
+                deadline_s: float = 30.0) -> None:
+        """Post a node.preempt_notice for `node_id` (this runtime's node),
+        as the runtime's raylet emits one."""
+        self.notices.append({"type": "node.preempt_notice",
+                             "node_id": node_id or self.node_id,
+                             "data": {"deadline_s": deadline_s,
+                                      "reason": "stand-in"}})
 
     def shutdown(self) -> None:
         for a in self.actors:
@@ -411,7 +541,9 @@ def pipeline_case(device, iterations: int = PIPELINE_ITERATIONS,
     reads the call, drops its fragment, and replaces the slot and re-arms
     it to IN_FLIGHT itself (no broadcast reaches the failed runner first);
     `after` more updates follow. -> per iteration (wait s, learn s), the
-    failed slot, the fragments dropped, and the membership changes."""
+    failed slot, the fragments dropped, and the membership changes as
+    (event, slot, incarnation, reason), from the events emitted."""
+    seq = max([e["seq"] for e in metrics.events()] or [0])
     runtime = LocalRuntime()
     algo = pipeline_config(device, runtime).build()
     sync_calls = itertools.count()
@@ -490,7 +622,10 @@ def pipeline_case(device, iterations: int = PIPELINE_ITERATIONS,
             raise AssertionError(f"{calls} sample calls against "
                                  f"{dict(count)} and "
                                  f"{len(algo._inflight)} in flight")
-        membership = list(group.membership)
+        membership = [(e["type"], e["data"]["runner"],
+                       e["data"]["incarnation"], e["data"]["reason"])
+                      for e in metrics.events("rl.runner_")
+                      if e["seq"] > seq]
     finally:
         algo.stop()
         runtime.shutdown()

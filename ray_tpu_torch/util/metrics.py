@@ -287,13 +287,35 @@ def backend():
 
 # -- events --------------------------------------------------------------------
 
-# The events the port emits and their fields: those of
-# `ray_tpu/_private/event_log.py` EVENT_SCHEMAS.
+# The events the port emits and the fields its call sites pass: those of
+# `ray_tpu/_private/event_log.py` EVENT_SCHEMAS, which lists the fields an
+# event needs at least. The `rl.*` sites pass more than that list (JAX's
+# `rllib/dataflow.py` and `algorithms/impala.py` as well), and
+# `drills/slo.rl_slo` reads some of the extra ones (`min_batch_version`,
+# `staleness_bound`), so here each type lists every field its sites pass.
 EVENT_SCHEMAS: Dict[str, Tuple[str, ...]] = {
     "compile.start": ("source", "t_start"),
     "compile.end": ("source", "duration_s"),
     "perf.phase_report": ("profiler", "steps", "fracs"),
+    # the decoupled RL dataflow (`rllib/dataflow.py`, IMPALA's loop and the
+    # sync runner group)
+    "rl.learner_step": ("step", "version", "env_steps", "min_batch_version",
+                        "staleness_bound", "stale_dropped", "discarded_dead",
+                        "runners"),
+    "rl.weights_broadcast": ("version", "runners"),
+    "rl.stale_drop": ("version", "batch_version", "bound", "runner"),
+    "rl.sample_shed": ("runner", "depth"),
+    "rl.zombie_push": ("runner", "incarnation", "current"),
+    "rl.runner_dead": ("actor_id", "runner", "reason", "incarnation"),
+    "rl.runner_respawn": ("actor_id", "runner", "incarnation", "reason"),
+    "rl.fleet_scale": ("from_runners", "to_runners", "reason"),
 }
+
+# Fields that are keywords of the runtime's event envelope
+# (`event_log.emit(etype, *, actor_id=..., **data)`), not data: they reach
+# the runtime's emit as those keywords and stand beside "data" in a record
+# of the local ring, as in the runtime's records.
+ENVELOPE = ("actor_id",)
 
 RING_EVENTS = 4096
 _events_lock = threading.Lock()
@@ -306,6 +328,17 @@ def emit(etype: str, **data) -> None:
     """One event of a type in EVENT_SCHEMAS with exactly its fields: to
     the runtime's event log once installed, else to the local ring. An
     event of another type or fields raises ValueError."""
+    emit_to(None, etype, **data)
+
+
+def emit_to(sink: Optional[Callable[..., None]], etype: str,
+            **data) -> None:
+    """`emit` through the runtime emitter `sink` (None: the route that
+    `use_runtime` installed in this process). For an actor of the port's
+    that runs in a runtime worker, which has not called `use_runtime`: its
+    creator hands it the emitter installed there, `runtime()["emit"]`."""
+    if sink is None:
+        sink = _runtime["emit"]
     fields = EVENT_SCHEMAS.get(etype)
     if fields is None:
         raise ValueError(f"unknown event type {etype!r}; known: "
@@ -313,7 +346,6 @@ def emit(etype: str, **data) -> None:
     if set(data) != set(fields):
         raise ValueError(f"{etype} takes the fields {fields}, not "
                          f"{tuple(sorted(data))}")
-    sink = _runtime["emit"]
     with _events_lock:
         _stats["emitted"] += 1
     if sink is not None:
@@ -325,8 +357,9 @@ def emit(etype: str, **data) -> None:
         except Exception:  # noqa: BLE001 — kept locally and counted
             with _events_lock:
                 _stats["refused"] += 1
-    rec = {"seq": next(_seq), "time": time.time(), "type": etype,
-           "data": data}
+    rec = {"seq": next(_seq), "time": time.time(), "type": etype}
+    rec.update({k: data.pop(k) for k in ENVELOPE if k in data})
+    rec["data"] = data
     with _events_lock:
         if len(_ring) == _ring.maxlen:
             _stats["evicted"] += 1

@@ -385,6 +385,10 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     # tests/test_torch_train_gang.py; here one tiny Llama step stands in.
     monkeypatch.setattr(smoke, "phase_train_gang", lambda card: llama_step(
         "[p] one tiny Llama step in place of phase (p)"))
+    # (s), the decoupled RL dataflow and lower_to_jit, is rehearsed on its
+    # own by tests/test_torch_rl_dataflow.py.
+    monkeypatch.setattr(smoke, "phase_dataflow", lambda card: smoke.log(
+        "[s] rehearsed by tests/test_torch_rl_dataflow.py"))
     # (r), the serving benchmarks, is rehearsed on its own by
     # tests/test_torch_serve_benchmarks.py.
     monkeypatch.setattr(smoke, "phase_serving_bench", lambda *a: smoke.log(
@@ -454,7 +458,8 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     for tag in ("[a]", "[b]", "[c]", "[f]", "[g]", "[d]", "[d+e]", "[h]",
                 "[i-1]", "[i-2]", "[i-3]", "[i-4]", "[i]", "[r]", "[h-2]",
                 "[r-3]",
-                "[bench]", "[j]", "[k]", "[l]", "[m]", "[n]", "[o]"):
+                "[bench]", "[j]", "[k]", "[l]", "[m]", "[n]", "[o]", "[q]",
+                "[s]"):
         assert any(line.startswith(tag) for line in lines), tag
     for text in ("[e] _decode_attention", "[e] _cached_attention",
                  "token blocks identical True", "[e] decode step, former",

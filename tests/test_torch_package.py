@@ -85,6 +85,8 @@ def test_importing_the_port_loads_no_jax():
             "ray_tpu_torch.rllib.algorithms.registry, "
             "ray_tpu_torch.rllib.benchmarks, "
             "ray_tpu_torch.rllib.remote_cases, ray_tpu_torch._private.actors, "
+            "ray_tpu_torch.rllib.dataflow, ray_tpu_torch.dag, "
+            "ray_tpu_torch.rllib.dataflow_cases, "
             "ray_tpu_torch._private.serialization, "
             "ray_tpu_torch._private.dataplane_bench, ray_tpu_torch.data, "
             "ray_tpu_torch.data.dataset, ray_tpu_torch.util, "

@@ -45,6 +45,7 @@ from ray_tpu_torch.rllib.convert import (adam_state_from_jax_numpy,
 from ray_tpu_torch.rllib.env_runner import EnvRunner, EnvRunnerGroup
 from ray_tpu_torch.rllib.learner import LearnerGroup
 from ray_tpu_torch.rllib.rl_module import resolve_module
+from ray_tpu_torch.util import metrics
 
 from test_torch_rl_learners import (MLP_SPEC, STATE_TOL, _flat,
                                     assert_metrics_close, ppo_batch)
@@ -77,6 +78,7 @@ def test_remote_runners_sample_as_in_process_runners(cluster):
     config = _config(PPOConfig, **runners).resources(device="cpu").to_dict()
     spec = rc.cartpole_spec()
     weights = resolve_module(spec, device="cpu").state_dict()
+    seq = max([e["seq"] for e in metrics.events()] or [0])
     group = EnvRunnerGroup(config, spec, rt.remote)
     try:
         group.sync_weights(weights, version=3)
@@ -98,7 +100,8 @@ def test_remote_runners_sample_as_in_process_runners(cluster):
         for k in ("logp", "vf_preds"):
             np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-6,
                                        err_msg=k)
-    assert group.membership == [] and group.restarts == 0
+    assert group.restarts == 0
+    assert not [e for e in metrics.events("rl.") if e["seq"] > seq]
 
     jconfig = _config(jalgos.PPOConfig, **runners).to_dict()
     jspec = JaxCatalog.from_env("CartPole-v1", {},

@@ -3,9 +3,14 @@ phase (q) rehearsed on the CPU.
 
 - Refusals: remote runners or learners without the runtime's actor
   decorator raise and name `runtime(remote=...)`; an algorithm that runs
-  no actors refuses them even with it; the decoupled dataflow raises and
-  names its ROADMAP item; the default device raises on a host without
-  CUDA, in the actor's construction; a runner's own error propagates.
+  no actors refuses them even with it; the default device raises on a
+  host without CUDA, in the actor's construction; a runner's own error
+  propagates. `decoupled=True` is what JAX makes of it: IMPALA builds the
+  dataflow and trains; PPO and a group built directly run their
+  synchronous runners.
+- Membership changes: each replacement emits `rl.runner_dead` and
+  `rl.runner_respawn` with the fields JAX's group passes (the actor's id
+  in the envelope).
 - The gone-runner classes: each name is a class of the runtime's
   exceptions, and only those (and their subclasses) count as gone.
 - The actors' card binding, from node metadata: the position among the
@@ -19,6 +24,7 @@ phase (q) rehearsed on the CPU.
 import collections
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -27,12 +33,14 @@ import torch
 from ray_tpu import exceptions as rt_exceptions
 from ray_tpu_torch._private import actors, gang, serialization
 from ray_tpu_torch.rllib import remote_cases as rc
-from ray_tpu_torch.rllib.algorithm_config import DATAFLOW_ITEM
 from ray_tpu_torch.rllib.algorithms import (DQNConfig, IMPALAConfig,
                                             PPOConfig)
 from ray_tpu_torch.rllib.env_runner import EnvRunnerGroup
+from ray_tpu_torch.rllib.dataflow import DecoupledDataflow
 from ray_tpu_torch.rllib.learner import LearnerGroup, parameter_mean
+from ray_tpu_torch.rllib.rl_module import resolve_module
 from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
+from ray_tpu_torch.util import metrics
 
 
 @pytest.fixture(autouse=True)
@@ -48,6 +56,24 @@ def runtime():
     rt = rc.LocalRuntime()
     yield rt
     rt.shutdown()
+
+
+@pytest.fixture
+def membership_events(monkeypatch):
+    """-> a function of the runner events emitted in this test, as
+    (event, slot, incarnation, reason); each also carries the actor's
+    id."""
+    metrics.use_runtime()
+    monkeypatch.setattr(metrics, "_ring",
+                        collections.deque(maxlen=metrics.RING_EVENTS))
+
+    def read():
+        evs = metrics.events("rl.runner_")
+        assert all(e["actor_id"] for e in evs)
+        return [(e["type"], e["data"]["runner"], e["data"]["incarnation"],
+                 e["data"]["reason"]) for e in evs]
+
+    return read
 
 
 # -- refusals ---------------------------------------------------------------------
@@ -74,11 +100,19 @@ def test_groups_built_directly_without_the_decorator_raise():
 
 
 def test_a_group_built_directly_refuses_the_decoupled_dataflow(runtime):
-    """The group gives the same refusal as the algorithm: one check."""
+    """A group built directly ignores `decoupled`, as JAX's does (only
+    IMPALA and APPO read it): it runs its synchronous runners. (The name
+    is kept from when the port refused the dataflow.)"""
     config = rc.runner_config("cpu", num_env_runners=2, decoupled=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        EnvRunnerGroup(config, rc.cartpole_spec(), runtime.remote)
-    assert runtime.actors == []
+    spec = rc.cartpole_spec()
+    group = EnvRunnerGroup(config, spec, runtime.remote)
+    try:
+        group.sync_weights(resolve_module(spec, device="cpu").state_dict(),
+                           version=1)
+        assert sum(len(e) for e in group.sample(num_steps=4)) == 2 * 4
+    finally:
+        group.stop()
+    assert len(runtime.actors) == 2
 
 
 @pytest.mark.parametrize("build", [
@@ -95,13 +129,30 @@ def test_an_algorithm_without_actor_groups_refuses_them(build, runtime):
 @pytest.mark.parametrize("config_cls", [IMPALAConfig, PPOConfig])
 def test_the_decoupled_dataflow_raises_and_names_its_item(config_cls,
                                                           runtime):
+    """`decoupled=True` with remote runners, as JAX reads it: IMPALA
+    builds the decoupled dataflow over the runtime and trains; PPO ignores
+    it and runs its synchronous runners. Nothing raises and names a
+    ROADMAP item any more. (The name is kept from when the port refused
+    the dataflow.)"""
     cfg = (config_cls().environment("CartPole-v1").resources(device="cpu")
-           .env_runners(num_env_runners=2).runtime(remote=runtime.remote)
-           .dataflow(decoupled=True))
-    assert "queue 1, item 4" in DATAFLOW_ITEM
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        cfg.build()
-    assert runtime.actors == []
+           .env_runners(num_env_runners=2, rollout_fragment_length=16)
+           .runtime(runtime).dataflow(decoupled=True)
+           .debugging(seed=0))
+    if config_cls is PPOConfig:
+        cfg.training(train_batch_size=64, minibatch_size=32, num_epochs=1)
+    algo = cfg.build()
+    try:
+        if config_cls is IMPALAConfig:
+            assert isinstance(algo.dataflow, DecoupledDataflow)
+            deadline = time.monotonic() + 30.0
+            while algo.policy_version < 1:
+                assert time.monotonic() < deadline, "IMPALA never updated"
+                algo.train()
+        else:
+            assert algo.train()["num_env_steps_sampled"] >= 64
+            assert len(algo.env_runner_group.remotes) == 2
+    finally:
+        algo.stop()
 
 
 def test_the_default_device_raises_in_the_actors_construction(
@@ -118,14 +169,14 @@ def test_the_default_device_raises_in_the_actors_construction(
                      runtime.remote)
 
 
-def test_a_runners_own_error_propagates(runtime):
+def test_a_runners_own_error_propagates(runtime, membership_events):
     """A failure whose class is not a gone-runner class is the runner's
     own: the group raises it and replaces nothing."""
     group = EnvRunnerGroup(rc.runner_config("cpu", num_env_runners=2),
                            rc.cartpole_spec(), runtime.remote)
     with pytest.raises(TypeError, match="unexpected keyword"):
         group.sample(num_steps=4, no_such_option=1)
-    assert group.restarts == 0 and group.membership == []
+    assert group.restarts == 0 and membership_events() == []
     group.stop()
 
 
@@ -220,14 +271,15 @@ def test_a_card_actor_builds_on_its_card_and_calls_there(monkeypatch):
 
 def test_place_actors_binds_by_position_on_the_node(runtime):
     """Three stand-in actors on this host: positions 0, 1, 2; a
-    replacement takes its slot's position."""
+    replacement takes its slot's position (`CardActor.bind_slot`)."""
     cls = runtime.remote(actors.CardActor)
     handles = [cls.remote(dict, a=i) for i in range(3)]
     nodes = actors.place_actors(handles, "cpu")
     assert len(set(nodes)) == 1
     assert actors.results([h.get.remote("a") for h in handles]) == [0, 1, 2]
     spare = cls.remote(dict, a=9)
-    assert actors.place_actors([spare], "cpu", nodes, [1]) == nodes
+    assert actors.results([spare.bind_slot.remote(nodes, 1, "cpu")]) == [
+        nodes[1]]
     assert actors.results([spare.get.remote("a")]) == [9]
 
 
@@ -296,7 +348,7 @@ def test_the_learner_group_meets_its_learners_weights_on_the_host(
     runners.stop()
 
 
-def test_a_replaced_runner_is_stopped(runtime):
+def test_a_replaced_runner_is_stopped(runtime, membership_events):
     """A gone-runner error can come from a lost object while its actor
     lives on: the replaced actor is stopped, so it frees its CPUs and its
     card."""
@@ -306,8 +358,12 @@ def test_a_replaced_runner_is_stopped(runtime):
     new = group.replace_runner(old, "object_lost")
     assert new is group.remotes[1] and new is not old
     assert old.terminated and not new.terminated
-    assert group.membership == [("rl.runner_dead", 1, 0, "object_lost"),
-                                ("rl.runner_respawn", 1, 1, "object_lost")]
+    assert membership_events() == [
+        ("rl.runner_dead", 1, 0, "object_lost"),
+        ("rl.runner_respawn", 1, 1, "object_lost")]
+    dead, respawn = metrics.events("rl.runner_")
+    assert dead["actor_id"] == old._actor_id.hex()
+    assert respawn["actor_id"] == new._actor_id.hex()
     assert group.replace_runner(old) is None
     group.stop()
     assert all(a.terminated for a in runtime.actors)
@@ -334,7 +390,8 @@ def test_stand_in_actors_run_in_order_by_value(runtime):
 
 
 def test_chip_smoke_phase_q_rehearsed_on_the_cpu(monkeypatch, capsys,
-                                                 tmp_path, request):
+                                                 tmp_path, request,
+                                                 membership_events):
     """`chip_smoke.py --only q` with the card stubbed: (q-1) the learner
     group's mean and metrics against the CPU's steps, (q-2) the wire and
     the remote runners against in-process ones, (q-3) IMPALA's pipeline
@@ -365,7 +422,7 @@ def test_chip_smoke_phase_q_rehearsed_on_the_cpu(monkeypatch, capsys,
     slot = pipe["failed_slot"]
     assert [tuple(m) for m in pipe["membership"]] == [
         ("rl.runner_dead", slot, 0, "actor_died"),
-        ("rl.runner_respawn", slot, 1, "actor_died")]
+        ("rl.runner_respawn", slot, 1, "actor_died")] == membership_events()
     assert out["learners"]["max_abs_err_weights"] == 0.0
     assert all(np.isfinite(out["learners"][k]) for k in (
         "update_ms", "gather_ms", "mean_ms", "set_ms"))
@@ -374,7 +431,7 @@ def test_chip_smoke_phase_q_rehearsed_on_the_cpu(monkeypatch, capsys,
 
 
 def test_a_failed_runners_fragment_is_dropped_and_its_slot_replaced(
-        runtime):
+        runtime, membership_events):
     """IMPALA's pipeline with no broadcast after the start (so no weight
     push finds the failed runner first): the failed runner's next calls
     raise RayActorError when the loop reads them; each such fragment is
@@ -394,8 +451,9 @@ def test_a_failed_runners_fragment_is_dropped_and_its_slot_replaced(
     dropped = [r for r in results if not r.get("num_episodes")]
     assert 1 <= len(dropped) <= rc.IN_FLIGHT
     assert group.restarts == 1 and group.remotes[0] is not failed
-    assert group.membership == [("rl.runner_dead", 0, 0, "actor_died"),
-                                ("rl.runner_respawn", 0, 1, "actor_died")]
+    assert membership_events() == [
+        ("rl.runner_dead", 0, 0, "actor_died"),
+        ("rl.runner_respawn", 0, 1, "actor_died")]
     assert sum(bool(r.get("num_episodes")) for r in results) >= 2
     armed = collections.Counter(id(h) for h in algo._inflight.values())
     assert [armed[id(h)] for h in group.remotes] == [rc.IN_FLIGHT] * 2

@@ -11,7 +11,9 @@ replacement` and `test_sync_group_fail_fast_when_restarts_disabled`.
 - With restart_failed_env_runners=False the loop fails fast with the
   runtime's own `RayActorError`; a runner's own error propagates.
 
-`membership` records each change as (event, slot, incarnation, reason).
+Each membership change is emitted as JAX's group emits it
+(`rl.runner_dead`, `rl.runner_respawn`, the actor's id in the envelope),
+read here as (event, slot, incarnation, reason).
 """
 
 import collections
@@ -27,6 +29,7 @@ from ray_tpu_torch.rllib import remote_cases as rc
 from ray_tpu_torch.rllib.algorithms import IMPALAConfig
 from ray_tpu_torch.rllib.env_runner import EnvRunnerGroup
 from ray_tpu_torch.rllib.rl_module import resolve_module
+from ray_tpu_torch.util import metrics
 
 DEADLINE_S = 60.0
 DEAD = ("rl.runner_dead", 0, 0, "actor_died")
@@ -44,6 +47,22 @@ def cluster():
 def _wire_uninstalled():
     yield
     serialization.uninstall_tensor_wire()
+
+
+@pytest.fixture(autouse=True)
+def _fresh_events(monkeypatch):
+    metrics.use_runtime()
+    monkeypatch.setattr(metrics, "_ring",
+                        collections.deque(maxlen=metrics.RING_EVENTS))
+
+
+def _emitted():
+    """The runner events of this test, as (event, slot, incarnation,
+    reason)."""
+    evs = metrics.events("rl.runner_")
+    assert all(e["actor_id"] for e in evs)
+    return [(e["type"], e["data"]["runner"], e["data"]["incarnation"],
+             e["data"]["reason"]) for e in evs]
 
 
 def _group(**extra):
@@ -66,7 +85,7 @@ def test_a_dead_runner_is_replaced_carrying_the_last_weights(cluster):
         while group.restarts == 0 and time.monotonic() < deadline:
             assert group.sample(num_steps=4) is not None
         assert group.restarts == 1 and group.remotes[0] != dead
-        assert group.membership == [DEAD, RESPAWN]
+        assert _emitted() == [DEAD, RESPAWN]
         new = group.remotes[0]
         assert actors.results([new.get_weights_version.remote()]) == [1]
         carried = actors.results([new.get_weights.remote()])[0]
@@ -108,7 +127,7 @@ def test_pipelined_impala_rearms_the_replacement(cluster):
         assert group.remotes[0] != dead
         armed = collections.Counter(id(h) for h in algo._inflight.values())
         assert armed[id(group.remotes[0])] == per
-        assert group.membership == [DEAD, RESPAWN]
+        assert _emitted() == [DEAD, RESPAWN]
     finally:
         algo.stop()
 
@@ -124,7 +143,7 @@ def test_fail_fast_when_restarts_are_off(cluster):
             while time.monotonic() < deadline:
                 group.sample(num_steps=4)
         assert group.restarts == 0
-        assert group.membership == [DEAD]
+        assert _emitted() == [DEAD]
     finally:
         group.stop()
 
@@ -135,6 +154,6 @@ def test_a_runners_own_error_propagates_on_the_runtime(cluster):
         group.sync_weights(weights, version=1)
         with pytest.raises(TypeError, match="unexpected keyword"):
             group.sample(num_steps=4, no_such_option=1)
-        assert group.restarts == 0 and group.membership == []
+        assert group.restarts == 0 and _emitted() == []
     finally:
         group.stop()
