@@ -250,7 +250,7 @@ Phases, in order; any failure raises and the script exits non-zero:
       `TorchBackend`: `bind_card`, `join_gang`, `train.spmd.
       setup_worker_mesh`), in this process at world 1 as a runtime worker
       runs it (`parallel.train_gang_cases.train_run`): the card at local
-      rank 0, the NCCL gang at this host's name and a free port, a world-1
+      rank 0, the NCCL gang at this host's name and a port it serves, a world-1
       mesh built through a "mesh" collective group; the compiled bench
       step at the bench widths cut to 1 layer (B=4, S=2048, bf16, "dots")
       fed seeded numpy rows through the per-position feed
@@ -314,6 +314,28 @@ Phases, in order; any failure raises and the script exits non-zero:
       second at each runner count, beside the card's name and power
       limit. `--only s` runs (s) alone after (a). It launches none of the
       flash kernels.
+  (t) the node's card advertisement and typed tensors through shared host
+      pages: (t-1) `node_advertisement()` (its probe process) advertises
+      `GPU` = `torch.cuda.device_count()` and the typed `GPU-<part>` at the
+      same count, its part and label that of `nvidia-smi`'s name; (t-2) a
+      stand-in for the object store's arena at the runtime's default
+      capacity, a sparse 2 GiB memfd (as the store's arena is) written
+      through a writable mapping and read through a read-only one (a
+      read-only `memoryview`): fp32, bf16, int64 and bool tensors, an
+      empty and a 0-d one, written by `write_into` from the card, come
+      back exact on cuda:0, the arena scribbled over right after each get,
+      with no get taking the pageable route (`typed_tensor_get_pageable`
+      stays 0), and only the three 64 MiB windows that the objects span
+      registered (`_private/pinned_pages.py`), the reading mapping's
+      resident pages no more than those; then the 64 MiB int64 tensor's put and
+      get GB/s through the arena, and its first get's seconds (the
+      registration of its two windows), against a pinned host-to-device
+      copy and the pageable copy from the arena that the wire made before,
+      timed in the same run, and a 129 KiB tensor's get from the arena and
+      from a bytes frame (the pageable route, counted, with no look at the
+      process's mappings); each the least of 5, printed beside the
+      card's name and power limit. `--only t` runs (t) alone after (a).
+      It launches none of the flash kernels.
 
 The launch counts are set to 0 just before each main path (serving: (d)
 and (e); paged serving: (i), which runs no flash kernel; the serving
@@ -322,8 +344,9 @@ training: (h-2); Mixtral: (k-1) and (k-2); the SPMD path's eager sharded
 steps, its compiled sharded steps and the zoo on the mesh:
 (l), each on its own; the fed training path: (n-1)'s fed runs; the
 checkpointed training path: (o-1); the gang's training path: (p); the
-remote RL groups: (q), and the decoupled dataflow with `lower_to_jit`:
-(s), which run no flash kernel) and read just after it. Each phase's
+remote RL groups: (q), the decoupled dataflow with `lower_to_jit`: (s),
+and typed tensors through shared pages: (t), which run no flash kernel)
+and read just after it. Each phase's
 seconds are logged at the end ("[phases]"). The last
 three lines of stdout are the card's `nvidia-smi` name and power limit, one
 JSON object on the kernels, and `{"ok": true, "device": ...}`. Without
@@ -341,6 +364,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -3264,31 +3288,36 @@ def run_train_gang(n, cfg, mesh_kw, tokens, save_after, ckpt_dir, restore,
     """One gang of `parallel.train_gang_cases.train_run` on n ranks that
     join by themselves, as `TorchBackend.on_start` has its workers join:
     each sees every card of this host and binds the one at its local rank
-    (all n on this node), they meet at this host's name and a free port,
-    and they build the mesh through a fresh "mesh" group, each step and
-    then the train function on a thread of its own, as in a runtime worker.
-    n == 1 runs in this process. -> the ranks' results."""
+    (all n on this node) and they build the mesh through a fresh "mesh"
+    group, each step and then the train function on a thread of its own,
+    as in a runtime worker. n == 1 runs in this process and meets at this
+    host's name and a port it serves (`gang.gang_address`, as rank 0's
+    worker does under `TorchBackend`); n > 1 spawned ranks meet at a file
+    store, since this process is none of them. -> the ranks' results."""
+    import socket
+    import tempfile
     import uuid
 
     from ray_tpu_torch._private import gang
     from ray_tpu_torch.parallel import train_gang_cases
     from ray_tpu_torch.train import backend
 
-    addr = gang.gang_address()
-    init_method = f"tcp://{addr['hostname']}:{addr['port']}"
     group = f"rt_train_mesh:{uuid.uuid4().hex[:8]}"
     args = (cfg, mesh_kw, tokens, tokens.shape[0], save_after, ckpt_dir,
             restore)
     kw = dict(seed=seed, device=DEVICE, compiled=compiled,
               timeout_s=SPMD_TIMEOUT_S)
     if n == 1:
+        addr = gang.gang_address()
+        init_method = f"tcp://{addr['hostname']}:{addr['port']}"
         return [train_gang_cases.train_run(0, 1, init_method, 0, 1, group,
                                            *args, **kw)]
-    local = gang.local_ranks([addr["hostname"]] * n)
-    return backend.spawn_ranks(train_gang_cases.gang_ranks, n, DEVICE,
-                               SPMD_TIMEOUT_S, args=(
-                                   n, init_method, local, [n] * n, group,
-                                   args, kw))
+    local = gang.local_ranks([socket.gethostname()] * n)
+    with tempfile.TemporaryDirectory() as rendezvous:
+        return backend.spawn_ranks(train_gang_cases.gang_ranks, n, DEVICE,
+                                   SPMD_TIMEOUT_S, args=(
+                                       n, f"file://{rendezvous}/store",
+                                       local, [n] * n, group, args, kw))
 
 
 def check_train_gang(tag, cfg, first, second, tokens):
@@ -4967,6 +4996,242 @@ def phase_dataflow(card):
             "benchmark_decoupled": bench, "lower_to_jit": out}
 
 
+# -- (t) the node's advertisement, typed tensors through shared pages ---------
+
+# (t-2): the stand-in arena, at the runtime's default object store capacity
+# (`object_store_memory_bytes`, 2 GiB), the timed payload (the data-plane
+# bench's), and the rounds a rate is the least of.
+STORE_ARENA_BYTES = 2 << 30
+STORE_PAYLOAD_BYTES = 64 << 20
+STORE_ITERS = 5
+
+
+def store_cases():
+    """(t-2)'s tensors on the card: every dtype kind the wire carries, an
+    empty and a 0-d one."""
+    g = torch.Generator(device=DEVICE).manual_seed(43)
+    return {
+        "fp32": torch.randn((257, 129), generator=g, device=DEVICE),
+        "bf16": torch.randn((64, 96), generator=g, device=DEVICE).to(
+            torch.bfloat16),
+        "int64": torch.arange(-5000, 5000, device=DEVICE),
+        "bool": torch.randn((1001,), generator=g, device=DEVICE) > 0,
+        "empty": torch.empty((0, 7), device=DEVICE),
+        "0-d": torch.tensor(2.75, device=DEVICE),
+    }
+
+
+def store_arena():
+    """The stand-in arena, sparse as the store's: a STORE_ARENA_BYTES memfd
+    (as the store's own arena is) mapped twice, shared: writable (the
+    putting side) and read-only (the getting side, as an object-store
+    reader sees a sealed object). -> (writer, reader)."""
+    import mmap
+
+    fd = os.memfd_create("chip_smoke_arena")
+    try:
+        os.ftruncate(fd, STORE_ARENA_BYTES)
+        return (mmap.mmap(fd, STORE_ARENA_BYTES),
+                mmap.mmap(fd, STORE_ARENA_BYTES, prot=mmap.PROT_READ))
+    finally:
+        os.close(fd)
+
+
+def resident(addr):
+    """The resident bytes of this process's mapping that holds `addr` (its
+    Rss in /proc/self/smaps). The file's own blocks cannot stand in: the
+    card's machine reports a memfd's every page as committed."""
+    inside = False
+    with open("/proc/self/smaps") as f:
+        for line in f:
+            head = line.split(maxsplit=1)[0]
+            if not head.endswith(":"):
+                lo, hi = (int(a, 16) for a in head.split("-"))
+                inside = lo <= addr < hi
+            elif inside and head == "Rss:":
+                return int(line.split()[1]) * 1024
+    raise RuntimeError(f"no mapping holds {addr:#x}")
+
+
+def store_rates(src, n, dev):
+    """GB/s of copying the n bytes of `src` (a CPU view of the read-only
+    arena mapping) to the card, the least of STORE_ITERS: the pageable copy
+    that the wire made before it registered the arena, then the yardstick,
+    a pinned host buffer. Run before the wire registers the windows that
+    hold `src`."""
+    from ray_tpu_torch._private import pinned_pages as pp
+
+    dst = torch.empty(n, dtype=torch.uint8, device=dev)
+    pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+
+    def pageable():
+        dst.copy_(src)
+        torch.cuda.synchronize(dev)
+
+    designs = {"pageable": pageable,
+               "pinned_h2d": lambda: pp.copy_pinned(dst, pinned)}
+    out = {}
+    for name, fn in designs.items():
+        best = float("inf")
+        for _ in range(STORE_ITERS):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        if name != "pinned_h2d":
+            check(torch.equal(dst.cpu(), src), f"(t-2) {name} changed bytes")
+        out[name] = n / best / 1e9
+    return out
+
+
+def phase_store(card):
+    """(t) (t-1) the node's advertisement against the card, (t-2) typed
+    tensors through the stand-in arena. -> its numbers."""
+    from ray_tpu_torch._private import pinned_pages as pp
+    from ray_tpu_torch._private import serialization as ser
+    from ray_tpu_torch._private.accelerators import nvidia
+
+    t0 = time.perf_counter()
+    resources, labels = nvidia.node_advertisement()
+    count = torch.cuda.device_count()
+    smi = nvidia.GpuInfo(1, (card.split(",")[0].strip(),), (0,))
+    typed = nvidia.typed_resource(smi)
+    check(resources.get("GPU") == count and resources.get(typed) == count
+          and labels.get(nvidia.ACCELERATOR_TYPE_LABEL)
+          == smi.accelerator_type,
+          f"(t-1) the advertisement {resources}, {labels} against "
+          f"{count} card(s) named {smi.names[0]!r} by nvidia-smi")
+    log(f"[t-1] ({card}) node_advertisement(): resources {resources}, "
+        f"labels {labels}: {count} card(s), typed {typed}; "
+        f"{time.perf_counter() - t0:.1f} s (its probe process)")
+
+    t1 = time.perf_counter()
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(
+        DEVICE)
+    writer, reader = store_arena()
+    wview, rview = memoryview(writer), memoryview(reader)
+    check(rview.readonly, "(t-2) the reading side is writable")
+    base = np.frombuffer(reader, dtype=np.uint8).ctypes.data
+    pageable0 = ser.COPY_STATS["typed_tensor_get_pageable"]
+    n = STORE_PAYLOAD_BYTES
+    try:
+        # The 64 MiB tensor near the arena's end: its puts, then the
+        # pageable copy and the yardstick, then its gets as the wire makes
+        # them, the first registering the windows it spans.
+        big = torch.arange(n // 8, dtype=torch.int64, device=dev)
+        off = STORE_ARENA_BYTES - 2 * n
+        puts = []
+        for _ in range(STORE_ITERS):
+            ts = time.perf_counter()
+            size = ser.serialize(big).write_into(wview[off:])
+            puts.append(time.perf_counter() - ts)
+        obj = rview[off:off + size]
+        payload = ser.SerializedObject.from_bytes(obj).buffers[0].raw()
+        with warnings.catch_warnings():  # read-only pages
+            warnings.simplefilter("ignore", UserWarning)
+            src = torch.frombuffer(payload, dtype=torch.uint8)
+        rates = store_rates(src, n, dev)
+        del src, payload
+        ser.install_tensor_wire()  # what a process's first get does first
+        rss0 = resident(base)
+        gets = []
+        for _ in range(STORE_ITERS + 1):
+            ts = time.perf_counter()
+            got = ser.deserialize(ser.SerializedObject.from_bytes(obj))
+            torch.cuda.synchronize(dev)
+            gets.append(time.perf_counter() - ts)
+            check(got.device == dev and torch.equal(got, big),
+                  "(t-2) the 64 MiB get changed it")
+            del got
+        del obj
+        # Every kind of tensor the wire carries, at the arena's start.
+        off = 0
+        for name, t in store_cases().items():
+            size = ser.serialize(t).write_into(wview[off:])
+            got = ser.deserialize(ser.SerializedObject.from_bytes(
+                rview[off:off + size]))
+            if got.is_cuda:  # the copy has landed: the arena may change
+                wview[off:off + size] = b"\xff" * size
+            check(got.device == dev and got.dtype == t.dtype
+                  and got.shape == t.shape and torch.equal(got, t),
+                  f"(t-2) {name}: the get through the arena changed it")
+            off += -(-size // 4096) * 4096
+            del got
+        # A small tensor's get once its window is registered, and from a
+        # bytes frame (the pageable route, with no look at the mappings).
+        small = store_cases()["fp32"]
+        size = ser.serialize(small).write_into(wview[off:])
+        frame = ser.serialize(small).to_bytes()
+        small_us = {}
+        for route, data in (("arena", rview[off:off + size]),
+                            ("bytes", frame)):
+            best = float("inf")
+            for _ in range(STORE_ITERS):
+                ts = time.perf_counter()
+                got = ser.deserialize(ser.SerializedObject.from_bytes(data))
+                best = min(best, time.perf_counter() - ts)
+                check(torch.equal(got, small), f"(t-2) the small {route} "
+                      "get changed it")
+            small_us[route] = best * 1e6
+            del got, data
+        check(ser.COPY_STATS["typed_tensor_get_pageable"] - pageable0
+              == (STORE_ITERS if DEVICE == "cuda" else 0),
+              "(t-2) the bytes frame's gets were not counted pageable")
+        pageable0 += STORE_ITERS if DEVICE == "cuda" else 0
+        windows = pp.pinned_windows()
+        registered = sum(e - w for w, e, _ in windows)
+        rss1 = resident(base)
+        # The 64 MiB object spans two windows, the small ones the first.
+        check(DEVICE != "cuda" or (
+            len(windows) == 3 and registered == 3 * pp.WINDOW_BYTES
+            and all(base <= w and e <= base + STORE_ARENA_BYTES
+                    and not writable for w, e, writable in windows)),
+              f"(t-2) the registered windows {windows}, not three "
+              f"read-only windows of the reader's mapping at {base:#x}")
+        check(DEVICE != "cuda" or rss1 <= registered,
+              f"(t-2) {rss1} bytes of the reader's mapping resident after "
+              f"the gets, more than the {registered} registered")
+        pageable = ser.COPY_STATS["typed_tensor_get_pageable"] - pageable0
+        check(pageable == 0, f"(t-2) {pageable} get(s) took the pageable "
+              "route from the arena")
+        rates.update({"put": n / min(puts) / 1e9,
+                      "get": n / min(gets[1:]) / 1e9,
+                      "first_get_s": gets[0], "registered_bytes": registered,
+                      "small_get_us": small_us,
+                      "rss": [rss0, rss1]})
+    finally:
+        pp.unpin_mapping(base)  # before the mapping goes
+        del wview, rview, writer, reader  # unmapped once the views die
+        gc.collect()
+    mib = 1 << 20
+    log(f"[t-2] ({card}) fp32, bf16, int64, bool, empty and 0-d tensors "
+        f"through a {STORE_ARENA_BYTES >> 20} MiB memfd arena (read-only "
+        f"reader mapping): exact on {dev}, 0 pageable gets. {n >> 20} MiB "
+        f"int64: get {rates['get']:.2f} GB/s (the windows it spans "
+        f"registered once; the first get, which registers them, "
+        f"{rates['first_get_s']:.4f} s) against a pinned host-to-device "
+        f"copy {rates['pinned_h2d']:.2f} GB/s; the pageable copy from the "
+        f"arena {rates['pageable']:.2f} GB/s; put (pinned device-to-host, "
+        f"then write_into) {rates['put']:.2f} GB/s; each the least of "
+        f"{STORE_ITERS}. A {small.nbytes >> 10} KiB tensor's get "
+        f"{rates['small_get_us']['arena']:.1f} us from the arena, "
+        f"{rates['small_get_us']['bytes']:.1f} us from a bytes frame. "
+        f"Registered {registered / mib:.0f} MiB in "
+        f"{len(windows)} windows of {pp.WINDOW_BYTES >> 20} MiB; the reader "
+        f"mapping's resident pages {rates['rss'][0] / mib:.1f} MiB before "
+        f"the gets, {rates['rss'][1] / mib:.1f} MiB after; "
+        f"{time.perf_counter() - t1:.1f} s")
+    log(f"[t] the advertisement and the arena: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"advertisement": {"resources": resources, "labels": labels},
+            "gbps": {k: rates[k] for k in ("get", "pinned_h2d", "pageable",
+                                           "put")},
+            "first_get_s": rates["first_get_s"],
+            "small_get_us": rates["small_get_us"],
+            "arena_bytes": STORE_ARENA_BYTES,
+            "registered_bytes": registered,
+            "reader_resident_bytes": rates["rss"]}
+
+
 # -- (r) the serving benchmarks ------------------------------------------------
 
 # (r-1) `benchmark_serving` and (r-2) `run_prefix_ttft_benchmark`, at the
@@ -5175,16 +5440,18 @@ def main(argv=()) -> int:
     parser = argparse.ArgumentParser(description="Drive ray_tpu_torch on the "
                                      "card(s); see the module docstring.")
     parser.add_argument("--only", choices=("l", "m", "n", "o", "p", "q",
-                                           "r", "s"),
+                                           "r", "s", "t"),
                         default=None,
                         help="run phase (l), the SPMD path (with 4 cards its "
                         "4-card part), (m), RLlib's one-process path, (n), "
                         "the data plane, (o), Train's checkpoint and "
                         "predictors, (p), Train's gang at world 1, (q), "
                         "RLlib's remote groups, (r), the serving "
-                        "benchmarks on the Llama-3-8B weights, or (s), the "
-                        "decoupled RL dataflow and lower_to_jit, alone "
-                        "after the kernel build")
+                        "benchmarks on the Llama-3-8B weights, (s), the "
+                        "decoupled RL dataflow and lower_to_jit, or (t), "
+                        "the node's advertisement and typed tensors "
+                        "through shared pages, alone after the kernel "
+                        "build")
     parser.add_argument("--part", default=None, choices=[
         p.__name__[len("cards_"):] for p in CARDS_PARTS],
         help="with --only l on 4 cards: this (l-3) part alone")
@@ -5298,6 +5565,19 @@ def main(argv=()) -> int:
               "(s) launched a flash kernel")
         print(card)
         print(json.dumps({"dataflow": dataflow}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": info["platform"], "kind": info["kind"],
+            "count": info["count"]}}))
+        return 0
+    if args.only == "t":
+        reset_kernel_counts()
+        store = phase_store(card)
+        lap("t")
+        log_laps()
+        check(not any(kernel_counts().values()),
+              "(t) launched a flash kernel")
+        print(card)
+        print(json.dumps({"store": store}))
         print(json.dumps({"ok": True, "device": {
             "platform": info["platform"], "kind": info["kind"],
             "count": info["count"]}}))
@@ -5454,6 +5734,15 @@ def main(argv=()) -> int:
     lap("s")
     log(f"[s] launches of the flash kernels on the decoupled dataflow and "
         f"lower_to_jit: {kernel_counts()} (they run none); "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_kernel_counts()
+    phase_store(card)
+    lap("t")
+    check(not any(kernel_counts().values()), "(t) launched a flash kernel")
+    log(f"[t] launches of the flash kernels on the advertisement and the "
+        f"arena: {kernel_counts()} (they run none); "
         f"{time.perf_counter() - t_start:.1f} s in all")
     log_laps()
 

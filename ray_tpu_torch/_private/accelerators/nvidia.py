@@ -6,17 +6,23 @@ bandwidths from NVIDIA's H100 data sheet, keyed by the part a
 `torch.cuda.get_device_name` string names. Unlike the TPU table, a card it
 does not know raises: a wrong peak would give a wrong MFU without a word.
 
-Also the counterpart of `detect_tpu` and `apply_tpu_detection`: the host's
-cards (`detect_gpu`), merged into a node's resources and labels
-(`apply_gpu_detection`), and the environment that binds a rank to its card
-before its first CUDA call (`visible_devices_env`).
+Also the counterpart of `detect_tpu`, `apply_tpu_detection` and
+`RuntimeContext.get_accelerator_ids`: the host's cards, read by a probe
+process (`probe_gpu`), a node's advertisement of them
+(`node_advertisement`, the `resources=` and `labels=` a node of the runtime
+is started with; `python -m ray_tpu_torch._private.accelerators` prints
+the resources as JSON), the cards a worker was given (`accelerator_ids`),
+and the environment that binds a rank to its card before its first CUDA
+call (`visible_devices_env`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+from ray_tpu_torch._private import backend_probe
 
 # part -> (dense bf16 FLOP/s, device-memory bytes/s)
 _PEAKS = {
@@ -89,38 +95,99 @@ class GpuInfo:
             return self.names[0]
 
 
-def detect_gpu() -> Optional[GpuInfo]:
-    """The visible CUDA cards, or None on a host without any. Reads
-    `torch.cuda.get_device_properties`, which initialises CUDA in this
-    process: a launcher that binds ranks to cards calls it in a probe
-    process (`_private.backend_probe`) or after binding."""
-    import torch
+def typed_resource(info: GpuInfo) -> str:
+    """The typed resource of `info`'s part, the counterpart of
+    `TPU-<type>`: 'GPU-H100-SXM' (a card the peak table does not know:
+    its name, spaces as hyphens)."""
+    return "GPU-" + "-".join(info.accelerator_type.split())
 
-    if not torch.cuda.is_available():
+
+def allotted(info: GpuInfo, env: Optional[Mapping[str, str]] = None
+             ) -> Optional[GpuInfo]:
+    """The cards of `info` (all of the host's) that the allotment in `env`
+    (default os.environ) leaves a process, in the allotment's order: the
+    entries of its CUDA_VISIBLE_DEVICES up to the first one that names no
+    card, as CUDA enumerates them; all of them when it is unset. An
+    allotment by UUID raises: `info` has no UUIDs to match (a probe
+    started under that environment applies it, `node_advertisement`
+    without `info`). None when nothing is left."""
+    allot = (os.environ if env is None else env).get("CUDA_VISIBLE_DEVICES")
+    if allot is None:
+        ids = list(range(info.count))
+    else:
+        ids = []
+        for entry in (e.strip() for e in allot.split(",")):
+            if not entry:
+                break
+            if not entry.lstrip("-").isdigit():
+                raise ValueError(f"CUDA_VISIBLE_DEVICES={allot!r} names a "
+                                 "card by UUID; probe the cards under that "
+                                 "environment instead of passing info")
+            if not 0 <= int(entry) < info.count:
+                break
+            ids.append(int(entry))
+    if not ids:
         return None
-    n = torch.cuda.device_count()
-    if n == 0:
+    return GpuInfo(len(ids), tuple(info.names[i] for i in ids),
+                   tuple(info.memory_bytes[i] for i in ids))
+
+
+def probe_gpu(env: Optional[Mapping[str, str]] = None,
+              timeout_s: Optional[float] = None) -> Optional[GpuInfo]:
+    """The cards a fresh process started under `env` (default os.environ)
+    sees, read in that process (`backend_probe.probe_cards`), so that this
+    one never initialises CUDA; None without any. A probe that crashes or
+    times out raises."""
+    cards = backend_probe.probe_cards(timeout_s, env)
+    if not cards:
         return None
-    props = [torch.cuda.get_device_properties(i) for i in range(n)]
-    return GpuInfo(n, tuple(p.name for p in props),
-                   tuple(int(p.total_memory) for p in props))
+    return GpuInfo(len(cards), tuple(n for n, _ in cards),
+                   tuple(m for _, m in cards))
 
 
-def apply_gpu_detection(resources: Dict[str, float],
-                        labels: Optional[Dict[str, str]] = None,
-                        info: Optional[GpuInfo] = None
-                        ) -> Optional[GpuInfo]:
-    """Merge the detected cards into a node's advertisement: the `GPU`
-    count and the accelerator-type label. Values the caller set win (a node
-    started with resources={"GPU": 2} keeps 2). Mutates both dicts;
-    returns the detection (None, and no change, without cards)."""
-    info = detect_gpu() if info is None else info
+def node_advertisement(resources: Optional[Mapping[str, float]] = None,
+                       labels: Optional[Mapping[str, str]] = None, *,
+                       info: Optional[GpuInfo] = None,
+                       env: Optional[Mapping[str, str]] = None
+                       ) -> Tuple[Dict[str, float], Dict[str, str]]:
+    """The `resources` and `labels` a node of the runtime advertises its
+    cards with, the counterpart of `apply_tpu_detection`, which the JAX
+    package's raylet runs: `GPU`, the cards of the allotment; the typed
+    `GPU-<part>` (`typed_resource`) at the advertised `GPU` count, so a
+    gang can pin the part it was sized for; and the accelerator-type
+    label. Values the caller set win, and a host without cards gets
+    nothing added. -> new dicts; the caller's are left as they were.
+
+    `info` (default: a probe process started under `env`, `probe_gpu`,
+    which raises if it crashes or times out) is the host's cards; the
+    allotment in `env` (default os.environ), its CUDA_VISIBLE_DEVICES,
+    then picks among them (`allotted`). Pass the result to the runtime's
+    own arguments: `ray_tpu.init(resources=...)`,
+    `Cluster.add_node(resources=..., labels=...)`, or `ray-tpu start
+    --resources "$(python -m ray_tpu_torch._private.accelerators)"`."""
+    resources, labels = dict(resources or {}), dict(labels or {})
+    info = probe_gpu(env) if info is None else allotted(info, env)
     if info is None:
-        return None
+        return resources, labels
     resources.setdefault("GPU", float(info.count))
-    if labels is not None:
-        labels.setdefault(ACCELERATOR_TYPE_LABEL, info.accelerator_type)
-    return info
+    resources.setdefault(typed_resource(info), resources["GPU"])
+    labels.setdefault(ACCELERATOR_TYPE_LABEL, info.accelerator_type)
+    return resources, labels
+
+
+def accelerator_ids(ctx: Any, env: Optional[Mapping[str, str]] = None
+                    ) -> Dict[str, List[str]]:
+    """The cards visible to this worker, the counterpart of the runtime
+    context's `get_accelerator_ids`: {"GPU": [...]} from
+    CUDA_VISIBLE_DEVICES in `env` (default os.environ) when it names any,
+    else the indices of the `GPU` count the runtime assigned to the
+    running task or actor. `ctx` is the runtime context the caller passes
+    in (`ray_tpu.get_runtime_context()`); the port imports none."""
+    visible = (os.environ if env is None else env).get("CUDA_VISIBLE_DEVICES")
+    if visible:
+        return {"GPU": [c.strip() for c in visible.split(",") if c.strip()]}
+    n = int(ctx.get_assigned_resources().get("GPU", 0))
+    return {"GPU": [str(i) for i in range(n)]}
 
 
 def visible_devices_env(ids: Sequence[int],

@@ -9,7 +9,9 @@ runtime ships it to its workers by reference.
 
 - The rank side: `bind_card` (this process's first CUDA call, onto the card
   at its local rank), `join_gang`, `init_process_group`, `rank_device`,
-  `bind_thread`, `destroy_process_group`, `gang_address`.
+  `bind_thread`, `destroy_process_group`, `gang_address` (the rendezvous's
+  store, served on a port this process holds from the moment it is
+  advertised) and `release_address`.
 - The calling side: `local_ranks` and `check_distinct_cards` (which card
   each rank takes), `resolve` (the runtime's ObjectRefs, each read through
   its own `future()`) and `gather_gang` (bind, check, join).
@@ -27,12 +29,12 @@ import concurrent.futures
 import datetime
 import os
 import socket
+import threading
+import urllib.parse
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
-
-from ray_tpu_torch._private.rpc import find_free_port
 
 
 class CollectiveGroupError(RuntimeError):
@@ -50,6 +52,11 @@ NO_CARD = ("an NCCL rank needs a CUDA card and none is visible; ask for "
 
 # The card `bind_card` bound this process to.
 _bound: Dict[str, Optional[torch.device]] = {"card": None}
+
+# The rendezvous store this process serves (`gang_address`), by port, until
+# a join takes it or `release_address` stops it.
+_held_lock = threading.Lock()
+_held: Dict[int, Any] = {}
 
 
 def device_type(device) -> str:
@@ -145,14 +152,48 @@ def rank_device() -> torch.device:
     return torch.device("cpu")
 
 
+def _rendezvous_store(init_method: str, world_size: int, rank: int,
+                      timeout: datetime.timedelta):
+    """The store of a `tcp://<host>:<port>` rendezvous: the one this process
+    serves on that port (`gang_address`), else served by rank 0 on the
+    port (a `coordinator_port`) and reached by the others; None for any
+    other init_method, which torch's own rendezvous reads. Every rank of
+    a tcp gang takes its store from here: torch prefixes the keys of a
+    store it made itself ("default_pg") and not those of one it is given,
+    so ranks that mixed the two would wait for each other's keys."""
+    url = urllib.parse.urlparse(init_method)
+    if url.scheme != "tcp":
+        return None
+    with _held_lock:
+        store = _held.pop(url.port, None)
+    if store is not None:
+        store.set_timeout(timeout)
+        return store
+    return dist.TCPStore(url.hostname, url.port, world_size, rank == 0,
+                         timeout, wait_for_workers=False)
+
+
+def release_address(init_method: str) -> bool:
+    """Stop serving the rendezvous that `gang_address` advertised at
+    `init_method`, where no join of this process will take it (a process
+    that keeps its gang, a declaration that failed). -> whether this
+    process served it."""
+    with _held_lock:
+        return _held.pop(urllib.parse.urlparse(init_method).port,
+                         None) is not None
+
+
 def init_process_group(rank: int, world_size: int, init_method: str,
                        device=None, backend: Optional[str] = None,
                        init_timeout_s: int = 300) -> torch.device:
     """Join the gang as `rank` of `world_size` through `init_method`
     (`tcp://<host>:<port>` or `file://<path>`). device None or "cuda":
     NCCL (or `backend`), this rank on the card `bind_card` bound it to,
-    else on `torch.cuda.current_device()`; "cpu": gloo. The rendezvous and
-    every collective after it give up after init_timeout_s. -> the rank's
+    else on `torch.cuda.current_device()`; "cpu": gloo. A tcp rendezvous
+    meets at the store the process that advertised the port serves
+    (`gang_address`); with no such process, rank 0 serves it there. The
+    rendezvous and every collective after it give up after init_timeout_s;
+    a gloo join returns once every rank has connected. -> the rank's
     device. A process already in a gang raises."""
     dev_type = device_type(device)
     if dist.is_initialized():
@@ -168,10 +209,24 @@ def init_process_group(rank: int, world_size: int, init_method: str,
         kw["device_id"] = dev
     else:
         dev = torch.device("cpu")
-    dist.init_process_group(
-        backend=process_group_backend(backend, dev_type),
-        init_method=init_method, world_size=world_size, rank=rank,
-        timeout=datetime.timedelta(seconds=init_timeout_s), **kw)
+    timeout = datetime.timedelta(seconds=init_timeout_s)
+    store = _rendezvous_store(init_method, world_size, rank, timeout)
+    if store is None:
+        kw["init_method"] = init_method
+    else:
+        kw["store"] = store
+    try:
+        dist.init_process_group(
+            backend=process_group_backend(backend, dev_type),
+            world_size=world_size, rank=rank, timeout=timeout, **kw)
+    finally:
+        del store, kw  # a failed join stops serving its rendezvous
+    if dist.get_backend() == "gloo":
+        # gloo's constructor returns once this rank's side of every pair is
+        # up; a peer may still be finishing its side, and a rank that left
+        # the gang before then (destroyed its group, or exited) fails the
+        # peer's connect with "Connection closed by peer".
+        dist.barrier()
     return dev
 
 
@@ -180,9 +235,11 @@ def join_gang(init_method: str, world_size: int, rank: int, device=None,
               ) -> str:
     """Join the gang of `world_size` as `rank` through `init_method`. A
     process already in a gang of that world and rank keeps it; one in a
-    gang of another world or rank raises `CollectiveGroupError`. -> this
-    rank's device, as a string."""
+    gang of another world or rank raises `CollectiveGroupError`; either
+    stops serving a rendezvous this process advertised at init_method.
+    -> this rank's device, as a string."""
     if dist.is_initialized():
+        release_address(init_method)
         check_gang(world_size, rank)
         return str(rank_device())
     return str(init_process_group(rank, world_size, init_method, device,
@@ -197,8 +254,19 @@ def destroy_process_group() -> None:
 
 def gang_address() -> Dict[str, Any]:
     """Where a gang can meet at this process: its host's name and a free
-    port there."""
-    return {"hostname": socket.gethostname(), "port": find_free_port()}
+    port there, on which this process serves the rendezvous's store from
+    now on, so that nothing else can take the port between its
+    advertisement and the join. The join of any rank in this process
+    through that port takes the store (`init_process_group`); the others
+    reach it. A process advertises one gang at a time: a store it still
+    serves from an earlier call, which no join took, is stopped."""
+    store = dist.TCPStore(socket.gethostname(), 0, None, True,
+                          datetime.timedelta(seconds=300),
+                          wait_for_workers=False)
+    with _held_lock:
+        _held.clear()
+        _held[store.port] = store
+    return {"hostname": socket.gethostname(), "port": store.port}
 
 
 # -- the calling side ---------------------------------------------------------------

@@ -9,14 +9,17 @@ storage into the pickle stream (a full copy) and a CUDA tensor's receiver
 needs CUDA to load it. `SerializedObject.write_into` then makes the one host
 copy into the destination (an object-store arena), and a get rebuilds the
 tensor as a view over the received buffer (CPU) or with one host-to-device
-copy (CUDA).
+copy (CUDA): from the store's shared arena at the pinned rate, the windows
+of its mapping that the object spans registered with CUDA once per process
+(`pinned_pages.pin_range`).
 
 `serialize` / `deserialize` are the port's own pickler. The runtime's
 pickler (cloudpickle's, inside `ray_tpu`) picks the wire up through
 `install_tensor_wire`, which registers the reducer in cloudpickle's own
 class-level dispatch table; the port imports nothing of the runtime.
-`COPY_STATS` counts the typed reductions and rebuilds, and the payload
-flattens, which the data plane forbids on its hot path.
+`COPY_STATS` counts the typed reductions and rebuilds, the payload
+flattens, which the data plane forbids on its hot path, and the CUDA gets
+that took the pageable route.
 """
 
 from __future__ import annotations
@@ -28,13 +31,19 @@ from typing import Any, List, Optional
 
 import torch
 
+from ray_tpu_torch._private import pinned_pages
+
 # Copy accounting: payload_flatten counts whole-payload materializations
 # (to_bytes); typed_tensor_put/get count the typed wire's reductions and
-# rebuilds. Plain int bumps, read by tests and the bench only.
+# rebuilds; typed_tensor_get_pageable the CUDA rebuilds whose host buffer
+# was neither pinned nor in shared memory that pinned_pages registers,
+# copied through the driver's pageable route. Plain int bumps, read by tests and
+# the bench only.
 COPY_STATS = {
     "payload_flatten": 0,
     "typed_tensor_put": 0,
     "typed_tensor_get": 0,
+    "typed_tensor_get_pageable": 0,
 }
 
 # Whether install_tensor_wire has run in this process: None not yet (or
@@ -227,8 +236,9 @@ def _rebuild_tensor(meta, buf):
     read-only memory (an arena page, a bytes frame) so is the tensor, though
     torch cannot mark it so: writing to it is undefined, clone() it first.
     torch's warning about non-writable buffers is not emitted. A CUDA
-    tensor is copied to its device (see _target_device); the copy is
-    synchronous, so it returns only once the host view may die.
+    tensor is copied to its device (see _target_device, _to_card); the
+    copy has finished when this returns, since the host view may die (and
+    an arena slot be reused) right after.
 
     Rebuilding installs the wire (install_tensor_wire): a process that has
     received a typed tensor sends typed tensors."""
@@ -249,10 +259,40 @@ def _rebuild_tensor(meta, buf):
         t = torch.frombuffer(raw, dtype=torch.uint8).view(dtype).view(shape)
     target = _target_device(dev_type, index)
     if target.type == "cuda":
-        t = t.to(target)
+        exporter = raw.obj
+        while isinstance(exporter, memoryview):  # views of views
+            exporter = exporter.obj
+        t = _to_card(t, target, exporter)
     if kind == "parameter":
         return torch.nn.Parameter(t, requires_grad=requires_grad)
     return t.requires_grad_(requires_grad) if requires_grad else t
+
+
+def _to_card(t: torch.Tensor, target: torch.device,
+             exporter=None) -> torch.Tensor:
+    """t, a CPU view of the received buffer (exported by `exporter`),
+    copied onto the card `target` and finished. From shared memory whose
+    windows `pinned_pages.pin_range` registers (the object store's arena),
+    or from pinned memory, the copy runs at the pinned rate; from any
+    other memory it takes the driver's pageable route and is counted as
+    typed_tensor_get_pageable. The process's mappings are read only for a
+    buffer in none that it has registered a window of, not pinned, and not
+    a bytes frame or a bytearray (which the heap holds)."""
+    if t.numel() == 0:
+        return torch.empty(t.shape, dtype=t.dtype, device=target)
+    dst = torch.empty(t.shape, dtype=t.dtype, device=target)
+    addr, n = t.data_ptr(), t.nbytes
+    # A registered window reads as pinned too: its spans come first, since
+    # a copy may not cross from one window's registration to the next.
+    spans = pinned_pages.pin_range(addr, n, find=False)
+    if spans is None and t.is_pinned():
+        spans = [(addr, addr + n)]
+    if spans is None and not isinstance(exporter, (bytes, bytearray)):
+        spans = pinned_pages.pin_range(addr, n)
+    if spans is not None:
+        return pinned_pages.copy_pinned(dst, t, spans)
+    COPY_STATS["typed_tensor_get_pageable"] += 1
+    return dst.copy_(t)
 
 
 def _dispatch_reduce(obj):

@@ -10,7 +10,8 @@ a host with too few cards). Nothing falls back from one to the other.
   `JaxBackend`: the runtime's `DataParallelTrainer` takes the config as
   its `backend_config` and calls the backend's hooks with its
   `WorkerGroup`. `on_start` binds each worker to the card at its local
-  rank, gathers the workers at rank 0's host and a free port, and in mesh
+  rank, gathers the workers at rank 0's host and a port rank 0's worker
+  holds (`gang.gang_address`), and in mesh
   mode builds the mesh through a collective group (`train.spmd`). What
   each worker runs for it (`bind_card`, `join_gang`, ...) lives in
   `_private.gang`, which the collective groups declared over actors share.
@@ -28,6 +29,7 @@ calls return, each resolved through its own `future()` (`gang.resolve`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import multiprocessing
@@ -45,8 +47,8 @@ import torch
 from ray_tpu_torch._private import backend_probe, gang
 from ray_tpu_torch._private.accelerators.nvidia import visible_devices_env
 from ray_tpu_torch._private.gang import (bind_card, destroy_process_group,  # noqa: F401
-                                         join_gang, rank_device, resolve)
-from ray_tpu_torch._private.rpc import find_free_port
+                                         gang_address, join_gang,
+                                         rank_device, resolve)
 
 logger = logging.getLogger(__name__)
 
@@ -61,7 +63,8 @@ class TorchConfig:
     CUDA), "cpu" gloo. `backend` None picks NCCL for the card and gloo for
     the CPU; the rendezvous gives up after init_timeout_s, and so does every
     collective after it. `distributed=True` gathers the workers into one
-    gang at rank 0's host and a free port (`coordinator_port` when set);
+    gang at rank 0's host and a port its worker serves the rendezvous on
+    (`gang.gang_address`; `coordinator_port` when set, served by rank 0);
     False leaves each worker alone on its card, as JaxConfig's default does.
     `env_vars` are set in each worker before its first CUDA call.
     `mesh_config` (a `parallel.mesh.MeshConfig`) switches to mesh-native
@@ -135,8 +138,9 @@ class TorchBackend:
         timeout = config.init_timeout_s
         join = None
         if config.distributed or mesh_mode:
+            # rank 0's worker serves the rendezvous on a port it holds
             port = config.coordinator_port or worker_group.execute_single(
-                0, find_free_port)
+                0, gang_address)["port"]
             init_method = f"tcp://{meta[0]['hostname']}:{port}"
             logger.info("torch.distributed gang of %d at %s", world,
                         init_method)
@@ -146,11 +150,18 @@ class TorchBackend:
                     join_gang, init_method, world, r, config.device, timeout,
                     config.backend)
 
-        gang.gather_gang([m["node_id"] for m in meta],
-                         lambda r, local, n: workers[r].execute.remote(
-                             bind_card, local, config.device,
-                             config.env_vars, n),
-                         join, timeout)
+        try:
+            gang.gather_gang([m["node_id"] for m in meta],
+                             lambda r, local, n: workers[r].execute.remote(
+                                 bind_card, local, config.device,
+                                 config.env_vars, n),
+                             join, timeout)
+        except BaseException:
+            if join is not None:  # rank 0's worker may not have joined
+                with contextlib.suppress(Exception):
+                    workers[0].execute.remote(gang.release_address,
+                                              init_method)
+            raise
         if mesh_mode:
             from ray_tpu_torch.train.spmd import setup_worker_mesh
 

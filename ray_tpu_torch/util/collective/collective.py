@@ -39,15 +39,18 @@ The declaring side: `create_collective_group(actors, ...)` declares a group
 over the runtime's actors (each mixes in `CollectiveActorMixin`). It makes
 them one torch.distributed gang, each bound to its card (NCCL), or gloo
 when the caller asks for the CPU, meeting at the host of the actor of rank
-0 and a free port there, and then has each actor join the group. It
+0 and a port that actor serves the rendezvous on (`gang.gang_address`),
+and then has each actor join the group. It
 reaches the runtime only through the handles it is given and the
 ObjectRefs their calls return (`_private.gang.resolve`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import pickle
+import socket
 import threading
 from typing import Any, Dict, List
 
@@ -210,9 +213,10 @@ def create_collective_group(actors, world_size: int, ranks: List[int],
     then have each join the group as its rank in `ranks`.
 
     The actor of rank 0 (the one whose entry in `ranks` is 0) gives its
-    host's name and a free port; every actor then joins the gang there at
-    once (an actor in a gang of this world and rank keeps it, one in a gang
-    of another raises `CollectiveGroupError`) and calls
+    host's name and a port it holds and serves the rendezvous's store on
+    from then on (`gang.gang_address`); every actor then joins the gang
+    there at once (an actor in a gang of this world and rank keeps it, one
+    in a gang of another raises `CollectiveGroupError`) and calls
     `init_collective_group`. `device` has no counterpart in the JAX
     package, whose processes have one kind of device: None is the card
     (NCCL, each actor bound to the card at its position among the group's
@@ -231,10 +235,12 @@ def create_collective_group(actors, world_size: int, ranks: List[int],
             raise RuntimeError(f"group {group_name!r} already declared; "
                                "destroy_collective_group() first")
         _declared.add(group_name)
+    init_method = None
     try:
         by_rank = [actors[ranks.index(r)] for r in range(world_size)]
         addresses = gang.resolve(
-            [a._rt_collective_address.remote() for a in by_rank],
+            [a._rt_collective_address.remote(r == 0)
+             for r, a in enumerate(by_rank)],
             list(range(world_size)), "give its address", init_timeout_s)
         init_method = (f"tcp://{addresses[0]['hostname']}:"
                        f"{addresses[0]['port']}")
@@ -249,6 +255,9 @@ def create_collective_group(actors, world_size: int, ranks: List[int],
     except BaseException:
         with _groups_lock:
             _declared.discard(group_name)
+        if init_method is not None:  # rank 0 may not have joined
+            with contextlib.suppress(Exception):
+                by_rank[0]._rt_collective_release.remote(init_method)
         raise
 
 
@@ -257,8 +266,16 @@ class CollectiveActorMixin:
     ``create_collective_group`` (groups declared over actors,
     collective.py:52): the calls the declaration makes on each actor."""
 
-    def _rt_collective_address(self) -> dict:
-        return gang.gang_address()
+    def _rt_collective_address(self, serve: bool = False) -> dict:
+        """This actor's host; with `serve` (rank 0), also the port it serves
+        the gang's rendezvous on from now on (`gang.gang_address`)."""
+        if serve:
+            return gang.gang_address()
+        return {"hostname": socket.gethostname()}
+
+    def _rt_collective_release(self, init_method: str) -> bool:
+        """Stop serving the rendezvous of a declaration that failed."""
+        return gang.release_address(init_method)
 
     def _rt_collective_bind(self, local_rank: int, device=None,
                             node_ranks=None):

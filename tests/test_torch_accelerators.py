@@ -1,5 +1,5 @@
-"""The port's GPU glue on the CPU: the NVIDIA detector and per-rank
-binding (torch.cuda stubbed), the backend probe, the gang launcher's
+"""The port's GPU glue on the CPU: the NVIDIA detector (its probe process
+stubbed) and per-rank binding, the backend probe, the gang launcher's
 failure handling, and a rehearsal of chip_smoke.py's phase (l).
 
 Phase (l) runs here as the one-card branch does on the chip: (l-1) a
@@ -11,8 +11,8 @@ sharded code on a 1 x ... x 1 mesh against the unsharded step, and (l-2)
 import json
 import multiprocessing
 import operator
+import socket
 import time
-import types
 
 import pytest
 import torch
@@ -23,44 +23,42 @@ from ray_tpu_torch._private.accelerators import nvidia
 from ray_tpu_torch.train import backend
 
 
-def _stub_cards(monkeypatch, n, name="NVIDIA H100 80GB HBM3"):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: n > 0)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda i: types.SimpleNamespace(
-                            name=name, total_memory=85_000_000_000 + i))
+def _stub_cards(monkeypatch, names, memory=85_000_000_000):
+    """The probe process answers these cards, the i-th with memory + i
+    bytes."""
+    cards = [[n, memory + i] for i, n in enumerate(names)]
+    monkeypatch.setattr(backend_probe, "_PROBE",
+                        f"import json; print(json.dumps({cards!r}))")
 
 
 def test_detect_gpu_reads_every_card(monkeypatch):
-    _stub_cards(monkeypatch, 2)
-    info = nvidia.detect_gpu()
+    _stub_cards(monkeypatch, ["NVIDIA H100 80GB HBM3"] * 2)
+    info = nvidia.probe_gpu()
     assert info == nvidia.GpuInfo(2, ("NVIDIA H100 80GB HBM3",) * 2,
                                   (85_000_000_000, 85_000_000_001))
     assert info.accelerator_type == "H100 SXM"
-    _stub_cards(monkeypatch, 0)
-    assert nvidia.detect_gpu() is None
+    _stub_cards(monkeypatch, [])
+    assert nvidia.probe_gpu() is None
 
 
 def test_apply_gpu_detection_merges_and_keeps_what_was_set(monkeypatch):
-    _stub_cards(monkeypatch, 4, "NVIDIA H100 PCIe")
-    resources, labels = {"CPU": 8.0}, {}
-    info = nvidia.apply_gpu_detection(resources, labels)
-    assert info.count == 4
-    assert resources == {"CPU": 8.0, "GPU": 4.0}
+    _stub_cards(monkeypatch, ["NVIDIA H100 PCIe"] * 4)
+    given = {"CPU": 8.0}
+    resources, labels = nvidia.node_advertisement(given, {}, env={})
+    assert resources == {"CPU": 8.0, "GPU": 4.0, "GPU-H100-PCIe": 4.0}
     assert labels == {nvidia.ACCELERATOR_TYPE_LABEL: "H100 PCIe"}
-    resources, labels = {"GPU": 2.0}, {nvidia.ACCELERATOR_TYPE_LABEL: "x"}
-    nvidia.apply_gpu_detection(resources, labels)
-    assert resources == {"GPU": 2.0}
+    assert given == {"CPU": 8.0}
+    resources, labels = nvidia.node_advertisement(
+        {"GPU": 2.0}, {nvidia.ACCELERATOR_TYPE_LABEL: "x"}, env={})
+    assert resources == {"GPU": 2.0, "GPU-H100-PCIe": 2.0}
     assert labels == {nvidia.ACCELERATOR_TYPE_LABEL: "x"}
     # a card the peak table does not know keeps its own name
-    _stub_cards(monkeypatch, 1, "Some Other GPU")
-    labels = {}
-    nvidia.apply_gpu_detection({}, labels)
+    _stub_cards(monkeypatch, ["Some Other GPU"])
+    resources, labels = nvidia.node_advertisement(env={})
     assert labels[nvidia.ACCELERATOR_TYPE_LABEL] == "Some Other GPU"
-    _stub_cards(monkeypatch, 0)
-    resources = {}
-    assert nvidia.apply_gpu_detection(resources, {}) is None
-    assert resources == {}
+    assert resources == {"GPU": 1.0, "GPU-Some-Other-GPU": 1.0}
+    _stub_cards(monkeypatch, [])
+    assert nvidia.node_advertisement({}, {}, env={}) == ({}, {})
 
 
 def test_visible_devices_env_binds_a_rank_to_its_cards():
@@ -112,6 +110,72 @@ def test_launch_gang_returns_in_rank_order_and_fails_fast():
     with pytest.raises(RuntimeError, match="ZeroDivisionError"):
         backend.launch_gang(operator.truediv, 2, "cpu", 120, args=(1, 0))
     assert not multiprocessing.active_children()
+
+
+def test_the_advertised_port_is_held_until_the_join():
+    """The process that advertises a gang's port serves the rendezvous on
+    it from then on: nothing else can bind it before the join, and rank 0
+    joining in this process takes that store."""
+    from ray_tpu_torch._private import gang
+
+    addr = gang.gang_address()
+    with socket.socket() as other:
+        other.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        with pytest.raises(OSError):
+            other.bind(("", addr["port"]))
+    method = f"tcp://{addr['hostname']}:{addr['port']}"
+    try:
+        assert backend.init_process_group(0, 1, method, "cpu").type == "cpu"
+        assert dist.get_world_size() == 1
+        assert addr["port"] not in gang._held
+    finally:
+        backend.destroy_process_group()
+
+
+def _port_is_free(port):
+    with socket.socket() as other:
+        other.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            other.bind(("", port))
+        except OSError:
+            return False
+    return True
+
+
+def test_an_advertised_port_that_no_join_takes_is_released():
+    """A process serves only the rendezvous it advertised last; a process
+    that keeps its gang, and a join that fails, stop serving theirs."""
+    from ray_tpu_torch._private import gang
+
+    def method(addr):
+        return f"tcp://{addr['hostname']}:{addr['port']}"
+
+    first, addr = gang.gang_address(), gang.gang_address()
+    assert list(gang._held) == [addr["port"]] and _port_is_free(first["port"])
+    with pytest.raises(Exception, match="[Tt]imed? ?out|timeout"):
+        # rank 1 never comes
+        gang.init_process_group(0, 2, method(addr), "cpu", init_timeout_s=1)
+    assert not dist.is_initialized()
+    assert gang._held == {} and _port_is_free(addr["port"])
+    addr = gang.gang_address()
+    try:
+        assert gang.join_gang(method(addr), 1, 0, "cpu") == "cpu"
+        again = gang.gang_address()
+        assert not _port_is_free(again["port"])
+        assert gang.join_gang(method(again), 1, 0, "cpu") == "cpu"  # kept
+        assert gang._held == {} and _port_is_free(again["port"])
+    finally:
+        backend.destroy_process_group()
+
+
+def test_a_gang_meets_at_a_port_that_no_process_advertised():
+    """A tcp address that no rank's process serves (a `coordinator_port`):
+    rank 0 serves the store there and the others reach it."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert backend.launch_gang(dist.get_world_size, 2, "cpu", 120,
+                               init_method=f"tcp://127.0.0.1:{port}") == [2, 2]
 
 
 def test_a_hung_gang_fails_its_call_within_the_timeout():

@@ -389,6 +389,10 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     # own by tests/test_torch_rl_dataflow.py.
     monkeypatch.setattr(smoke, "phase_dataflow", lambda card: smoke.log(
         "[s] rehearsed by tests/test_torch_rl_dataflow.py"))
+    # (t), the advertisement and typed tensors through shared pages, is
+    # rehearsed on its own by tests/test_torch_store.py.
+    monkeypatch.setattr(smoke, "phase_store", lambda card: smoke.log(
+        "[t] rehearsed by tests/test_torch_store.py"))
     # (r), the serving benchmarks, is rehearsed on its own by
     # tests/test_torch_serve_benchmarks.py.
     monkeypatch.setattr(smoke, "phase_serving_bench", lambda *a: smoke.log(
@@ -459,7 +463,7 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
                 "[i-1]", "[i-2]", "[i-3]", "[i-4]", "[i]", "[r]", "[h-2]",
                 "[r-3]",
                 "[bench]", "[j]", "[k]", "[l]", "[m]", "[n]", "[o]", "[q]",
-                "[s]"):
+                "[s]", "[t]"):
         assert any(line.startswith(tag) for line in lines), tag
     for text in ("[e] _decode_attention", "[e] _cached_attention",
                  "token blocks identical True", "[e] decode step, former",

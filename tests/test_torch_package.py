@@ -73,7 +73,7 @@ def test_importing_the_port_loads_no_jax():
             "ray_tpu_torch.parallel.pipeline, "
             "ray_tpu_torch.parallel.gang_cases, ray_tpu_torch.train.backend, "
             "ray_tpu_torch.parallel.train_gang_cases, "
-            "ray_tpu_torch._private.rpc, ray_tpu_torch._private.gang, "
+            "ray_tpu_torch._private.pinned_pages, ray_tpu_torch._private.gang, "
             "ray_tpu_torch.train.checkpoint, "
             "ray_tpu_torch.train.spmd, ray_tpu_torch.train.spmd_bench, "
             "ray_tpu_torch._private.backend_probe, ray_tpu_torch.rllib, "
