@@ -336,6 +336,31 @@ Phases, in order; any failure raises and the script exits non-zero:
       process's mappings); each the least of 5, printed beside the
       card's name and power limit. `--only t` runs (t) alone after (a).
       It launches none of the flash kernels.
+  (u) the port's own runtime core on the card (`ray_tpu_torch.init`,
+      its GCS, raylet, core worker and native shm store): (u-1) `init()`
+      as a user calls it advertises `GPU` = `torch.cuda.device_count()`,
+      the typed `GPU-<part>` and its label (the raylet's probe process),
+      and its native shm store is up; (u-2) a `num_gpus=1` actor holds the
+      dense `InferenceEngine` at Llama-3-8B widths cut to RUNTIME_LAYERS
+      layers, weights from RUNTIME_SEED, and answers RUNTIME_PROMPTS
+      prompts of different lengths with RUNTIME_NEW greedy tokens each
+      through actor calls: its tokens equal those of the driver's copy of
+      the engine from the same seed on the same card; it reports its
+      CUDA_VISIBLE_DEVICES, that it is a direct spawn of the raylet (never
+      a zygote fork) and its launches of the flash forward kernel (set to
+      0 when the actor is built, read after its calls: above 0, one a
+      layer a prompt, all from `forward`, since the dense engine's cached
+      attention in `generate` is the plain one; the kernels line's
+      `runtime_actor_forward` launches); (u-3) a 64 MiB bf16 CUDA tensor
+      goes from the driver to the actor and back through the native store,
+      exact, both puts landing in the store and no get taking the pageable
+      route;
+      the GB/s each way (a put's seconds plus the other side's get's, the
+      best of RUNTIME_ITERS), and the p50 ms of RUNTIME_CALLS no-op task
+      round trips and actor-call round trips, beside the card's name and
+      power limit; (u-4) on a node of two or more cards, two `num_gpus=1`
+      actors report different card UUIDs (on one card it is logged as not
+      run). `--only u` runs (u) alone after (a).
 
 The launch counts are set to 0 just before each main path (serving: (d)
 and (e); paged serving: (i), which runs no flash kernel; the serving
@@ -345,8 +370,9 @@ steps, its compiled sharded steps and the zoo on the mesh:
 (l), each on its own; the fed training path: (n-1)'s fed runs; the
 checkpointed training path: (o-1); the gang's training path: (p); the
 remote RL groups: (q), the decoupled dataflow with `lower_to_jit`: (s),
-and typed tensors through shared pages: (t), which run no flash kernel)
-and read just after it. Each phase's
+and typed tensors through shared pages: (t), which run no flash kernel;
+the port's own runtime: (u), whose actor sets its own count to 0 when it
+is built and reads it after its `forward` calls) and read just after it. Each phase's
 seconds are logged at the end ("[phases]"). The last
 three lines of stdout are the card's `nvidia-smi` name and power limit, one
 JSON object on the kernels, and `{"ok": true, "device": ...}`. Without
@@ -615,12 +641,35 @@ def ptxas_report(log):
 
 
 def phase_build():
+    import threading
+
+    from ray_tpu_torch import _native
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import flash_attention as fa
 
+    # the runtime's shm store (g++, for (u)) builds beside the kernels
+    store = {}
+
+    def build_store():
+        t = time.perf_counter()
+        try:
+            store["path"] = _native.build_library("shm_store")
+        except Exception as err:  # noqa: BLE001 — reported by the check
+            store["error"] = err
+        store["s"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=build_store, name="build-shm-store")
+    thread.start()
     t0 = time.perf_counter()
-    built = _build.build(*sorted(set(fa.KERNELS.values())))
+    try:
+        built = _build.build(*sorted(set(fa.KERNELS.values())))
+    finally:
+        thread.join()
     log(f"[a] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    check("path" in store, f"the runtime's shm store did not build: "
+          f"{store.get('error')}")
+    log(f"[a] the runtime's shm store: {os.path.basename(store['path'])}, "
+        f"g++ {store['s']:.2f} s beside nvcc")
     for b in built.values():
         log(f"[a] {b.name}: {b.path.name}, nvcc {b.seconds:.2f} s")
         for kern, dtype, d, regs, st, ld in ptxas_report(b.log):
@@ -5426,6 +5475,336 @@ def check_compile_events(card):
     return stats
 
 
+# (u): the port's own runtime. The actor's engine: Llama-3-8B widths cut in
+# depth to RUNTIME_LAYERS (a layer is 0.218 B parameters; embedding and
+# head 1.05 B), weights from RUNTIME_SEED as the driver's copy; prompts of
+# RUNTIME_PROMPTS tokens, RUNTIME_NEW greedy tokens each. The tensor that
+# goes to the actor and back (bf16), the best of RUNTIME_ITERS; the no-op
+# round trips timed. RUNTIME_INIT: init()'s arguments (a user's: none; a
+# rehearsal on the CPU fakes a card); RUNTIME_CONFIG: None for the 8B
+# widths (a rehearsal gives a tiny LlamaConfig).
+RUNTIME_CONFIG = None
+RUNTIME_LAYERS = 4
+RUNTIME_SEED = 51
+RUNTIME_PROMPTS = (37, 300, 777, 1500)
+RUNTIME_NEW = 16
+RUNTIME_MAX_LEN = 2048
+RUNTIME_TENSOR_BYTES = 64 << 20
+RUNTIME_ITERS = 3
+RUNTIME_CALLS = 1000
+RUNTIME_INIT = {}
+
+
+def runtime_config():
+    """(u-2)'s engine config: Llama-3-8B widths at RUNTIME_LAYERS layers."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+
+    if RUNTIME_CONFIG is not None:
+        return RUNTIME_CONFIG
+    return dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                               n_layers=RUNTIME_LAYERS)
+
+
+class RuntimeServer:
+    """(u-2)'s serving path on `device`: the Llama weights from
+    RUNTIME_SEED, `forward` (through the flash forward kernel, one launch a
+    layer) and the dense engine over them (its cached attention is the
+    plain one)."""
+
+    def __init__(self, device):
+        from ray_tpu_torch.inference import InferenceEngine
+        from ray_tpu_torch.models import llama
+
+        self.device = device
+        self.cfg = runtime_config()
+        self.params = llama.init(self.cfg, torch.Generator(
+            device=device).manual_seed(RUNTIME_SEED), device=device)
+        self.eng = InferenceEngine(self.params, self.cfg,
+                                   max_batch=len(RUNTIME_PROMPTS),
+                                   max_len=RUNTIME_MAX_LEN, device=device)
+
+    def _sync(self):
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+
+    def score(self, prompts):
+        """Each prompt's last-position logits from `forward`, on the CPU.
+        -> (logits [P, vocab] fp32, seconds)."""
+        from ray_tpu_torch.models import llama
+
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            rows = [llama.forward(self.params, torch.as_tensor(
+                [p], device=self.device), self.cfg)[0, -1] for p in prompts]
+        self._sync()
+        dt = time.perf_counter() - t0
+        return torch.stack(rows).cpu(), dt
+
+    def generate(self, prompts, new):
+        """RUNTIME_NEW greedy tokens a prompt. -> (tokens, seconds)."""
+        from ray_tpu_torch.inference import GenerationConfig
+
+        t0 = time.perf_counter()
+        out = self.eng.generate(prompts,
+                                GenerationConfig(max_new_tokens=new))
+        self._sync()
+        return out, time.perf_counter() - t0
+
+
+def runtime_prompts():
+    cfg = runtime_config()
+    rng = np.random.default_rng(RUNTIME_SEED)
+    return [rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in RUNTIME_PROMPTS]
+
+
+def card_uuid(device) -> str:
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return str(torch.cuda.get_device_properties(0).uuid)
+
+
+class RuntimeEngineHost(RuntimeServer):
+    """(u-2)'s actor: the serving path on the card its lease bound it to,
+    the tensor of (u-3), and no-op calls. `settings` are the driver's
+    RUNTIME_* constants, which the actor's module takes before it builds."""
+
+    def __init__(self, settings, device):
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        globals().update(settings)
+        super().__init__(device)
+        self.x = None
+        # counted from here: the launches of its `forward` calls
+        fa.flash_fwd_cuda.launches = 0
+
+    def report(self):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch._private import serialization as ser
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "ids": rt.get_runtime_context().get_accelerator_ids(),
+                "pid": os.getpid(), "ppid": os.getppid(),
+                "uuid": card_uuid(self.device),
+                "flash_fwd_launches": fa.flash_fwd_cuda.launches,
+                "pageable_gets":
+                    ser.COPY_STATS["typed_tensor_get_pageable"]}
+
+    def take(self, refs):
+        """Way 1's get: the driver's put, read from the store here."""
+        import ray_tpu_torch as rt
+
+        t0 = time.perf_counter()
+        self.x = rt.get(refs[0])
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0, str(self.x.device)
+
+    def give(self):
+        """Way 2's put: -> ([its ref], seconds, whether the store holds
+        it)."""
+        import ray_tpu_torch as rt
+        from ray_tpu_torch._raylet import global_state
+
+        t0 = time.perf_counter()
+        ref = rt.put(self.x)
+        dt = time.perf_counter() - t0
+        entry = global_state.core_worker.memory_store.get_entry(
+            ref.object_id())
+        return [ref], dt, bool(entry is not None and entry.in_plasma)
+
+    def noop(self):
+        return None
+
+
+class CardProbe:
+    """(u-4): a card's UUID, as a `num_gpus=1` actor sees it."""
+
+    def uuid(self):
+        return card_uuid("cuda"), os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+def runtime_noop():
+    return None
+
+
+def round_trip_p50_ms(call, n) -> float:
+    for _ in range(20):  # warm: leases, workers, connections
+        call()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times) * 1e3)
+
+
+def phase_runtime(card):
+    """(u) the port's own runtime core on the card. -> its numbers."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import serialization as ser
+    from ray_tpu_torch._private.accelerators import nvidia
+    from ray_tpu_torch._raylet import global_state
+
+    # the workers import the package from this checkout
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    rt.init(**RUNTIME_INIT)
+    out = {}
+    try:
+        init_s = time.perf_counter() - t0
+        # (u-1) the node
+        res = rt.cluster_resources()
+        (node,) = rt.nodes()
+        count = torch.cuda.device_count()
+        smi = nvidia.GpuInfo(1, (card.split(",")[0].strip(),), (0,))
+        typed = nvidia.typed_resource(smi)
+        check(res.get("GPU") == count and res.get(typed) == count
+              and node["Labels"].get(nvidia.ACCELERATOR_TYPE_LABEL)
+              == smi.accelerator_type,
+              f"(u-1) the node advertises {res} and {node['Labels']} on "
+              f"{count} card(s) named {card!r}")
+        raylet = rt.api._global_node.raylet
+        check(raylet._store_server is not None
+              and global_state.core_worker.plasma is not None,
+              "(u-1) the runtime's native shm store is not up")
+        log(f"[u-1] init {init_s:.2f} s: GPU {res['GPU']:g}, {typed} "
+            f"{res[typed]:g}, label {smi.accelerator_type!r}, the native "
+            f"shm store at {raylet.store_socket}")
+
+        # (u-2) the serving path in a GPU actor
+        settings = {k: v for k, v in globals().items()
+                    if k.startswith("RUNTIME_")}
+        t0 = time.perf_counter()
+        host = rt.remote(num_gpus=1)(RuntimeEngineHost).remote(settings,
+                                                               DEVICE)
+        prompts = runtime_prompts()
+        cfg = runtime_config()
+        # the driver's copy runs while the actor starts (spawn, imports,
+        # weights); the actor's timed calls come after it
+        copy = RuntimeServer(DEVICE)
+        want_logits, driver_score_s = copy.score(prompts)
+        want, driver_s = copy.generate(prompts, RUNTIME_NEW)
+        del copy
+        gc.collect()
+        logits, score_s = rt.get(host.score.remote(prompts), timeout=600)
+        tokens, gen_s = rt.get(host.generate.remote(prompts, RUNTIME_NEW),
+                               timeout=600)
+        actor_s = time.perf_counter() - t0
+        rep = rt.get(host.report.remote(), timeout=60)
+        check([len(t) for t in tokens] == [RUNTIME_NEW] * len(prompts),
+              f"(u-2) token counts {[len(t) for t in tokens]}")
+        check(tokens == want, "(u-2) the GPU actor's tokens differ from "
+              "the driver's copy of the engine")
+        check(torch.equal(logits, want_logits),
+              f"(u-2) the GPU actor's forward logits differ from the "
+              f"driver's copy: rel L2 {rel_l2(logits, want_logits):.3e}")
+        check(rep["ppid"] == os.getpid(), "(u-2) the GPU actor is not a "
+              "direct spawn of the raylet (a zygote fork?)")
+        check(rep["visible"] is not None
+              and rep["ids"] == {"GPU": [rep["visible"]]},
+              f"(u-2) the GPU actor's binding: {rep}")
+        launches = rep["flash_fwd_launches"]
+        check(launches > 0, "(u-2) the GPU actor never launched flash_fwd")
+        check(launches == cfg.n_layers * len(prompts),
+              f"(u-2) the actor launched flash_fwd {launches} times, not "
+              f"one a layer a prompt ({cfg.n_layers * len(prompts)})")
+        log(f"[u-2] a num_gpus=1 actor (pid {rep['pid']}, direct spawn, "
+            f"CUDA_VISIBLE_DEVICES={rep['visible']}, card {rep['uuid']}) "
+            f"holds the engine at d_model {cfg.d_model}, {cfg.n_layers} "
+            f"layers, {cfg.dtype}: "
+            f"{len(prompts)} prompts of {list(RUNTIME_PROMPTS)} tokens: "
+            f"`forward`'s last logits (flash kernel) and {RUNTIME_NEW} "
+            f"greedy tokens each (the engine), both equal to the driver's "
+            f"copy; its forward {score_s:.3f} s and generate {gen_s:.3f} s "
+            f"(the driver's {driver_score_s:.3f} and {driver_s:.3f} s), "
+            f"start to tokens {actor_s:.2f} s (the driver's copy ran in "
+            f"it); flash_fwd launches in the actor since it was built, all "
+            f"from its forward (generate's cached attention is plain): "
+            f"{launches}")
+
+        # (u-3) a CUDA tensor there and back through the native store
+        n = RUNTIME_TENSOR_BYTES // 2
+        x = torch.randn(n, generator=torch.Generator(device=DEVICE)
+                        .manual_seed(RUNTIME_SEED), device=DEVICE).to(
+                            torch.bfloat16)
+        pageable = ser.COPY_STATS["typed_tensor_get_pageable"]
+        ways = {"to_actor": [], "from_actor": []}
+        for _ in range(RUNTIME_ITERS):
+            t0 = time.perf_counter()
+            ref = rt.put(x)
+            put_s = time.perf_counter() - t0
+            entry = global_state.core_worker.memory_store.get_entry(
+                ref.object_id())
+            check(entry is not None and entry.in_plasma,
+                  "(u-3) the driver's put is not in the native store")
+            get_s, where = rt.get(host.take.remote([ref]), timeout=120)
+            ways["to_actor"].append(put_s + get_s)
+            (back_ref,), aput_s, in_store = rt.get(host.give.remote(),
+                                                   timeout=120)
+            check(in_store, "(u-3) the actor's put is not in the native "
+                  "store")
+            t0 = time.perf_counter()
+            back = rt.get(back_ref, timeout=120)
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+            ways["from_actor"].append(aput_s + time.perf_counter() - t0)
+            check(back.device == x.device and back.dtype == x.dtype
+                  and torch.equal(back, x),
+                  f"(u-3) the tensor came back changed (on {back.device})")
+            del ref, back_ref, back
+        rep = rt.get(host.report.remote(), timeout=60)
+        check(ser.COPY_STATS["typed_tensor_get_pageable"] == pageable
+              and rep["pageable_gets"] == 0,
+              "(u-3) a get from the store took the pageable route")
+        rates = {k: RUNTIME_TENSOR_BYTES / min(v) / 1e9
+                 for k, v in ways.items()}
+        task = rt.remote(runtime_noop)
+        task_ms = round_trip_p50_ms(lambda: rt.get(task.remote()),
+                                    RUNTIME_CALLS)
+        actor_ms = round_trip_p50_ms(lambda: rt.get(host.noop.remote()),
+                                     RUNTIME_CALLS)
+        log(f"[u-3] a {RUNTIME_TENSOR_BYTES >> 20} MiB bf16 CUDA tensor "
+            f"through the native store, exact (on {where} in the actor): "
+            f"driver to actor {rates['to_actor']:.2f} GB/s, actor to driver "
+            f"{rates['from_actor']:.2f} GB/s (a put plus the other side's "
+            f"get, the best of {RUNTIME_ITERS}); p50 of {RUNTIME_CALLS} "
+            f"round trips: no-op task {task_ms:.3f} ms, actor call "
+            f"{actor_ms:.3f} ms; on {card}")
+        rt.kill(host)
+
+        # (u-4) several cards
+        uuids = None
+        if count >= 2:
+            probe = rt.remote(num_gpus=1)(CardProbe)
+            probes = [probe.remote(), probe.remote()]
+            uuids = rt.get([p.uuid.remote() for p in probes], timeout=300)
+            check(len({u for u, _ in uuids}) == 2,
+                  f"(u-4) two num_gpus=1 actors on one card: {uuids}")
+            log(f"[u-4] two num_gpus=1 actors on cards {uuids}")
+            for p in probes:
+                rt.kill(p)
+        else:
+            log("[u-4] not run: a node of one card")
+        out = {"init_s": init_s, "flash_fwd_launches": launches,
+               "actor_forward_s": score_s, "actor_generate_s": gen_s,
+               "driver_forward_s": driver_score_s,
+               "driver_generate_s": driver_s,
+               "to_actor_gb_s": rates["to_actor"],
+               "from_actor_gb_s": rates["from_actor"],
+               "task_round_trip_p50_ms": task_ms,
+               "actor_call_round_trip_p50_ms": actor_ms,
+               "card_uuids": uuids, "card": card}
+    finally:
+        rt.shutdown()
+    return out
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5440,7 +5819,7 @@ def main(argv=()) -> int:
     parser = argparse.ArgumentParser(description="Drive ray_tpu_torch on the "
                                      "card(s); see the module docstring.")
     parser.add_argument("--only", choices=("l", "m", "n", "o", "p", "q",
-                                           "r", "s", "t"),
+                                           "r", "s", "t", "u"),
                         default=None,
                         help="run phase (l), the SPMD path (with 4 cards its "
                         "4-card part), (m), RLlib's one-process path, (n), "
@@ -5448,10 +5827,11 @@ def main(argv=()) -> int:
                         "predictors, (p), Train's gang at world 1, (q), "
                         "RLlib's remote groups, (r), the serving "
                         "benchmarks on the Llama-3-8B weights, (s), the "
-                        "decoupled RL dataflow and lower_to_jit, or (t), "
+                        "decoupled RL dataflow and lower_to_jit, (t), "
                         "the node's advertisement and typed tensors "
-                        "through shared pages, alone after the kernel "
-                        "build")
+                        "through shared pages, or (u), the port's own "
+                        "runtime with a GPU actor serving Llama, alone "
+                        "after the kernel build")
     parser.add_argument("--part", default=None, choices=[
         p.__name__[len("cards_"):] for p in CARDS_PARTS],
         help="with --only l on 4 cards: this (l-3) part alone")
@@ -5578,6 +5958,16 @@ def main(argv=()) -> int:
               "(t) launched a flash kernel")
         print(card)
         print(json.dumps({"store": store}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": info["platform"], "kind": info["kind"],
+            "count": info["count"]}}))
+        return 0
+    if args.only == "u":
+        runtime = phase_runtime(card)
+        lap("u")
+        log_laps()
+        print(card)
+        print(json.dumps({"runtime": runtime}))
         print(json.dumps({"ok": True, "device": {
             "platform": info["platform"], "kind": info["kind"],
             "count": info["count"]}}))
@@ -5743,6 +6133,13 @@ def main(argv=()) -> int:
     check(not any(kernel_counts().values()), "(t) launched a flash kernel")
     log(f"[t] launches of the flash kernels on the advertisement and the "
         f"arena: {kernel_counts()} (they run none); "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    gc.collect()
+    torch.cuda.empty_cache()
+    runtime = phase_runtime(card)
+    lap("u")
+    log(f"[u] the port's own runtime: flash_fwd launches in its GPU actor "
+        f"{runtime['flash_fwd_launches']}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
     log_laps()
 
@@ -5759,6 +6156,8 @@ def main(argv=()) -> int:
                    "checkpoint": ckpt[name], "train_gang": gang[name]}
         check(all(v > 0 for path, v in by_path.items() if path != "serve"),
               f"a training path never launched {name}: {by_path}")
+        if name == "flash_fwd":  # `forward` in the runtime's GPU actor
+            by_path["runtime_actor_forward"] = runtime["flash_fwd_launches"]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": f"ray_tpu/ops/flash_attention.py:{line}",

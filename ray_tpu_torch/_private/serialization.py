@@ -1,37 +1,50 @@
-"""The typed `torch.Tensor` wire: protocol-5 pickling with out-of-band
-buffers.
+"""Serialization: the runtime's pickler, and the typed `torch.Tensor` wire
+(protocol-5 pickling with out-of-band buffers).
 
-The port's counterpart of `ray_tpu/_private/serialization.py`. A tensor
-travels as a small in-band header (dtype, shape, requires_grad, device,
-whether it is a Parameter) and one raw byte view of its values as an
-out-of-band `pickle.PickleBuffer`, where torch's own pickling writes the
-storage into the pickle stream (a full copy) and a CUDA tensor's receiver
-needs CUDA to load it. `SerializedObject.write_into` then makes the one host
-copy into the destination (an object-store arena), and a get rebuilds the
-tensor as a view over the received buffer (CPU) or with one host-to-device
-copy (CUDA): from the store's shared arena at the pinned rate, the windows
-of its mapping that the object spans registered with CUDA once per process
-(`pinned_pages.pin_range`).
+The port's counterpart of `ray_tpu/_private/serialization.py`, both halves:
 
-`serialize` / `deserialize` are the port's own pickler. The runtime's
-pickler (cloudpickle's, inside `ray_tpu`) picks the wire up through
-`install_tensor_wire`, which registers the reducer in cloudpickle's own
-class-level dispatch table; the port imports nothing of the runtime.
+- The runtime's half (the context stack, `_DataPlanePickler`, `serialize`,
+  `deserialize_with_refs`, `note_object_ref`, `dumps_function` /
+  `loads_function`): cloudpickle with out-of-band buffers, so large numpy
+  arrays and tensors round-trip without copies, plus discovery of the
+  ObjectRefs nested in a value (for borrowing and reference counting). Its
+  pickler carries the typed tensor reducer itself, so the port's runtime
+  sends every tensor typed with no `install_tensor_wire()` call.
+- The typed wire. A tensor travels as a small in-band header (dtype, shape,
+  requires_grad, device, whether it is a Parameter) and one raw byte view
+  of its values as an out-of-band `pickle.PickleBuffer`, where torch's own
+  pickling writes the storage into the pickle stream (a full copy) and a
+  CUDA tensor's receiver needs CUDA to load it. `SerializedObject.write_into`
+  then makes the one host copy into the destination (an object-store
+  arena), and a get rebuilds the tensor as a view over the received buffer
+  (CPU) or with one host-to-device copy (CUDA): from the store's shared
+  arena at the pinned rate, the windows of its mapping that the object
+  spans registered with CUDA once per process (`pinned_pages.pin_range`).
+
+`deserialize` is the inverse of `serialize` for a value alone. The JAX
+package's runtime (cloudpickle's pickler, inside `ray_tpu`) picks the wire
+up through `install_tensor_wire`, which registers the reducer in
+cloudpickle's own class-level dispatch table; the port imports nothing of
+that runtime. A tensor received outside the port's runtime installs it.
 `COPY_STATS` counts the typed reductions and rebuilds, the payload
 flattens, which the data plane forbids on its hot path, and the CUDA gets
 that took the pageable route.
+
+torch is imported where a tensor is reduced or rebuilt, not with this
+module: a runtime worker that handles no tensor never loads it.
 """
 
 from __future__ import annotations
 
 import io
 import pickle
+import threading
 import warnings
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
-import torch
+import cloudpickle
 
-from ray_tpu_torch._private import pinned_pages
+_thread_local = threading.local()
 
 # Copy accounting: payload_flatten counts whole-payload materializations
 # (to_bytes); typed_tensor_put/get count the typed wire's reductions and
@@ -52,15 +65,36 @@ COPY_STATS = {
 _installed: Optional[bool] = None
 
 
+def _get_ctx_stack():
+    if not hasattr(_thread_local, "ref_stack"):
+        _thread_local.ref_stack = []
+    return _thread_local.ref_stack
+
+
 class SerializedObject:
-    """A serialized payload: a pickle5 stream plus out-of-band buffers."""
+    """A serialized payload: a pickle5 stream plus out-of-band buffers, and
+    the ObjectRefs found nested in the value (`serialize`)."""
 
-    __slots__ = ("inband", "buffers", "_wire_cache")
+    __slots__ = ("inband", "buffers", "contained_refs", "_wire_cache")
 
-    def __init__(self, inband: bytes, buffers: List[pickle.PickleBuffer]):
+    def __init__(self, inband: bytes, buffers: List[pickle.PickleBuffer],
+                 contained_refs=()):
         self.inband = inband
         self.buffers = buffers
+        self.contained_refs = list(contained_refs)
         self._wire_cache = None
+
+    def __reduce__(self):
+        # Wire format: drop contained_refs (metadata, carried separately in
+        # TaskArg.nested_ids) so that transporting a serialized payload never
+        # re-instantiates live ObjectRefs mid-frame-decode — doing so would
+        # trigger borrow registration on the RPC loop thread (deadlock).
+        # The buffers ride as PickleBuffer objects: under the RPC layer's
+        # protocol-5 out-of-band framing they go to the socket as raw
+        # scatter segments (zero copies); a pickler without a
+        # buffer_callback still serializes them in-band (a copy, but only
+        # on cold paths like KV snapshots — never the data plane).
+        return (_rebuild_serialized, (self.inband, list(self.buffers)))
 
     def total_bytes(self) -> int:
         return len(self.inband) + sum(b.raw().nbytes for b in self.buffers)
@@ -99,6 +133,14 @@ class SerializedObject:
             off += m.nbytes
         return off
 
+    def wire_segments(self) -> List:
+        """The flat wire format as an ordered list of buffer segments (no
+        concatenation): a chunk server slices [off, len) ranges of an
+        object held in the memory store without flattening it per chunk."""
+        header, raw_buffers = self._wire_parts()
+        return [len(header).to_bytes(4, "little"), header,
+                memoryview(self.inband), *raw_buffers]
+
     def to_bytes(self) -> bytes:
         """Flatten to one contiguous bytes object (copies every buffer): not
         for the data plane, which writes with write_into."""
@@ -129,6 +171,11 @@ class SerializedObject:
         return cls(inband, buffers)
 
 
+def _rebuild_serialized(inband: bytes, raw_buffers) -> "SerializedObject":
+    return SerializedObject(inband,
+                            [pickle.PickleBuffer(b) for b in raw_buffers])
+
+
 class _TensorPickler(pickle.Pickler):
     """pickle.Pickler with the typed tensor reducer. reducer_override runs
     for almost every object, so the tensor probe is gated on the type's
@@ -143,18 +190,69 @@ class _TensorPickler(pickle.Pickler):
         return NotImplemented
 
 
+class _DataPlanePickler(cloudpickle.Pickler):
+    """cloudpickle with the typed tensor reducer layered on top: the
+    runtime's pickler. reducer_override runs for every object, so the
+    tensor probe is gated on the type's module name ("torch...") before any
+    isinstance work, as in _TensorPickler."""
+
+    def reducer_override(self, obj):
+        mod = getattr(type(obj), "__module__", None)
+        if mod is not None and mod.startswith("torch"):
+            r = _maybe_reduce_tensor(obj)
+            if r is not None:
+                return r
+        return super().reducer_override(obj)
+
+
 def serialize(value: Any) -> SerializedObject:
-    """Pickle `value` (protocol 5) with tensors on the typed wire and every
-    PickleBuffer out of band."""
+    """Pickle `value` (protocol 5, cloudpickle) with tensors on the typed
+    wire, every PickleBuffer out of band, and the ObjectRefs nested in it
+    collected into `contained_refs`."""
     buffers: List[pickle.PickleBuffer] = []
-    sink = io.BytesIO()
-    _TensorPickler(sink, protocol=5,
-                   buffer_callback=buffers.append).dump(value)
-    return SerializedObject(sink.getvalue(), buffers)
+    contained: list = []
+    stack = _get_ctx_stack()
+    stack.append(contained)
+    try:
+        sink = io.BytesIO()
+        _DataPlanePickler(sink, protocol=5,
+                          buffer_callback=buffers.append).dump(value)
+    finally:
+        stack.pop()
+    return SerializedObject(sink.getvalue(), buffers, contained)
 
 
 def deserialize(obj: SerializedObject) -> Any:
+    """The value of `obj`. A tensor received here, outside the port's
+    runtime, installs the typed wire (`_rebuild_tensor`)."""
     return pickle.loads(obj.inband, buffers=obj.buffers)
+
+
+def deserialize_with_refs(obj: SerializedObject) -> Tuple[Any, list]:
+    """The runtime's get: -> (value, the ObjectRefs noted while loading)."""
+    contained: list = []
+    stack = _get_ctx_stack()
+    stack.append(contained)
+    try:
+        value = pickle.loads(obj.inband, buffers=obj.buffers)
+    finally:
+        stack.pop()
+    return value, contained
+
+
+def note_object_ref(ref) -> None:
+    """Called from ObjectRef.__reduce__ to record nesting."""
+    stack = _get_ctx_stack()
+    if stack:
+        stack[-1].append(ref)
+
+
+def dumps_function(fn) -> bytes:
+    return cloudpickle.dumps(fn)
+
+
+def loads_function(data: bytes):
+    return pickle.loads(data)
 
 
 # -- the typed tensor wire ----------------------------------------------------
@@ -193,6 +291,8 @@ def _maybe_reduce_tensor(obj):
                 "shards; gather it (full_tensor()) or send to_local() "
                 "explicitly")
         obj = obj.to_local()
+    import torch
+
     kind = {torch.Tensor: "tensor", torch.nn.Parameter: "parameter"}.get(
         type(obj))
     if (kind is None or obj.layout != torch.strided or obj.is_nested
@@ -218,10 +318,12 @@ def _maybe_reduce_tensor(obj):
                                        .numpy())))
 
 
-def _target_device(dev_type: str, index: Optional[int]) -> torch.device:
+def _target_device(dev_type: str, index: Optional[int]):
     """Where a received tensor goes: the CPU for a CPU tensor; for a CUDA
     tensor cuda:<index> when this process has it, else this process's
     default device (its current card, or the CPU without CUDA)."""
+    import torch
+
     if dev_type != "cuda" or not torch.cuda.is_available():
         return torch.device("cpu")
     if index is not None and index < torch.cuda.device_count():
@@ -240,9 +342,13 @@ def _rebuild_tensor(meta, buf):
     copy has finished when this returns, since the host view may die (and
     an arena slot be reused) right after.
 
-    Rebuilding installs the wire (install_tensor_wire): a process that has
-    received a typed tensor sends typed tensors."""
-    if _installed is None:
+    Rebuilding outside the port's runtime (`deserialize_with_refs`)
+    installs the wire (install_tensor_wire): a process that has received a
+    typed tensor through the JAX package's runtime sends typed tensors.
+    The port's runtime needs no install and leaves cloudpickle as it is."""
+    import torch
+
+    if _installed is None and not _get_ctx_stack():
         install_tensor_wire()
     COPY_STATS["typed_tensor_get"] += 1
     dtype_name, shape, requires_grad, (dev_type, index), kind = meta
@@ -268,8 +374,7 @@ def _rebuild_tensor(meta, buf):
     return t.requires_grad_(requires_grad) if requires_grad else t
 
 
-def _to_card(t: torch.Tensor, target: torch.device,
-             exporter=None) -> torch.Tensor:
+def _to_card(t, target, exporter=None):
     """t, a CPU view of the received buffer (exported by `exporter`),
     copied onto the card `target` and finished. From shared memory whose
     windows `pinned_pages.pin_range` registers (the object store's arena),
@@ -278,6 +383,10 @@ def _to_card(t: torch.Tensor, target: torch.device,
     typed_tensor_get_pageable. The process's mappings are read only for a
     buffer in none that it has registered a window of, not pinned, and not
     a bytes frame or a bytearray (which the heap holds)."""
+    import torch
+
+    from ray_tpu_torch._private import pinned_pages
+
     if t.numel() == 0:
         return torch.empty(t.shape, dtype=t.dtype, device=target)
     dst = torch.empty(t.shape, dtype=t.dtype, device=target)
@@ -302,6 +411,8 @@ def _dispatch_reduce(obj):
 
 
 def _wire_types():
+    import torch
+
     types = [torch.Tensor, torch.nn.Parameter]
     if torch.distributed.is_available():
         from torch.distributed.tensor import DTensor

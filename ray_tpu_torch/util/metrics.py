@@ -3,8 +3,10 @@ keys, rendered in Prometheus exposition format, and a bounded event ring.
 
 The port's copy of what it needs from `ray_tpu/util/metrics.py`
 (`Counter`, `Gauge`, `Histogram`, `get_metric`, the `get_or_create_*`
-functions, `prometheus_text`), plus one install point for the runtime.
-The runtime's pieces come in as values, never as imports:
+functions, `prometheus_text`, `snapshot_metrics`), plus one install point
+for the JAX package's runtime. The port's own runtime (`ray_tpu_torch.api`)
+keeps its metrics in this registry. The JAX runtime's pieces come in as
+values, never as imports:
 
     import ray_tpu.util.metrics
     from ray_tpu._private import event_log, kv_registry
@@ -215,6 +217,30 @@ def get_or_create_gauge(name: str, description: str = "",
     if isinstance(m, Gauge):
         return m
     return Gauge(name, description, tag_keys=tag_keys)
+
+
+def snapshot_metrics(prefix: str) -> List[Dict]:
+    """A serializable, cumulative snapshot of every metric of this registry
+    whose name starts with `prefix`: how the port's runtime ships a
+    process's metrics to the GCS health store (`health/push.py`)."""
+    with _registry_lock:
+        metrics = [m for m in _registry if m._name.startswith(prefix)]
+    out: List[Dict] = []
+    for m in metrics:
+        entry: Dict = {"name": m._name, "type": type(m).__name__,
+                       "description": m._description,
+                       "tag_keys": list(m._tag_keys)}
+        with m._lock:
+            if isinstance(m, Histogram):
+                entry["boundaries"] = list(m._boundaries)
+                entry["samples"] = [
+                    (list(key), list(counts), m._sums[key], m._totals[key])
+                    for key, counts in m._counts.items()]
+            else:
+                entry["samples"] = [(list(k), v)
+                                    for k, v in m._values.items()]
+        out.append(entry)
+    return out
 
 
 def prometheus_text() -> str:

@@ -393,6 +393,12 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
     # rehearsed on its own by tests/test_torch_store.py.
     monkeypatch.setattr(smoke, "phase_store", lambda card: smoke.log(
         "[t] rehearsed by tests/test_torch_store.py"))
+    # (u), the port's own runtime with its GPU actor, is rehearsed on its
+    # own by tests/test_torch_chip_runtime.py; here one tiny Llama step
+    # stands in for the actor's launches.
+    monkeypatch.setattr(smoke, "phase_runtime", lambda card: {
+        "flash_fwd_launches": llama_step(
+            "[u] one tiny Llama step in place of phase (u)")["flash_fwd"]})
     # (r), the serving benchmarks, is rehearsed on its own by
     # tests/test_torch_serve_benchmarks.py.
     monkeypatch.setattr(smoke, "phase_serving_bench", lambda *a: smoke.log(
@@ -463,7 +469,7 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
                 "[i-1]", "[i-2]", "[i-3]", "[i-4]", "[i]", "[r]", "[h-2]",
                 "[r-3]",
                 "[bench]", "[j]", "[k]", "[l]", "[m]", "[n]", "[o]", "[q]",
-                "[s]", "[t]"):
+                "[s]", "[t]", "[u]"):
         assert any(line.startswith(tag) for line in lines), tag
     for text in ("[e] _decode_attention", "[e] _cached_attention",
                  "token blocks identical True", "[e] decode step, former",
@@ -513,7 +519,7 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
                                  "train_gang": 2}
     # 2 layers under "dots" for each stand-in step
     for path in ("mixtral", "spmd", "spmd_compiled", "zoo_mesh", "feed",
-                 "checkpoint", "train_gang"):
+                 "checkpoint", "train_gang", "runtime_actor_forward"):
         assert by_path["flash_fwd"][path] == 4, path
     assert by_path["flash_fwd"]["serve"] >= 2 * layers
     assert [k["launches"] for k in kernels] == [

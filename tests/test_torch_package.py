@@ -92,7 +92,25 @@ def test_importing_the_port_loads_no_jax():
             "ray_tpu_torch.data.dataset, ray_tpu_torch.util, "
             "ray_tpu_torch.util.collective, "
             "ray_tpu_torch.util.collective.collective, "
-            "ray_tpu_torch.parallel.hlo_report; "
+            "ray_tpu_torch.parallel.hlo_report, "
+            "ray_tpu_torch.api, ray_tpu_torch.actor, "
+            "ray_tpu_torch.remote_function, ray_tpu_torch.runtime_context, "
+            "ray_tpu_torch._raylet, ray_tpu_torch.exceptions, "
+            "ray_tpu_torch.util.placement_group, "
+            "ray_tpu_torch.util.scheduling_strategies, "
+            "ray_tpu_torch.util.profiling, "
+            "ray_tpu_torch.gcs.server, "
+            "ray_tpu_torch.raylet.raylet, ray_tpu_torch.raylet.worker_pool, "
+            "ray_tpu_torch.raylet.memory_monitor, "
+            "ray_tpu_torch.raylet.external_storage, "
+            "ray_tpu_torch.worker.core_worker, "
+            "ray_tpu_torch.worker.executor, "
+            "ray_tpu_torch.worker.plasma_provider, "
+            "ray_tpu_torch._private.shm_store, ray_tpu_torch._native, "
+            "ray_tpu_torch._private.rpc, ray_tpu_torch._private.latency, "
+            "ray_tpu_torch._private.spawn_diag, "
+            "ray_tpu_torch._private.workers.default_worker, "
+            "ray_tpu_torch._private.workers.zygote, ray_tpu_torch.health; "
             "print(sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
