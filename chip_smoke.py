@@ -56,25 +56,30 @@ Phases, in order; any failure raises and the script exits non-zero:
       a prefix-hit script): streams, block tables after every wave and
       prefix statistics identical; and sampling inside the decode graph
       repeatable on two fresh engines of each kind;
-  (r) the serving benchmarks on the same 8B weights, through the
-      in-process stand-in of the serving stack (`ray_tpu_torch.serve.
-      LocalServingStack`: a thread a replica, each over its own
-      PagedInferenceEngine on the one copy of the weights, streaming
-      through serve_stream): (r-0) one prefill wave of 456 tokens and one
-      of an 8-token tail at offset 448, each eagerly and as its CUDA
-      graph in turns, the same first tokens, ms a wave; (r-1) `inference.benchmarks.benchmark_serving`
-      at the reference's defaults (2 replicas, 24 requests of 8 tokens at
-      8 Hz, 12 new tokens each): TTFT p50/p99, tokens/s, peak memory and
-      the decode profiler's perf.phase_report fractions, every request
-      streamed exactly 12 tokens and every engine drained; (r-2)
-      `serve.run_prefix_ttft_benchmark` (a 448-token shared prefix, 6
-      rounds): cold and hit p50, hit_over_cold below 1 and at least 6 hit
-      and 6 missed requests; (r-3) the ray_tpu_kv_blocks{state} gauge
-      summing to the live engines' pools, the phase histogram holding
-      every phase of every recorded decode wave, and after (h-2) one
-      compile.start and one compile.end a compile whose durations add up
-      to compile_stats()'s seconds. `--only r` runs (r) alone after (a)
-      and the 8B init. It launches none of the flash kernels;
+  (r) the serving benchmarks of the same 8B model on the port's own
+      serve (`ray_tpu_torch.init` with RUNTIME_INIT, `ray_tpu_torch.
+      serve`): each engine replica a `num_gpus` actor in its own process
+      on the card, drawing the 8B weights from seed 0 there, streaming
+      through its PagedInferenceEngine's serve_stream: (r-0) one prefill
+      wave of 456 tokens and one of an 8-token tail at offset 448, in this
+      process on its copy of the weights, each eagerly and as its CUDA
+      graph in turns, the same first tokens, ms a wave; (r-1)
+      `inference.benchmarks.benchmark_serving` at the reference's defaults
+      (2 replicas of num_gpus=0.5, 24 requests of 8 tokens at 8 Hz, 12 new
+      tokens each): TTFT p50/p99, tokens/s, each replica's peak memory and
+      its decode profiler's perf.phase_report fractions, every request
+      streamed exactly 12 tokens, every engine drained, each replica in a
+      process of its own bound to card 0, and one 40-token prompt's greedy
+      tokens from the app equal to this process's engine's on its own
+      copy; (r-2) `serve.run_prefix_ttft_benchmark` (one replica of
+      num_gpus=1, a 448-token shared prefix, 6 rounds): cold and hit p50,
+      hit_over_cold below 1 and at least 6 hit and 6 missed requests;
+      (r-3) each replica process's ray_tpu_kv_blocks{state} gauge summing
+      to its live engine's pool, its phase histogram holding every phase
+      of every recorded decode wave, and after (h-2) one compile.start and
+      one compile.end a compile whose durations add up to
+      compile_stats()'s seconds. `--only r` runs (r) alone after (a) and
+      the 8B init. It launches none of the flash kernels;
   (h) the training path, on the JAX package's train-bench configuration
       (bench.py: Llama-3-8B layer widths, 5 layers, vocab 32000, chunked CE
       of 1024, remat "dots", bf16, B=4, S=2048): the eager step
@@ -96,7 +101,7 @@ Phases, in order; any failure raises and the script exits non-zero:
       line printed;
   (j) `graft_entry.entry()` compiled (fullgraph) against its eager forward;
   (k) the model zoo (`ray_tpu_torch.models.{mixtral,vit,t5,mlp}`): (k-1)
-      Mixtral at Mixtral-8x7B's widths and 2 layers (MIXTRAL_8X7B), random
+      Mixtral at Mixtral-8x7B's widths and 1 layer (MIXTRAL_8X7B), random
       bf16 weights from a seed, `forward` on B=4, S=2048 through the flash
       kernel (L launches) and through the plain attention: logits, and the
       share of routing choices that differ; (k-2) its training step,
@@ -136,7 +141,9 @@ Phases, in order; any failure raises and the script exits non-zero:
       with fewer than 4 cards, `graft_entry.dryrun_multichip(4,
       device="cpu")` and `cards_collective` on 4 gloo CPU ranks (NCCL
       takes one rank a card), as their lines say, on a thread of their
-      own while (l-1) runs; (l-3) with 4 cards or
+      own (with `--only l` while (l-1) runs; in the whole script beside
+      (m) and (n), where no inductor compile shares the host's cores with
+      them, and the script waits for them after (n)); (l-3) with 4 cards or
       more, one rank a card over NCCL, each part logged and the next one
       run if it fails (the phase then fails at its end): the dry run, the
       collective groups (mesh groups over dp=4, over tp of dp=2 x tp=2 and
@@ -195,7 +202,10 @@ Phases, in order; any failure raises and the script exits non-zero:
       frames as [4, 32] rows, card against CPU; one DreamerV3 train_step
       at its full width on the card against the CPU from one state with
       the same Gumbel noise (losses, the three gradients, the parameters
-      after the three Adam steps); DreamerV3 on the port's CartPole under
+      after the three Adam steps); the step as one CUDA graph (the
+      algorithm's step on the card) against the eager step for six steps
+      from one state (losses, parameters, Adam counts; ms a step of each);
+      DreamerV3 on the port's CartPole under
       tests/test_rllib_catalog.py::test_dreamerv3_learns's settings (best
       return >= 60 within 70 iterations, seconds an iteration and the
       share in train_step); multi-agent PPO with two policies on a
@@ -373,7 +383,8 @@ remote RL groups: (q), the decoupled dataflow with `lower_to_jit`: (s),
 and typed tensors through shared pages: (t), which run no flash kernel;
 the port's own runtime: (u), whose actor sets its own count to 0 when it
 is built and reads it after its `forward` calls) and read just after it. Each phase's
-seconds are logged at the end ("[phases]"). The last
+seconds, and torch.compile's seconds in each, are logged at the end
+("[phases]"). The last
 three lines of stdout are the card's `nvidia-smi` name and power limit, one
 JSON object on the kernels, and `{"ok": true, "device": ...}`. Without
 CUDA, or without the repository beside it, it exits non-zero and prints no
@@ -510,11 +521,13 @@ PAGED_REL_TOL = 5e-2
 # Mixtral-8x7B-v0.1 config.json (hidden 4096, intermediate 14336, 32 query
 # and 8 KV heads of 128, 8 local experts with 2 a token, vocab 32000,
 # rope_theta 1e6, rms_norm_eps 1e-5, 32768 positions), cut in depth from 32
-# layers to 2: a layer holds 1.451 B parameters, and the whole model's
-# weights, gradients and AdamW moments in bf16 would need ~370 GB.
+# layers to 1 (2 until the script's time had to fall: the second layer's
+# compile and steps took 8.5–12 s): a layer holds 1.451 B parameters, and
+# the whole model's weights, gradients and AdamW moments in bf16 would
+# need ~370 GB.
 # capacity_factor 1.25 and aux_loss_coef 0.01 are the JAX package's
 # defaults; bf16, remat "dots" (MixtralConfig's defaults).
-MIXTRAL_8X7B = dict(vocab_size=32_000, d_model=4096, n_layers=2, n_heads=32,
+MIXTRAL_8X7B = dict(vocab_size=32_000, d_model=4096, n_layers=1, n_heads=32,
                     n_kv_heads=8, d_head=128, d_ff=14_336, rope_theta=1e6,
                     norm_eps=1e-5, max_seq_len=32_768, n_experts=8,
                     experts_per_token=2, capacity_factor=1.25,
@@ -1726,7 +1739,8 @@ def log_kernel_groups(tag, form, kernels, step_s):
 def phase_train_compiled(cfg, batch, seq, steps, seed, eager):
     """(h-2): the compiled step (`make_train_step`'s default) at the bench
     configuration under "dots" and "dots_attn", each from the state phase
-    (h) started from; `eager` is (h)'s result. Returns the launch counts."""
+    (h) started from; `eager` is (h)'s result. -> (the launch counts, the
+    compiled "dots" step, which (n-1) runs again)."""
     import dataclasses
 
     from ray_tpu_torch.models import llama
@@ -1735,6 +1749,7 @@ def phase_train_compiled(cfg, batch, seq, steps, seed, eager):
     data = train_batch(cfg, batch, seq, seed)
     fwd_per_layer = {"dots": 2, "dots_attn": 1}
     forms = {"eager dots": eager}
+    kept = {}
     for policy, per_layer in fwd_per_layer.items():
         pcfg = dataclasses.replace(cfg, remat_policy=policy)
         opt = adamw(3e-4, weight_decay=0.0)
@@ -1793,6 +1808,7 @@ def phase_train_compiled(cfg, batch, seq, steps, seed, eager):
               f"{form}: the loss did not fall")
         state, kernels, _ = profile_steps(step, state, data, 2)
         log_kernel_groups("h-2", form, kernels, step_s)
+        kept[policy] = step
         del state, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -1801,7 +1817,7 @@ def phase_train_compiled(cfg, batch, seq, steps, seed, eager):
                     f"{r['mfu']:.4f}, {r['peak_gib']:.2f}, "
                     f"{r.get('compile_s', 0.0):.2f}"
                     for form, r in forms.items()))
-    return kernel_counts()
+    return kernel_counts(), kept["dots"]
 
 
 def tiny_train_config():
@@ -4038,6 +4054,72 @@ def dreamer_step_check(card):
     return worst
 
 
+DREAMER_GRAPH_STEPS = 6   # two eager warm-ups, the capture, three replays
+
+
+def dreamer_graph_check(card):
+    """(m-4) DreamerV3's step as one CUDA graph
+    (`DreamerV3Learner.train_step_graphed`, the algorithm's step on the
+    card) against the eager `train_step` on the card: two learners from one
+    state, the same batch and noise each step for DREAMER_GRAPH_STEPS steps
+    (the graph's warm-ups, its capture and its replays): every step's
+    losses and the parameters after the last within RL's tolerance; the ms
+    a step of each after its first three. -> {max_abs_err, eager_ms,
+    graph_ms}."""
+    from ray_tpu_torch.rllib.algorithms import dreamerv3 as dv3
+
+    cfg = dv3.DreamerV3Config().training(**RL_DREAMER["training"])
+    b, t = cfg.batch_size_B, cfg.batch_length_T
+    rng = np.random.default_rng(22)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    learners = {}
+    for form in ("eager", "graph"):
+        model = dv3.DreamerModel(
+            4, 2, deter_dim=cfg.deter_dim, stoch_groups=cfg.stoch_groups,
+            stoch_classes=cfg.stoch_classes, embed_dim=cfg.embed_dim,
+            hidden_dim=cfg.hidden_dim,
+            generator=torch.Generator().manual_seed(0), device=DEVICE)
+        learners[form] = dv3.DreamerV3Learner(model, cfg.to_dict())
+    steps = {"eager": learners["eager"].train_step,
+             "graph": learners["graph"].train_step_graphed}
+    worst, ms = 0.0, {"eager": [], "graph": []}
+    for i in range(DREAMER_GRAPH_STEPS):
+        batch = dv3._to_device({
+            "obs": rng.standard_normal((b, t, 4)).astype(np.float32),
+            "actions": rng.integers(0, 2, (b, t)),
+            "rewards": rng.random((b, t)).astype(np.float32),
+            "cont": (rng.random((b, t)) > 0.05).astype(np.float32)},
+            DEVICE)
+        noise = learners["eager"].draw_noise(b, t, gen)
+        out = {}
+        for form, step in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(batch, noise)
+            out[form] = {k: float(v) for k, v in res.items()}
+            if i >= 3:
+                ms[form].append((time.perf_counter() - t0) * 1e3)
+        worst = max(worst, rl_close(f"(m-4) DreamerV3's graphed step {i}",
+                                    out["graph"], out["eager"]))
+    params = {form: dict(lr.model.named_parameters())
+              for form, lr in learners.items()}
+    worst = max(worst, rl_close("(m-4) DreamerV3's graphed step, the "
+                                "parameters after it", params["graph"],
+                                params["eager"]))
+    counts = {form: [s.count for s in lr.opt_state.values()]
+              for form, lr in learners.items()}
+    check(counts["graph"] == counts["eager"] == [DREAMER_GRAPH_STEPS] * 3,
+          f"(m-4) the Adam counts after the graphed steps: {counts}")
+    res = {"max_abs_err": worst,
+           "eager_ms": float(np.median(ms["eager"])),
+           "graph_ms": float(np.median(ms["graph"]))}
+    log(f"[m-4] ({card}) DreamerV3's step as one CUDA graph against the "
+        f"eager step, {DREAMER_GRAPH_STEPS} steps from one state: largest "
+        f"difference {worst:.3e}; {res['eager_ms']:.2f} ms a step eagerly, "
+        f"{res['graph_ms']:.2f} ms as the graph (host clock, synchronised)")
+    return res
+
+
 def dreamer_learns(card):
     """(m-4) DreamerV3 on the port's CartPole on the card under
     test_dreamerv3_learns's settings: the best return, the seconds per
@@ -4133,6 +4215,7 @@ def phase_rl_more(card):
                                        "device": d}), batch)
     return {"appo_max_abs_err": appo,
             "dreamer_max_abs_err": dreamer_step_check(card),
+            "dreamer_graph": dreamer_graph_check(card),
             "dreamer": dreamer_learns(card),
             "multi_agent_returns": multi_agent_learns(card)}
 
@@ -4194,14 +4277,16 @@ def profile_feed(fn):
     return wall, busy, h2d
 
 
-def phase_feed_llama(card, seed=13):
+def phase_feed_llama(card, seed=13, step=None):
     """(n-1) The compiled Llama step at the bench configuration, B and S of
     TRAIN_ATTN, FEED_STEPS steps from one seeded state, in turns: resident
     device batches, the feed at prefetch FEED_PREFETCH and 0, resident
     again. The batches the feed yielded equal their numpy source bit for
     bit (read back after the step consumed them); every run's losses are
-    identical; 2L / L / L launches a step. -> the launch counts of the fed
-    runs."""
+    identical; 2L / L / L launches a step. The four runs share one compiled
+    step: `step`, the same program compiled before ((h-2)'s "dots" step at
+    the bench configuration), or one compiled here. -> the launch counts of
+    the fed runs."""
     from ray_tpu_torch._private.dataplane_bench import token_batches
     from ray_tpu_torch._private.device_profiler import DeviceStepProfiler
     from ray_tpu_torch.data import iter_device_batches
@@ -4214,14 +4299,15 @@ def phase_feed_llama(card, seed=13):
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
             "flash_bwd_dkv": cfg.n_layers}
     nbytes = sum(v.nbytes for v in source[0].values())
+    opt = adamw(3e-4, weight_decay=0.0)  # as bench.py:210
+    if step is None:  # compiled in the first run
+        step = make_train_step(functools.partial(llama.loss_fn, config=cfg),
+                               opt, backend=COMPILE_BACKEND)
 
     def run(form):
-        opt = adamw(3e-4, weight_decay=0.0)  # as bench.py:210
         gen = torch.Generator(device=DEVICE).manual_seed(seed)
         state = init_train_state(functools.partial(llama.init, cfg, gen), opt,
                                  device=DEVICE)
-        step = make_train_step(functools.partial(llama.loss_fn, config=cfg),
-                               opt, backend=COMPILE_BACKEND)
         stats, scope = {}, [None]
         prof = DeviceStepProfiler("feed", device=DEVICE)
         if form == "resident":
@@ -4494,11 +4580,12 @@ def phase_wire(card):
     dataplane_bench.main(["--device", DEVICE])
 
 
-def phase_dataplane(card):
-    """(n) The data plane on the card: (n-1), (n-2), (n-3). -> the launch
-    counts of (n-1)'s fed runs."""
+def phase_dataplane(card, step=None):
+    """(n) The data plane on the card: (n-1) (over `step`, the compiled
+    bench step, if given), (n-2), (n-3). -> the launch counts of (n-1)'s
+    fed runs."""
     t0 = time.perf_counter()
-    counts = phase_feed_llama(card)
+    counts = phase_feed_llama(card, step=step)
     gc.collect()
     torch.cuda.empty_cache()
     phase_feed_vit(card)
@@ -4522,12 +4609,16 @@ CKPT_STEPS = 4
 CKPT_NEXT_REL_TOL = 1e-4
 # (o-2): CompiledPredictor over ViT-B/16 (bf16) at these batch sizes, its
 # rows against the eager forward on the same rows in the same padded batch
-# (bf16 1e-2 + 1e-2 |ref|).
+# (bf16 1e-2 + 1e-2 |ref|). ViT-B/16's widths, cut in depth from 12 layers
+# to PREDICT_VIT_CUT's (a compile a bucket took 6.2–12.1 s at 12, the
+# script's time had to fall); (o-3) too.
+PREDICT_VIT_CUT = dict(n_layers=4)
 PREDICT_BATCHES = (1, 3, 17, 32, 64)
 PREDICT_TIMED = 5
 PREDICT_TOL = (1e-2, 1e-2)
-# (o-3): BatchPredictor over ViT-B/16 (bf16) from a checkpoint, these rows
-# in batches of this size through a stand-in dataset.
+# (o-3): BatchPredictor over ViT-B/16 (bf16, PREDICT_VIT_CUT) from a
+# checkpoint, these rows in batches of this size through a stand-in
+# dataset.
 BATCH_PREDICT_ROWS = 256
 BATCH_PREDICT_SIZE = 64
 
@@ -4671,7 +4762,8 @@ def _predictor_run(params, apply_fn, cfg, **kw):
 
 
 def phase_predictor(card, compare=False):
-    """(o-2) CompiledPredictor over ViT-B/16 (bf16, ViTConfig.base_16())
+    """(o-2) CompiledPredictor over ViT-B/16's widths (bf16,
+    ViTConfig.base_16() at PREDICT_VIT_CUT)
     at PREDICT_BATCHES rows with its default backend: its outputs against
     the eager forward on the same rows in the same padded batch, one
     compile per distinct bucket, images/s per batch; the eager forward's
@@ -4680,10 +4772,12 @@ def phase_predictor(card, compare=False):
     against eager beside it (its compiles take about a minute a bucket on
     the card, too long for the whole script): the measurement behind the
     default."""
+    import dataclasses
+
     from ray_tpu_torch.models import vit
     from ray_tpu_torch.train.predictor import _bucket
 
-    cfg = vit.ViTConfig.base_16()
+    cfg = dataclasses.replace(vit.ViTConfig.base_16(), **PREDICT_VIT_CUT)
     params = vit.init(cfg, torch.Generator(device=DEVICE).manual_seed(23),
                       device=DEVICE)
     apply_fn = functools.partial(vit.forward, config=cfg)
@@ -4693,7 +4787,7 @@ def phase_predictor(card, compare=False):
                                    backend=COMPILE_BACKEND))
     # The eager forward of the rows alone against them in the bucket's
     # batch, padded with the last row: bf16 GEMMs of another batch size
-    # round differently, and ViT-B/16's 12 layers carry that to its logits.
+    # round differently, and ViT's layers carry that to its logits.
     rng = np.random.default_rng(29)
     spread, eager_ms = {}, {}
     for n in PREDICT_BATCHES:
@@ -4709,8 +4803,8 @@ def phase_predictor(card, compare=False):
         spread[n] = float(np.abs(alone - want).max())
     buckets = sorted({_bucket(n) for n in PREDICT_BATCHES})
     for pred, rows in runs:
-        log(f"[o-2] ({card}) CompiledPredictor ViT-B/16 bf16 "
-            f"({pred.backend}): batches {list(PREDICT_BATCHES)} -> buckets "
+        log(f"[o-2] ({card}) CompiledPredictor ViT-B/16 bf16 at "
+            f"{cfg.n_layers} layers ({pred.backend}): batches {list(PREDICT_BATCHES)} -> buckets "
             f"{pred.buckets}, {pred.compiles} compiles; by batch (bucket, "
             f"first call s with its compile, ms a predict call from numpy, "
             f"images/s, ms of the compiled apply on the card against "
@@ -4768,11 +4862,13 @@ def phase_batch_predictor(card, seed=31):
     import shutil
     import tempfile
 
+    import dataclasses
+
     from ray_tpu_torch.models import vit
     from ray_tpu_torch.train.checkpoint import Checkpoint
     from ray_tpu_torch.train import predictor as tp
 
-    cfg = vit.ViTConfig.base_16()
+    cfg = dataclasses.replace(vit.ViTConfig.base_16(), **PREDICT_VIT_CUT)
     params = vit.init(cfg, torch.Generator(device=DEVICE).manual_seed(23),
                       device=DEVICE)
     apply_fn = functools.partial(vit.forward, config=cfg)
@@ -4819,7 +4915,8 @@ def phase_batch_predictor(card, seed=31):
                                      - i))
                       for i in range(0, BATCH_PREDICT_ROWS,
                                      BATCH_PREDICT_SIZE)})
-    log(f"[o-3] ({card}) BatchPredictor ViT-B/16 bf16 from a checkpoint, "
+    log(f"[o-3] ({card}) BatchPredictor ViT-B/16 bf16 at {cfg.n_layers} "
+        f"layers from a checkpoint, "
         f"{BATCH_PREDICT_ROWS} rows in batches of {BATCH_PREDICT_SIZE} "
         f"through a stand-in dataset: outputs {want.shape} bit for bit "
         f"CompiledPredictor's {same}; checkpoint loads {len(loads)}, "
@@ -5284,30 +5381,19 @@ def phase_store(card):
 # -- (r) the serving benchmarks ------------------------------------------------
 
 # (r-1) `benchmark_serving` and (r-2) `run_prefix_ttft_benchmark`, at the
-# reference's defaults.
+# reference's defaults, on the port's own serve: each engine replica a
+# `num_gpus` actor of the port's runtime (init with RUNTIME_INIT), drawing
+# the weights from seed 0 on its card, as the driver drew its copy.
 SERVING_BENCH = dict(num_replicas=2, n_requests=24, arrival_rate_hz=8.0,
                      max_new_tokens=12, prompt_len=8)
 PREFIX_BENCH = dict(n_requests=6, shared_prefix_len=448, tail_len=8)
+# (r-1)'s token check: one prompt of this many tokens (seed 43) through the
+# app, against the driver's own engine at the replicas' settings.
+SERVING_CHECK_PROMPT = 40
 # (r-0): one prefill wave at the prefix benchmark's engine settings, of
 # these (tokens, offset): a cold prompt and a hit's tail.
 PREFILL_WAVES = ((456, 0), (8, 448))
 PREFILL_TIMED = 5
-
-
-def _phase_counts(profiler):
-    """{phase: observations} of the phase histogram for `profiler`."""
-    from ray_tpu_torch._private import device_profiler
-
-    hist = device_profiler._metrics()[0]
-    with hist._lock:
-        return {dict(k)["phase"]: n for k, n in hist._totals.items()
-                if dict(k)["profiler"] == profiler}
-
-
-def _new_events(prefix, seq):
-    from ray_tpu_torch.util import metrics
-
-    return [e for e in metrics.events(prefix) if e["seq"] > seq]
 
 
 def prefill_graph_check(cfg, params, card, seed=41):
@@ -5362,94 +5448,267 @@ def prefill_graph_check(cfg, params, card, seed=41):
     return out
 
 
+class _CountedStreams:
+    """A serve handle whose streams append their token counts to `counts`
+    (the client's side of "every request streamed its tokens")."""
+
+    def __init__(self, handle, counts):
+        self._handle, self._counts = handle, counts
+
+    def options(self, **kw):
+        inner, counts = self._handle.options(**kw), self._counts
+
+        class _Stream:
+            @staticmethod
+            def remote(request):
+                def tokens():
+                    n = 0
+                    try:
+                        for tok in inner.remote(request):
+                            n += 1
+                            yield tok
+                    finally:
+                        counts.append(n)
+                return tokens()
+
+        return _Stream()
+
+
+def serving_stack(counts):
+    """The port's own serving stack (`serve.default_stack()`), with its
+    streams counted into `counts`, and its shutdown left to the caller, so
+    that the replicas can be read after a benchmark: the runtime is already
+    up (RUNTIME_INIT)."""
+    import dataclasses
+
+    from ray_tpu_torch import serve
+
+    return dataclasses.replace(
+        serve.default_stack(), init=lambda: None, shutdown=lambda: None,
+        run=lambda app, **kw: _CountedStreams(serve.run(app, **kw), counts))
+
+
+REPLICA_DRAIN_S = 30.0
+
+
+def replica_reports(app):
+    """Every engine replica of the serve.llm app `app`: its get_stats and
+    its process_report, read through the replica actors once every engine
+    holds no request (a stream the client closed is cancelled in its
+    engine at the engine's next poll), or after REPLICA_DRAIN_S."""
+    import ray_tpu_torch as rt
+
+    controller = rt.get_actor("SERVE_CONTROLLER")
+    replicas = rt.get(controller.get_replica_handles.remote(
+        app, f"{app}_engine"))
+    deadline = time.perf_counter() + REPLICA_DRAIN_S
+    while True:
+        reports = [{
+            "stats": rt.get(r.handle_request.remote("get_stats", (), {}),
+                            timeout=60),
+            **rt.get(r.handle_request.remote("process_report", (), {}),
+                     timeout=60)} for r in replicas]
+        if (all(r["engine_kv"]["active_slots"] == 0 for r in reports)
+                or time.perf_counter() > deadline):
+            return reports
+        time.sleep(0.2)
+
+
+def check_replicas(tag, reports, n_gpus):
+    """The replicas' processes: each its own (not the driver's), bound to
+    card 0 by a lease of `n_gpus`; each served requests; each engine
+    drained; the KV gauge of each process against its live pools; the
+    decode histogram against the recorded waves. -> (KV blocks by state
+    summed, phases observed, the decode perf.phase_report of each, peak
+    bytes of each, requests finished by each, the flash kernels' launches
+    in the replicas' processes summed)."""
+    pids = [r["pid"] for r in reports]
+    check(len(set(pids)) == len(pids) and os.getpid() not in pids
+          and all(r["gpu_ids"] == ["0"] for r in reports),
+          f"{tag} the replicas' processes {pids} and cards "
+          f"{[r['gpu_ids'] for r in reports]} (num_gpus={n_gpus})")
+    served = [r["stats"]["finished_requests"] for r in reports]
+    check(all(n > 0 for n in served),
+          f"{tag} requests finished by replica: {served}; one served none")
+    flash = {k: sum(r["flash_launches"][k] for r in reports)
+             for k in reports[0]["flash_launches"]}
+    blocks = {"free": 0, "cached": 0, "active": 0}
+    observed = recorded = 0
+    for i, r in enumerate(reports):
+        rep = r["engine_kv"]
+        check(rep["active_blocks"] == 0 and rep["active_slots"] == 0
+              and rep["free_blocks"] + rep["cached_blocks"]
+              == rep["n_blocks"] - 1,
+              f"{tag} replica {i}: blocks not all returned ({rep})")
+        (gauge,) = [m for m in r["metrics"]
+                    if m["name"] == "ray_tpu_kv_blocks"]
+        mine = {dict(map(tuple, k))["state"]: v for k, v in gauge["samples"]}
+        pools = sum(p["n_blocks"] - 1 for p in r["kv_reports"])
+        check(len(r["kv_reports"]) == 1 and sum(mine.values()) == pools
+              and all(p["free_blocks"] + p["cached_blocks"]
+                      + p["active_blocks"] == p["n_blocks"] - 1
+                      for p in r["kv_reports"]),
+              f"(r-3) {tag} replica {i}: the KV gauge {mine} against the "
+              f"pools {r['kv_reports']}")
+        for k in blocks:
+            blocks[k] += mine.get(k, 0)
+        (hist,) = [m for m in r["metrics"]
+                   if m["name"] == "ray_tpu_step_phase_seconds"]
+        seen = sum(total for key, _c, _s, total in hist["samples"]
+                   if dict(map(tuple, key))["profiler"] == "decode")
+        dec = r["profilers"]["decode"]
+        waves = dec["recent_steps"]
+        held = sum(len(w["phases"]) for w in waves)
+        check(dec["steps"] == len(waves) and seen == held and held > 0,
+              f"(r-3) {tag} replica {i}: {seen} phases observed, {held} in "
+              f"{len(waves)} of {dec['steps']} recorded waves")
+        observed += seen
+        recorded += held
+    # the decode profiler's event of the last report (get_stats emits one
+    # too)
+    events = [[e for e in r["phase_reports"] if e["profiler"] == "decode"][-1]
+              for r in reports]
+    return (blocks, observed, events,
+            [r["peak_memory_bytes"] for r in reports], served, flash)
+
+
 def phase_serving_bench(cfg, params, card):
-    """(r) The serving benchmarks on the resident weights, through the
-    in-process stand-in of the serving stack (`serve.LocalServingStack`:
-    a thread a replica, each over its own PagedInferenceEngine on the one
-    copy of the weights): (r-0) the prefill wave eagerly and as its graph;
-    (r-1) `benchmark_serving`, every request's stream and every engine
-    drained; (r-2) `run_prefix_ttft_benchmark`;
-    (r-3) the KV gauge against the live engines' pools and the phase
-    histogram against the recorded decode waves. -> its numbers."""
-    from ray_tpu_torch._private import kv_registry
-    from ray_tpu_torch._private.device_profiler import get_profiler
-    from ray_tpu_torch.inference.benchmarks import benchmark_serving
-    from ray_tpu_torch.serve import (LocalServingStack,
-                                     run_prefix_ttft_benchmark)
-    from ray_tpu_torch.util import metrics
+    """(r) The serving benchmarks on the port's own serve (`init` with
+    RUNTIME_INIT, `ray_tpu_torch.serve`), each engine replica a `num_gpus`
+    actor in its own process on the card, drawing the weights from seed 0
+    there: (r-0) the prefill wave eagerly and as its graph (in this
+    process, on the driver's copy `params`); (r-1) `benchmark_serving`,
+    every request's stream, every replica serving, every engine drained,
+    and one prompt's greedy tokens from the app against the driver's copy;
+    (r-2) `run_prefix_ttft_benchmark`; (r-3) each replica process's KV
+    gauge against its pool and its decode histogram against its recorded
+    waves. -> its numbers, the flash kernels' launches in the replicas'
+    processes among them."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.inference import GenerationConfig
+    from ray_tpu_torch.inference.benchmarks import (SERVING_ENGINE,
+                                                    PagedEngineBuilder,
+                                                    benchmark_serving)
+    from ray_tpu_torch.serve.benchmarks import run_prefix_ttft_benchmark
 
     t0 = time.perf_counter()
     prefill_ms = prefill_graph_check(cfg, params, card)
-    prof = get_profiler("decode", device=DEVICE)
-    prof.reset()
-    before = _phase_counts("decode")
-    seq = max([e["seq"] for e in metrics.events()] or [0])
-    stack = LocalServingStack()
-    torch.cuda.reset_peak_memory_stats()
-    res = benchmark_serving(cfg, stack=stack, device=DEVICE, params=params,
-                            **SERVING_BENCH)
-    peak = torch.cuda.max_memory_allocated()
-    prof.report(recent=0)
-    (event,) = [e for e in _new_events("perf.phase_report", seq)
-                if e["data"]["profiler"] == "decode"]
-    d = res["detail"]
-    new = SERVING_BENCH["max_new_tokens"]
-    n_req = SERVING_BENCH["n_requests"] + 2 * SERVING_BENCH["num_replicas"]
-    streamed = sorted(n for r in stack.replicas for n in r.streamed)
-    reps = [check_drained(r.engine, f"(r-1) replica {i}")
-            for i, r in enumerate(stack.replicas)]
-    log(f"[r-1] ({card}) benchmark_serving, Llama-3-8B bf16 at "
-        f"{cfg.n_layers} layers, {SERVING_BENCH['num_replicas']} replicas "
-        f"(engines of {reps[0]['n_blocks']} blocks of "
-        f"{reps[0]['block_size']}), {SERVING_BENCH['n_requests']} requests "
-        f"at {SERVING_BENCH['arrival_rate_hz']} Hz, {new} new tokens each: "
-        f"TTFT p50 {res['value']} ms, p99 {d['ttft_p99_ms']} ms, "
-        f"{d['tokens_per_sec']} tok/s; peak memory {peak / 2**30:.2f} GiB; "
-        f"perf.phase_report of the decode waves {event['data']}")
-    check(d["n_requests"] == SERVING_BENCH["n_requests"]
-          and streamed == [new] * n_req,
-          f"(r-1) {d['n_requests']} requests answered, streams of "
-          f"{streamed} tokens, not {n_req} of {new}")
+    # the workers import the package from this checkout
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p)
+    t_init = time.perf_counter()
+    rt.init(**RUNTIME_INIT)
+    init_s = time.perf_counter() - t_init
+    n_rep = SERVING_BENCH["num_replicas"]
+    share = 1.0 / n_rep  # benchmark_serving's num_gpus a replica
+    try:
+        counts = []
+        t1 = time.perf_counter()
+        res = benchmark_serving(cfg, stack=serving_stack(counts),
+                                device=DEVICE, **SERVING_BENCH)
+        bench_s = time.perf_counter() - t1
+        d = res["detail"]
+        new = SERVING_BENCH["max_new_tokens"]
+        n_req = SERVING_BENCH["n_requests"] + 2 * n_rep
+        # one prompt through the running app against the driver's copy
+        rng = np.random.default_rng(43)
+        prompt = rng.integers(1, cfg.vocab_size,
+                              SERVING_CHECK_PROMPT).tolist()
+        stream = serve.get_app_handle("llm_bench").options(
+            method_name="stream_tokens", stream=True)
+        got = list(stream.remote({"prompt": prompt}))
+        own = PagedEngineBuilder(cfg, DEVICE, SERVING_ENGINE,
+                                 params=params)()
+        want = own.generate([prompt], GenerationConfig(
+            max_new_tokens=new))[0]
+        del own
+        reports = replica_reports("llm_bench")
+        stats = [r["stats"] for r in reports]
+        blocks, observed, events, peaks, served, flash = check_replicas(
+            "(r-1)", reports, share)
+        serve.shutdown()
+        log(f"[r-1] ({card}) benchmark_serving on the port's serve, "
+            f"Llama-3-8B bf16 at {cfg.n_layers} layers, {n_rep} replicas "
+            f"(num_gpus={share:g} each, pids "
+            f"{[r['pid'] for r in reports]}; engines of "
+            f"{reports[0]['engine_kv']['n_blocks']} blocks of "
+            f"{reports[0]['engine_kv']['block_size']}), "
+            f"{SERVING_BENCH['n_requests']} requests at "
+            f"{SERVING_BENCH['arrival_rate_hz']} Hz, {new} new tokens each: "
+            f"TTFT p50 {res['value']} ms, p99 {d['ttft_p99_ms']} ms, "
+            f"{d['tokens_per_sec']} tok/s; requests finished by replica "
+            f"(warm-ups and the token check included) {served}; the "
+            f"replicas' peak memory "
+            f"{[None if b is None else round(b / 2**30, 2) for b in peaks]}"
+            f" GiB; init {init_s:.2f} s, the benchmark {bench_s:.1f} s with "
+            f"its replicas' start; perf.phase_report of the decode waves "
+            f"{events}")
+        log(f"[r-1] ({card}) one {len(prompt)}-token prompt through the app:"
+            f" {got} ; the driver's copy: {want}")
+        check(d["n_requests"] == SERVING_BENCH["n_requests"]
+              and sorted(counts) == [new] * n_req
+              and sum(s["finished_requests"] for s in stats) == n_req + 1,
+              f"(r-1) {d['n_requests']} requests answered, streams of "
+              f"{sorted(counts)} tokens, {[s['finished_requests'] for s in stats]}"
+              f" finished, not {n_req} of {new}")
+        check(got == want, f"(r-1) the replica's greedy tokens {got} differ "
+              f"from the driver's copy's {want}")
 
-    prefix_stack = LocalServingStack()
-    pre = run_prefix_ttft_benchmark(stack=prefix_stack, device=DEVICE,
-                                    config=cfg, params=params,
-                                    **PREFIX_BENCH)["llm_prefix_ttft"]
-    check_drained(prefix_stack.replicas[0].engine, "(r-2)")
+        t2 = time.perf_counter()
+        pre = run_prefix_ttft_benchmark(
+            stack=serving_stack([]), device=DEVICE, config=cfg,
+            **PREFIX_BENCH)["llm_prefix_ttft"]
+        prefix_s = time.perf_counter() - t2
+        reports2 = replica_reports("llm_prefix")
+        blocks2, observed2, events2, peaks2, _, flash2 = check_replicas(
+            "(r-2)", reports2, 1.0)
+        serve.shutdown()
+    finally:
+        serve.shutdown()
+        rt.shutdown()
     c, n = pre["cache"], PREFIX_BENCH["n_requests"]
-    log(f"[r-2] ({card}) run_prefix_ttft_benchmark, a "
+    log(f"[r-2] ({card}) run_prefix_ttft_benchmark on the port's serve, a "
         f"{PREFIX_BENCH['shared_prefix_len']}-token shared prefix and "
         f"{PREFIX_BENCH['tail_len']}-token tails, {n} rounds: cold p50 "
         f"{pre['cold_p50_ms']} ms, hit p50 {pre['hit_p50_ms']} ms, "
-        f"hit_over_cold {pre['hit_over_cold']}; cache {c}")
+        f"hit_over_cold {pre['hit_over_cold']}; cache {c}; the replica's "
+        f"peak memory {peaks2}; {prefix_s:.1f} s with its start")
     check(c["hit_requests"] >= n and c["miss_requests"] >= n
           and pre["hit_over_cold"] < 1,
           f"(r-2) cache {c}, hit_over_cold {pre['hit_over_cold']}")
+    kv = {k: blocks[k] + blocks2[k] for k in blocks}
+    log(f"[r-3] ({card}) ray_tpu_kv_blocks {kv} over "
+        f"{len(reports) + len(reports2)} replica processes' live engines, "
+        f"each gauge equal to its pool (block 0 of each is scratch); the "
+        f"decode histograms observed {observed + observed2} phases, as the "
+        f"recorded waves hold; {time.perf_counter() - t0:.1f} s for (r)")
+    check(len(reports) + len(reports2) >= 3,
+          f"(r-3) {len(reports)} + {len(reports2)} replicas, not 3")
+    return {"prefill_ms": prefill_ms, "serving": res, "init_s": init_s,
+            "bench_s": bench_s, "prefix_s": prefix_s,
+            "peak_memory_bytes": peaks + peaks2,
+            "phase_report": events[0], "prefix": pre,
+            "kv_blocks": kv, "phases_observed": observed + observed2,
+            "tokens": got, "requests_by_replica": served,
+            "replica_flash_launches": {k: flash[k] + flash2[k]
+                                       for k in flash}}
 
-    reports = kv_registry.report_all()
-    gauge = metrics.get_metric("ray_tpu_kv_blocks")
-    blocks = {dict(k)["state"]: v for k, v in gauge._values.items()}
-    pools = sum(r["n_blocks"] - 1 for r in reports)
-    rec = prof.report(recent=1 << 20, emit_event=False)
-    waves = rec["recent_steps"]
-    after = _phase_counts("decode")
-    observed = sum(after.values()) - sum(before.values())
-    recorded = sum(len(w["phases"]) for w in waves)
-    log(f"[r-3] ({card}) ray_tpu_kv_blocks {blocks} over {len(reports)} "
-        f"live engines of {pools} blocks in all (block 0 of each is "
-        f"scratch); the decode histogram observed {observed} phases of "
-        f"{rec['steps']} recorded waves, which hold {recorded}; "
-        f"{time.perf_counter() - t0:.1f} s for (r)")
-    check(len(reports) >= 3 and sum(blocks.values()) == pools
-          and all(r["free_blocks"] + r["cached_blocks"] + r["active_blocks"]
-                  == r["n_blocks"] - 1 for r in reports),
-          f"(r-3) the KV gauge {blocks} against the pools {reports}")
-    check(rec["steps"] == len(waves) and observed == recorded,
-          f"(r-3) {observed} phases observed, {recorded} in "
-          f"{len(waves)} of {rec['steps']} recorded waves")
-    return {"prefill_ms": prefill_ms, "serving": res, "peak_memory_bytes": peak,
-            "phase_report": event["data"], "prefix": pre,
-            "kv_blocks": blocks, "phases_observed": observed}
+
+def serving_launches(bench):
+    """(r)'s launches of the flash kernels: the driver's since the count
+    was reset before (r), and those of the replicas' processes, which
+    count from their construction. The paged engine attends through the
+    cache attention, so all are 0. -> the sum."""
+    driver, replicas = kernel_counts(), bench["replica_flash_launches"]
+    total = {k: driver[k] + replicas[k] for k in driver}
+    log(f"[r] launches of the flash kernels on the serving benchmarks: "
+        f"{total} (the driver's {driver}, the replicas' processes' "
+        f"{replicas}; the paged engine attends through the cache "
+        f"attention)")
+    check(not any(total.values()), f"(r) launched a flash kernel: {total}")
+    return total
 
 
 def check_compile_events(card):
@@ -5845,6 +6104,8 @@ def main(argv=()) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ray_tpu_torch import device_info
     from ray_tpu_torch._private.accelerators.nvidia import peaks
+    from ray_tpu_torch._private.device_profiler import (
+        compile_stats, install_compile_listener)
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops import flash_attention as fa
 
@@ -5859,16 +6120,26 @@ def main(argv=()) -> int:
         " TB/s")
     t_start = time.perf_counter()
     laps, t_lap = {}, [t_start]
+    # the seconds torch.compile took in this process, by phase, as the
+    # compile listener sees them (dynamo's compile start and end; a
+    # spawned rank's compiles are its own)
+    install_compile_listener()
+    compiles, c_lap = {}, [compile_stats()["compile_s"]]
 
     def lap(tag):
         """Note the seconds of the phase(s) `tag` that just ended."""
         now = time.perf_counter()
         laps[tag] = round(now - t_lap[0], 1)
         t_lap[0] = now
+        install_compile_listener()  # a torch._dynamo.reset() drops it
+        c_now = compile_stats()["compile_s"]
+        compiles[tag] = round(c_now - c_lap[0], 1)
+        c_lap[0] = c_now
 
     def log_laps():
         log(f"[phases] seconds by phase {laps}; "
-            f"{time.perf_counter() - t_start:.1f} s in all")
+            f"{time.perf_counter() - t_start:.1f} s in all; of them "
+            f"torch.compile's, by phase: {compiles}")
 
     phase_build()
     lap("a")
@@ -5992,9 +6263,7 @@ def main(argv=()) -> int:
         bench = phase_serving_bench(cfg, params, card)
         lap("r")
         log_laps()
-        log(f"[r] launches of the flash kernels on the serving benchmarks: "
-            f"{kernel_counts()} (the paged engine attends through the cache "
-            f"attention)")
+        serving_launches(bench)
         print(card)
         print(json.dumps({"serving_bench": bench}))
         print(json.dumps({"ok": True, "device": {
@@ -6043,11 +6312,9 @@ def main(argv=()) -> int:
         f"attends through the cache attention, not the flash kernel); "
         f"{time.perf_counter() - t_start:.1f} s so far")
     reset_kernel_counts()
-    phase_serving_bench(cfg, params, card)
+    serving = serving_launches(phase_serving_bench(cfg, params, card))
     lap("r")
-    log(f"[r] launches on the serving benchmarks: {kernel_counts()} (the "
-        f"paged engine runs none); {time.perf_counter() - t_start:.1f} s so "
-        "far")
+    log(f"[r] {time.perf_counter() - t_start:.1f} s so far")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -6061,9 +6328,9 @@ def main(argv=()) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     reset_kernel_counts()
-    compiled = phase_train_compiled(cfg, batch=TRAIN_ATTN[0],
-                                    seq=TRAIN_ATTN[1], steps=10, seed=3,
-                                    eager=eager)
+    compiled, dots_step = phase_train_compiled(
+        cfg, batch=TRAIN_ATTN[0], seq=TRAIN_ATTN[1], steps=10, seed=3,
+        eager=eager)
     lap("h-2")
     log(f"[h-2] launches on the compiled training path: {compiled}; "
         f"{time.perf_counter() - t_start:.1f} s so far")
@@ -6093,7 +6360,8 @@ def main(argv=()) -> int:
         f"{time.perf_counter() - t_start:.1f} s so far")
     gc.collect()
     torch.cuda.empty_cache()
-    feed = phase_dataplane(card)
+    feed = phase_dataplane(card, step=dots_step)
+    del dots_step
     lap("n")
     log(f"[n] launches on the fed training path: {feed}; "
         f"{time.perf_counter() - t_start:.1f} s so far")
@@ -6156,6 +6424,7 @@ def main(argv=()) -> int:
                    "checkpoint": ckpt[name], "train_gang": gang[name]}
         check(all(v > 0 for path, v in by_path.items() if path != "serve"),
               f"a training path never launched {name}: {by_path}")
+        by_path["serving_bench"] = serving[name]  # (r): none
         if name == "flash_fwd":  # `forward` in the runtime's GPU actor
             by_path["runtime_actor_forward"] = runtime["flash_fwd_launches"]
         kernels.append({

@@ -6,12 +6,16 @@ arrivals through serve.llm.
 Counterpart of `ray_tpu/inference/benchmarks.py` (`benchmark_engine`,
 `benchmark_serving`). The bound reads the detected card's device-memory
 bandwidth (`_private/accelerators/nvidia.py`); a CPU run reports none,
-since a CPU rate is no device metric. `benchmark_serving` takes the
-serving stack as a value (`ray_tpu_torch.serve.ServingStack`).
+since a CPU rate is no device metric. `benchmark_serving` runs on the
+port's own serve (`ray_tpu_torch.init` and `ray_tpu_torch.serve`), or on
+a serving stack passed as a value (`ray_tpu_torch.serve.ServingStack`).
+Each engine replica builds its engine through `PagedEngineBuilder`, which
+travels to the replica's process as values: the config, the device and
+the engine's settings (the replica draws the weights from seed 0 on its
+own card) or, for small models, the weights themselves too.
 
 Run: python -m ray_tpu_torch.inference.benchmarks            # engine decode
-     python -m ray_tpu_torch.inference.benchmarks serving    # serving, over
-                                  # the in-process stand-in of the stack
+     python -m ray_tpu_torch.inference.benchmarks serving    # serving
 """
 
 from __future__ import annotations
@@ -85,6 +89,48 @@ def benchmark_engine(config: Optional[Any] = None, *, max_batch: int = 8,
             "unit": "tokens/s", "seconds": dt, "detail": detail}
 
 
+class PagedEngineBuilder:
+    """`build_engine` of the serving benchmarks: a PagedInferenceEngine of
+    `config` on `device` with the engine settings `engine`, over `params`,
+    or over weights drawn from seed 0 on the device where it is called
+    (the replica's card) when `params` is None. It is pickled into each
+    replica's process, so it holds values only: a model too large to
+    travel (Llama-3-8B is 16 GB of bf16) goes by its seed."""
+
+    def __init__(self, config, device, engine: Dict[str, Any], *,
+                 params: Optional[Dict] = None):
+        self.config = config
+        self.device = torch.device(device)
+        self.engine = dict(engine)
+        self.params = params
+
+    def weights(self) -> Dict:
+        from ray_tpu_torch.models import llama
+
+        if self.params is not None:
+            return self.params
+        return llama.init(self.config, torch.Generator(
+            device=self.device).manual_seed(0), device=self.device)
+
+    def __call__(self):
+        from ray_tpu_torch.inference.paged_engine import PagedInferenceEngine
+
+        return PagedInferenceEngine(self.weights(), self.config,
+                                    device=self.device, **self.engine)
+
+
+# benchmark_serving's engine settings, the reference's
+SERVING_ENGINE = dict(max_batch=8, max_len=128, block_size=16, decode_chunk=4)
+
+
+def replica_options(dev, num_replicas: int) -> Optional[Dict[str, Any]]:
+    """The engine replicas' actor options: on the card, each asks for its
+    share of one card (`num_gpus` 1 / num_replicas); on the CPU none."""
+    if torch.device(dev).type != "cuda":
+        return None
+    return {"num_gpus": 1.0 / num_replicas}
+
+
 def benchmark_serving(config: Optional[Any] = None, *, stack=None,
                       num_replicas: int = 2, n_requests: int = 24,
                       arrival_rate_hz: float = 8.0,
@@ -96,13 +142,16 @@ def benchmark_serving(config: Optional[Any] = None, *, stack=None,
     stream through the stack's router and `num_replicas` paged-engine
     replicas, and the numbers come from client-observed token arrival
     times. 2 * num_replicas warm-up requests run first, outside the
-    measurement. stack: the serving stack (required). Default config:
-    small_1b on the card, tiny on the CPU, with weights from seed 0 unless
-    `params` (converted or already resident weights) are given."""
+    measurement. stack: the serving stack (default: the port's own serve
+    on `ray_tpu_torch.init`). Default config: small_1b on the card, tiny
+    on the CPU. Each replica draws the weights from seed 0 on its device,
+    unless `params` (weights small enough to travel to the replicas, or
+    already resident where the stack runs its replicas in this process)
+    are given. The replicas' actor options are `replica_options`: on the
+    card, a share of one card each."""
     import random
     import threading
 
-    from ray_tpu_torch.inference.paged_engine import PagedInferenceEngine
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.serve import require_stack
 
@@ -111,21 +160,14 @@ def benchmark_serving(config: Optional[Any] = None, *, stack=None,
     if config is None:
         config = (llama.LlamaConfig.small_1b() if dev.type == "cuda"
                   else llama.LlamaConfig.tiny())
-    if params is None:
-        params = llama.init(config,
-                            torch.Generator(device=dev).manual_seed(0),
-                            device=dev)
-
-    def build():
-        return PagedInferenceEngine(params, config, max_batch=8,
-                                    max_len=128, block_size=16,
-                                    decode_chunk=4, device=dev)
+    build = PagedEngineBuilder(config, dev, SERVING_ENGINE, params=params)
 
     stack.init()
     app = stack.build_llm_app(
         build, name="llm_bench", num_replicas=num_replicas,
         default_config={"max_new_tokens": max_new_tokens},
-        shed_queue_depth=10_000)  # measure queueing, don't shed it
+        shed_queue_depth=10_000,  # measure queueing, don't shed it
+        engine_actor_options=replica_options(dev, num_replicas))
     try:
         handle = stack.run(app, name="llm_bench")
         stream = handle.options(method_name="stream_tokens", stream=True)
@@ -201,8 +243,6 @@ if __name__ == "__main__":
     import sys
 
     if "serving" in sys.argv[1:]:
-        from ray_tpu_torch.serve.local import LocalServingStack
-
-        print(json.dumps(benchmark_serving(stack=LocalServingStack())))
+        print(json.dumps(benchmark_serving()))
     else:
         print(json.dumps(benchmark_engine()))

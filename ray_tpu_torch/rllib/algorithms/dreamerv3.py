@@ -12,6 +12,10 @@ predicted rewards and continues, REINFORCE with return normalisation and an
 entropy bonus. Three optax-default Adams (no weight decay, no clip), one
 each for the world model, the actor and the critic.
 
+On the card the algorithm's step is one CUDA graph
+(`DreamerV3Learner.train_step_graphed`): the eager step launches some
+thousands of small kernels, and its time is the host's launching them.
+
 The networks are `nn.Module`s named like the JAX pytree's keys (`wm.enc.0`,
 `wm.gru_x`, `actor.1`, ...), so `rllib/convert.py` carries the JAX
 parameters and Adam states across. JAX's `lax.scan`s over time (the
@@ -38,7 +42,7 @@ from ray_tpu_torch.rllib.algorithm import Algorithm
 from ray_tpu_torch.rllib.algorithm_config import AlgorithmConfig
 from ray_tpu_torch.rllib.envs import make_env
 from ray_tpu_torch.rllib.rl_module import _linear
-from ray_tpu_torch.train.optim import AdamW
+from ray_tpu_torch.train.optim import AdamW, _adamw_, tree_leaves
 
 
 def symlog(x):
@@ -361,6 +365,7 @@ class DreamerV3Learner:
             self.optimizers[name] = opt
             self.opt_state[name] = opt.init(self._params(name))
             self._updates[name] = opt.updater()
+        self._graph: Optional[_GraphedStep] = None
 
     def _params(self, name: str) -> List[torch.Tensor]:
         return list(getattr(self.model, name).parameters())
@@ -387,20 +392,101 @@ class DreamerV3Learner:
                    noise: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One update of the three parameter sets in place. -> the metrics
         as 0-d tensors on the device."""
+        return self._train_step(batch, noise, self._step)
+
+    def _train_step(self, batch, noise, step) -> Dict[str, torch.Tensor]:
         m = self.model
         wml, (hs, zs, l_rec, l_rew, kld) = m.wm_loss(batch, noise["post"],
                                                      self.cfg)
-        self._step("wm", wml)
+        step("wm", wml)
         # imagination starts from every posterior state in the batch
         h0 = hs.detach().reshape(-1, m.D)
         z0 = zs.detach().reshape(-1, m.Z)
         al, _, ret = m.ac_losses(h0, z0, noise, self.cfg)
-        self._step("actor", al)
+        step("actor", al)
         _, cl, _ = m.ac_losses(h0, z0, noise, self.cfg)
-        self._step("critic", cl)
+        step("critic", cl)
         return {"wm_loss": wml, "recon_loss": l_rec, "reward_loss": l_rew,
                 "kl_dyn": kld, "actor_loss": al, "critic_loss": cl,
                 "imagined_return": ret}
+
+    def train_step_graphed(self, batch: Dict[str, torch.Tensor],
+                           noise: Dict[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+        """`train_step` on the card as one CUDA graph: the same kernels in
+        the same order, replayed in one launch. Each call takes its one
+        step: the first `_GraphedStep.WARMUP` calls eagerly (they set up
+        cuBLAS's and autograd's lazy state), the next is captured and
+        replayed, and every later one copies its batch and noise into the
+        graph's inputs and replays it. The shapes must stay those of the
+        first call. -> the metrics as 0-d tensors on the device, which the
+        next call overwrites."""
+        if self._graph is None:
+            self._graph = _GraphedStep(self)
+        return self._graph(batch, noise)
+
+
+class _GraphedStep:
+    """The learner's step captured as one CUDA graph. The graph holds the
+    step's inputs (the batch and the noise), its metrics, and the three
+    Adams' update counts as device tensors that it advances itself; the
+    parameters and moments are updated in place, as eagerly. The host's
+    counts (`opt_state[name].count`) follow each call."""
+
+    WARMUP = 2
+
+    def __init__(self, learner: DreamerV3Learner):
+        self.learner = learner
+        self.calls = 0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.inputs: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.outputs: Dict[str, torch.Tensor] = {}
+        self.counts: Dict[str, torch.Tensor] = {}
+        self.stream = torch.cuda.Stream()
+
+    def _step(self, name: str, loss: torch.Tensor) -> None:
+        """`DreamerV3Learner._step` with the update count on the device."""
+        learner = self.learner
+        params = learner._params(name)
+        grads = list(torch.autograd.grad(loss, params))
+        opt, state = learner.optimizers[name], learner.opt_state[name]
+        count = self.counts[name]
+        count.add_(1.0)
+        _adamw_(params, grads, tree_leaves(state.mu), tree_leaves(state.nu),
+                count, opt.learning_rate, opt.b1, opt.b2, opt.eps,
+                opt.weight_decay)
+
+    def __call__(self, batch, noise) -> Dict[str, torch.Tensor]:
+        learner = self.learner
+        self.calls += 1
+        if self.calls <= self.WARMUP:
+            self.stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.stream):
+                out = learner.train_step(batch, noise)
+            torch.cuda.current_stream().wait_stream(self.stream)
+            return out
+        if self.graph is None:
+            self.inputs = {
+                "batch": {k: v.clone() for k, v in batch.items()},
+                "noise": {k: v.clone() for k, v in noise.items()}}
+            dev = next(learner.model.parameters()).device
+            self.counts = {name: torch.full(
+                (), float(state.count), dtype=torch.float32, device=dev)
+                for name, state in learner.opt_state.items()}
+            torch.cuda.synchronize()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=self.stream):
+                self.outputs = learner._train_step(
+                    self.inputs["batch"], self.inputs["noise"], self._step)
+        else:
+            for k, v in batch.items():
+                self.inputs["batch"][k].copy_(v)
+            for k, v in noise.items():
+                self.inputs["noise"][k].copy_(v)
+        self.graph.replay()
+        for state in learner.opt_state.values():
+            state.count += 1
+        return self.outputs
 
 
 def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Any]:
@@ -471,7 +557,9 @@ class DreamerV3(Algorithm):
         noise = {k: torch.as_tensor(v, dtype=torch.float32,
                                     device=self.device)
                  for k, v in noise.items()}
-        out = self.learner.train_step(_to_device(batch, self.device), noise)
+        step = (self.learner.train_step_graphed
+                if self.device.type == "cuda" else self.learner.train_step)
+        out = step(_to_device(batch, self.device), noise)
         values = torch.stack([v.detach().float() for v in out.values()])
         return dict(zip(out, values.tolist()))
 

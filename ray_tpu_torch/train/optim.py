@@ -143,7 +143,11 @@ def _adamw_(p, g, mu, nu, count, lr, b1, b2, eps, weight_decay) -> None:
     # parameters as with a number for the step size.
     denom = torch._foreach_sqrt(nu)
     torch._foreach_mul_(denom, -bc1 / (lr * torch.sqrt(bc2)))
-    torch._foreach_add_(denom, -eps * bc1 / lr)
+    # tensor by tensor: the list-and-tensor _foreach_add_ reads its tensor
+    # on the host, which a CUDA graph's capture refuses (DreamerV3's step)
+    shift = -eps * bc1 / lr
+    for d in denom:
+        d.add_(shift)
     torch._foreach_addcdiv_(p, mu, denom)
 
 

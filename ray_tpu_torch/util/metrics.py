@@ -3,7 +3,8 @@ keys, rendered in Prometheus exposition format, and a bounded event ring.
 
 The port's copy of what it needs from `ray_tpu/util/metrics.py`
 (`Counter`, `Gauge`, `Histogram`, `get_metric`, the `get_or_create_*`
-functions, `prometheus_text`, `snapshot_metrics`), plus one install point
+functions, `prometheus_text`, `snapshot_metrics`,
+`merge_metrics_snapshot`), plus one install point
 for the JAX package's runtime. The port's own runtime (`ray_tpu_torch.api`)
 keeps its metrics in this registry. The JAX runtime's pieces come in as
 values, never as imports:
@@ -174,6 +175,35 @@ class Histogram(Metric):
             self._boundaries, self._counts.get(key),
             self._totals.get(key, 0), q)
 
+    def quantiles(self, qs: Sequence[float] = (0.5, 0.9, 0.99)
+                  ) -> Dict[Tuple, Dict[float, float]]:
+        """Per-tag-set quantile estimates: {tags_key: {q: seconds}}."""
+        with self._lock:
+            return {key: {q: self._quantile_locked(key, q) for q in qs}
+                    for key in self._counts}
+
+    def quantiles_by(self, tag_key: str,
+                     qs: Sequence[float] = (0.5, 0.9, 0.99)
+                     ) -> Dict[str, Dict[float, float]]:
+        """Quantiles with the bucket counts of every tag set that shares a
+        value of `tag_key` merged, and their total under 'count'."""
+        with self._lock:
+            merged: Dict[str, List[int]] = {}
+            totals: Dict[str, int] = {}
+            for key, buckets in self._counts.items():
+                group = dict(key).get(tag_key, "")
+                agg = merged.setdefault(
+                    group, [0] * (len(self._boundaries) + 1))
+                for i, c in enumerate(buckets):
+                    agg[i] += c
+                totals[group] = totals.get(group, 0) + self._totals[key]
+            out: Dict[str, Dict] = {}
+            for group, agg in merged.items():
+                out[group] = {q: self._bucket_quantile(
+                    self._boundaries, agg, totals[group], q) for q in qs}
+                out[group]["count"] = totals[group]
+            return out
+
 
 def get_metric(name: str) -> Optional[Metric]:
     """The registered metric named `name` (the newest registration)."""
@@ -241,6 +271,59 @@ def snapshot_metrics(prefix: str) -> List[Dict]:
                                     for k, v in m._values.items()]
         out.append(entry)
     return out
+
+
+def merge_metrics_snapshot(snap: List[Dict],
+                           prev: Optional[List[Dict]] = None) -> None:
+    """Merge another process's cumulative `snapshot_metrics` into this
+    registry: counters and histogram buckets add the delta against `prev`
+    (the last snapshot merged from the same source, so that a periodic
+    collector counts nothing twice); gauges take the latest value."""
+    prev_by_name = {e["name"]: e for e in (prev or [])}
+    for entry in snap:
+        name, kind = entry["name"], entry["type"]
+        tag_keys = tuple(entry.get("tag_keys") or ())
+        prev_samples = {
+            tuple(tuple(t) for t in s[0]): s
+            for s in (prev_by_name.get(name) or {}).get("samples", [])}
+        m = get_metric(name)
+        if kind == "Gauge":
+            if m is None:
+                m = Gauge(name, entry.get("description", ""), tag_keys)
+            for tags_items, value in entry["samples"]:
+                with m._lock:
+                    m._values[tuple(tuple(t) for t in tags_items)] = value
+        elif kind == "Counter":
+            if m is None:
+                m = Counter(name, entry.get("description", ""), tag_keys)
+            for tags_items, value in entry["samples"]:
+                key = tuple(tuple(t) for t in tags_items)
+                base = prev_samples.get(key)
+                delta = value - (base[1] if base else 0.0)
+                if delta > 0:
+                    with m._lock:
+                        m._values[key] += delta
+        elif kind == "Histogram":
+            if not isinstance(m, Histogram):
+                m = Histogram(name, entry.get("description", ""),
+                              boundaries=entry.get("boundaries"),
+                              tag_keys=tag_keys)
+            for tags_items, counts, total_sum, total in entry["samples"]:
+                key = tuple(tuple(t) for t in tags_items)
+                base = prev_samples.get(key)
+                d_counts = [c - (base[1][i] if base else 0)
+                            for i, c in enumerate(counts)]
+                d_sum = total_sum - (base[2] if base else 0.0)
+                d_total = total - (base[3] if base else 0)
+                if d_total <= 0 or any(c < 0 for c in d_counts):
+                    continue  # the source restarted: skip this delta
+                with m._lock:
+                    buckets = m._counts.setdefault(
+                        key, [0] * (len(m._boundaries) + 1))
+                    for i, c in enumerate(d_counts[:len(buckets)]):
+                        buckets[i] += c
+                    m._sums[key] += d_sum
+                    m._totals[key] += d_total
 
 
 def prometheus_text() -> str:

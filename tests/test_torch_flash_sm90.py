@@ -370,7 +370,7 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
 
     # (n), the data plane, is rehearsed on its own by
     # tests/test_torch_data_feed.py; here one tiny Llama step stands in.
-    def dataplane(card):
+    def dataplane(card, step=None):
         return llama_step("[n] one tiny Llama step in place of phase (n)")
 
     monkeypatch.setattr(smoke, "phase_dataplane", dataplane)
@@ -401,8 +401,12 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
             "[u] one tiny Llama step in place of phase (u)")["flash_fwd"]})
     # (r), the serving benchmarks, is rehearsed on its own by
     # tests/test_torch_serve_benchmarks.py.
-    monkeypatch.setattr(smoke, "phase_serving_bench", lambda *a: smoke.log(
-        "[r] rehearsed by tests/test_torch_serve_benchmarks.py"))
+    def serving_bench(*a):
+        smoke.log("[r] rehearsed by tests/test_torch_serve_benchmarks.py")
+        return {"replica_flash_launches": dict.fromkeys(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 0)}
+
+    monkeypatch.setattr(smoke, "phase_serving_bench", serving_bench)
     # The bench at (h-2)'s batch, as on the card.
     from ray_tpu_torch import bench
     monkeypatch.setattr(bench, "CPU_BATCH", 2)
@@ -516,7 +520,8 @@ def test_chip_smoke_main_rehearsed_on_the_cpu(monkeypatch, capsys, tmp_path,
                                  "train_compiled": 30 * layers,
                                  "mixtral": 2, "spmd": 2, "spmd_compiled": 2,
                                  "zoo_mesh": 2, "feed": 2, "checkpoint": 2,
-                                 "train_gang": 2}
+                                 "train_gang": 2, "serving_bench": 0}
+    assert by_path["flash_fwd"]["serving_bench"] == 0
     # 2 layers under "dots" for each stand-in step
     for path in ("mixtral", "spmd", "spmd_compiled", "zoo_mesh", "feed",
                  "checkpoint", "train_gang", "runtime_actor_forward"):

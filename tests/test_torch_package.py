@@ -110,7 +110,13 @@ def test_importing_the_port_loads_no_jax():
             "ray_tpu_torch._private.rpc, ray_tpu_torch._private.latency, "
             "ray_tpu_torch._private.spawn_diag, "
             "ray_tpu_torch._private.workers.default_worker, "
-            "ray_tpu_torch._private.workers.zygote, ray_tpu_torch.health; "
+            "ray_tpu_torch._private.workers.zygote, ray_tpu_torch.health, "
+            "ray_tpu_torch.serve, ray_tpu_torch.serve.llm, "
+            "ray_tpu_torch.serve.schema, ray_tpu_torch.serve.benchmarks, "
+            "ray_tpu_torch.serve._private.controller, "
+            "ray_tpu_torch.serve._private.proxy, "
+            "ray_tpu_torch.experimental.internal_kv, "
+            "ray_tpu_torch._private.event_watch; "
             "print(sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -395,6 +395,13 @@ def test_chip_smoke_phase_m_rehearsed_on_the_cpu(monkeypatch, capsys,
         return 2.0, 1.0, [("aten::mm", 0.5)]
 
     monkeypatch.setattr(smoke, "profile_rl", profile_rl)
+    # (m-4)'s graphed DreamerV3 step: the CPU has no CUDA graph, so the
+    # eager step stands in for it (its arithmetic is held by
+    # test_torch_rl_dreamerv3.py::test_the_graphed_step_updates_as_the_eager_one)
+    from ray_tpu_torch.rllib.algorithms import dreamerv3 as tdv3
+
+    monkeypatch.setattr(tdv3.DreamerV3Learner, "train_step_graphed",
+                        tdv3.DreamerV3Learner.train_step)
     assert smoke.main(["--only", "m"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     for tag in ("[m-1]", "[m-2]", "[m-3]", "[m] (m-2) SAC", "[m] (m-2) V-trace",
@@ -405,6 +412,7 @@ def test_chip_smoke_phase_m_rehearsed_on_the_cpu(monkeypatch, capsys,
     assert max(rl["loop"]["cartpole_returns"]) > 60
     assert max(rl["more"]["multi_agent_returns"]) > 8
     assert rl["more"]["dreamer"]["train_step_share"] > 0
+    assert rl["more"]["dreamer_graph"]["max_abs_err"] == 0.0
     assert rl["module"]["bound_ms"] > 0
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}

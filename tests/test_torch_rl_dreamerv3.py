@@ -331,3 +331,47 @@ def test_dreamerv3_needs_cuda_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdv3.DreamerV3Config().environment("CartPole-v1").build()
+
+
+def test_the_graphed_step_updates_as_the_eager_one():
+    """The update that the CUDA graph of `train_step_graphed` captures (the
+    Adam counts as device tensors that it advances itself) against the
+    eager `train_step`, three steps from one state on the CPU: the metrics,
+    the parameters and the moments equal bit for bit. The capture itself
+    runs on the card only (chip_smoke.py (m-4))."""
+    cfg = tdv3.DreamerV3Config().training(
+        batch_size_B=2, batch_length_T=4, horizon_H=3, deter_dim=16,
+        stoch_groups=2, stoch_classes=4, embed_dim=8, hidden_dim=16)
+
+    def learner():
+        model = tdv3.DreamerModel(
+            4, 2, deter_dim=16, stoch_groups=2, stoch_classes=4,
+            embed_dim=8, hidden_dim=16,
+            generator=torch.Generator().manual_seed(0), device="cpu")
+        return tdv3.DreamerV3Learner(model, cfg.to_dict())
+
+    eager, graphed = learner(), learner()
+    graph = tdv3._GraphedStep.__new__(tdv3._GraphedStep)
+    graph.learner = graphed
+    graph.counts = {name: torch.zeros(()) for name in graphed.opt_state}
+    rng = np.random.default_rng(3)
+    gen = torch.Generator().manual_seed(4)
+    for _ in range(3):
+        batch = tdv3._to_device({
+            "obs": rng.standard_normal((2, 4, 4)).astype(np.float32),
+            "actions": rng.integers(0, 2, (2, 4)),
+            "rewards": rng.random((2, 4)).astype(np.float32),
+            "cont": np.ones((2, 4), np.float32)}, "cpu")
+        noise = eager.draw_noise(2, 4, gen)
+        want = eager.train_step(batch, noise)
+        got = graphed._train_step(batch, noise, graph._step)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    for (n, p), (_, q) in zip(graphed.model.named_parameters(),
+                              eager.model.named_parameters()):
+        assert torch.equal(p, q), n
+    for name, state in eager.opt_state.items():
+        assert float(graph.counts[name]) == state.count == 3
+        for a, b in zip(graphed.opt_state[name].mu + graphed.opt_state[
+                name].nu, state.mu + state.nu):
+            assert torch.equal(a, b), name

@@ -7,7 +7,8 @@ runtime's serve.llm on the CPU.
 JAX weights converted, fp32): the same result keys, the same request and
 token counts (n_requests * max_new_tokens, counted on the client's
 streams), and equal prefix-cache counters. The in-process stand-in of the
-stack streams the replica's greedy tokens; a call without a stack raises.
+stack streams the replica's greedy tokens; a stack that lacks an entry
+point a benchmark calls raises.
 """
 
 import dataclasses
@@ -173,15 +174,28 @@ def test_the_stand_in_streams_the_replica_tokens():
     assert not any(r._thread.is_alive() for r in replicas)
 
 
+def _stack(**missing):
+    """A ServingStack whose entry points all do nothing, but `missing`."""
+    fields = dict(init=lambda: None, run=lambda *a, **k: None,
+                  shutdown=lambda: None,
+                  build_llm_app=lambda *a, **k: None,
+                  get_actor=lambda name: None, get=lambda *a, **k: None)
+    fields.update(missing)
+    return ServingStack(**fields)
+
+
+# Without a stack the benchmarks run on the port's own serve
+# (tests/test_torch_serve_llm_runtime.py); a stack without the entry points
+# a benchmark calls raises, naming them.
 @pytest.mark.parametrize("call", [
-    lambda: benchmark_serving(device="cpu"),
-    lambda: run_prefix_ttft_benchmark(device="cpu"),
-    lambda: run_prefix_ttft_benchmark(stack=ServingStack(
-        init=lambda: None, run=None, shutdown=lambda: None,
-        build_llm_app=lambda *a, **k: None), device="cpu")],
+    lambda: benchmark_serving(stack=_stack(build_llm_app=None),
+                              device="cpu"),
+    lambda: run_prefix_ttft_benchmark(stack=_stack(get_actor=None, get=None),
+                                      device="cpu"),
+    lambda: run_prefix_ttft_benchmark(stack=_stack(run=None), device="cpu")],
     ids=["serving", "prefix", "prefix-without-run"])
 def test_a_call_without_a_stack_raises(call):
-    with pytest.raises(TypeError, match="stack"):
+    with pytest.raises(TypeError, match="stack has no"):
         call()
 
 
@@ -189,13 +203,18 @@ def test_chip_smoke_phase_r_rehearsed_on_the_cpu(monkeypatch, capsys,
                                                  tmp_path, request):
     """`chip_smoke.py --only r` with the card stubbed (as
     tests/test_torch_flash_sm90.py rehearses main()): the serving
-    benchmarks over the in-process stand-in of the stack, on the
-    reference's CPU prefix configuration (fp32) in place of Llama-3-8B,
-    (r-1) at 8 requests, (r-2) at its defaults; every request's stream,
-    the drained engines, the KV gauge and the phase histogram checked; no
-    flash kernel launched; the last line is the ok object."""
+    benchmarks on the port's own serve over the port's runtime (one faked
+    card, each engine replica a `num_gpus` actor in its own process), on
+    the reference's CPU prefix configuration (fp32) in place of Llama-3-8B,
+    which reaches the replicas as a value; (r-1) at 8 requests, (r-2) at
+    its defaults; every request's stream, the drained engines, one
+    prompt's tokens from a replica against the driver's copy, each replica
+    process's KV gauge and phase histogram checked; no flash kernel
+    launched; the [phases] line; the last line is the ok object."""
     import json
+    import os
 
+    from ray_tpu_torch._private.accelerators import nvidia
     from test_torch_flash_sm90 import rehearse_on_the_cpu
 
     smoke = rehearse_on_the_cpu(monkeypatch, tmp_path, request)
@@ -205,11 +224,22 @@ def test_chip_smoke_phase_r_rehearsed_on_the_cpu(monkeypatch, capsys,
     monkeypatch.setattr(smoke, "SERVING_BENCH", dict(
         num_replicas=2, n_requests=8, arrival_rate_hz=20.0,
         max_new_tokens=12, prompt_len=8))
+    fake = nvidia.GpuInfo(1, ("NVIDIA H100 80GB HBM3",), (85899345920,))
+    monkeypatch.setattr(smoke, "RUNTIME_INIT", dict(
+        num_cpus=4, resources={"GPU": 1}, _gpu_info=fake))
+    # the replicas ask for their share of the faked card, as on the card
+    from ray_tpu_torch.inference import benchmarks as ib
+    monkeypatch.setattr(ib, "replica_options",
+                        lambda dev, n: {"num_gpus": 1.0 / n})
+    # the phase puts the checkout on PYTHONPATH for its workers
+    monkeypatch.setenv("PYTHONPATH", os.environ.get("PYTHONPATH", ""))
     assert smoke.main(["--only", "r"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     for tag in ("[r-0] (NVIDIA H100 80GB HBM3, 700.00 W) a prefill wave",
-                "[r-1] (NVIDIA H100 80GB HBM3, 700.00 W) benchmark_serving",
-                "[r-2]", "[r-3]", "[phases]"):
+                "[r-1] (NVIDIA H100 80GB HBM3, 700.00 W) benchmark_serving "
+                "on the port's serve",
+                "[r-1] (NVIDIA H100 80GB HBM3, 700.00 W) one 40-token prompt",
+                "[r-2]", "[r-3]", "[phases] seconds by phase {'a': "):
         assert any(line.startswith(tag) for line in lines), tag
     assert any(line.startswith("[r] launches of the flash kernels") and
                "'flash_fwd': 0, 'flash_bwd_dq': 0, 'flash_bwd_dkv': 0" in line
@@ -217,6 +247,11 @@ def test_chip_smoke_phase_r_rehearsed_on_the_cpu(monkeypatch, capsys,
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
     out = json.loads(lines[-2])["serving_bench"]
     assert out["serving"]["detail"]["n_requests"] == 8
+    assert len(out["tokens"]) == 12
+    assert out["replica_flash_launches"] == {
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert len(out["requests_by_replica"]) == 2
+    assert all(n > 0 for n in out["requests_by_replica"])
     assert out["prefix"]["cache"]["hit_requests"] >= 6
     assert out["prefix"]["hit_over_cold"] < 1
     assert set(out["phase_report"]) == {"profiler", "steps", "fracs"}
